@@ -1,0 +1,457 @@
+// Fused DSP chain for one second of one antenna, hand-written for Hopper
+// (sm_90a).  Called through ctypes from ops/megakernel.py:chain_second_v2.
+//
+// Replaces the TPU kernel vlite_fast_tpu/ops/megakernel.py:chain_second_v2
+// (body _full_kernel_v2).  Same function as the port's
+// models/baseband_dsp.process_second with injection off and the
+// sequential EMA, in the natural layout:
+//
+//   1. front_kernel   one block per FFT block (both pols): convert, s2/s4
+//                     per nkurto window, fine and block D'Agostino TS
+//                     (pol-combined by max), gates, keep flag per window,
+//                     weight per (pol, block), flagged-window count per
+//                     segment.
+//   2. dft_kernel     one block per (frame, stream): the frame (masked by
+//                     the keep flags for the kurtosis stream) in shared
+//                     memory, Cooley-Tukey stage 1 (n1-point real DFTs
+//                     down the columns, only k1 <= n1/2, the rest by
+//                     conjugate symmetry) with the twiddle, stage 2
+//                     (n2-point DFTs, only the nfft/2+1 bins kept), |X|^2.
+//   3. ema_kernel     one thread per (stream, channel), both pols, walking
+//                     the second's spectra in order: per-segment seeding
+//                     (plus stale recovery and clipping on the weighted
+//                     stream), pscrunch, tscrunch, 2-bit thresholds, and
+//                     the pack of 4 channels per byte by warp shuffles,
+//                     written straight as sel_and_dig rows.
+//
+// What bounds it: the DFT is ~11 MFLOP per 12500-point frame, 40960
+// frames per data-second (2 pols x 2 streams), ~0.45 TFLOP/s of f32 FMA
+// work at real time, against 67 TFLOP/s of f32 on the card; the power
+// planes (2 x 2 x 10240 x 6251 f32, 1 GB) make one round trip through
+// device memory.  The EMA is a sequential recurrence over 10240 spectra:
+// its parallelism is channels x streams (~12.5k threads), so it is bound
+// by load latency, not bandwidth.  The simple design takes both costs:
+// f32 FMA on the CUDA cores (no tensor cores, no bf16 split planes),
+// the frame and stage-1 planes in 150 KB of shared memory, one block per
+// SM.  Keeping the power planes on chip and the DFT on tensor cores is
+// later work.
+//
+// Arithmetic in the front and the EMA uses the unfused __fmul_rn /
+// __fadd_rn so the gates and the bandpass round as the plain torch
+// version and the JAX reference do (no contraction into FMA).
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+struct DagK {
+  float c1, mu1, z21, z22, z23;  // D'Agostino constants (constants.py)
+};
+
+struct ChainParams {
+  long long nsamp;  // samples per pol in the second
+  int npol, nfft, n1, n2, n2_out, nchan, nkurto, wpf, ffts, nseg, nscrunch;
+  int nblk;         // FFT blocks per pol in the second (nseg * ffts)
+  int chanmin, chanmax, nbytes, pad;
+  float scale, oms, dag_thresh, dag_fb_thresh, dag_inf, clip_ratio,
+      clip_value, min_weight, sqrt_half, inv_sqrt_ns, q0, q1, q2;
+  // 1/n for the means over n (sum * 1/n, the form XLA gives jnp.mean)
+  float rkurto, rwpf, rwin, rffts, rns;
+  DagK kf, kb;
+};
+
+__device__ __forceinline__ float conv_u8(uint8_t u) {
+  return u == 0 ? 0.0f : (float)u * 0.0078125f - 1.0f;  // exact
+}
+
+__device__ __forceinline__ float dag_ts(float kur, const DagK& k,
+                                        float dag_inf) {
+  const float den = __fadd_rn(
+      1.0f, __fmul_rn(__fsub_rn(__fsub_rn(kur, 3.0f), k.mu1), k.z23));
+  const float t = __fdiv_rn(k.c1, den);
+  float d = fabsf(__fmul_rn(k.z21, __fsub_rn(k.z22, cbrtf(t))));
+  if (!(t > 0.0f)) d = dag_inf;
+  if (kur == 0.0f) d = dag_inf;
+  return d;
+}
+
+__global__ void front_kernel(ChainParams P, const uint8_t* __restrict__ raw,
+                             uint8_t* __restrict__ keep,
+                             float* __restrict__ weights,
+                             int* __restrict__ dagcnt) {
+  extern __shared__ float sm[];
+  float* m2s = sm;                       // (npol, wpf) window power
+  float* kus = sm + P.npol * P.wpf;      // (npol, wpf) window kurtosis
+  float* dags = kus + P.npol * P.wpf;    // (wpf,) pol-combined fine TS
+  const int j = blockIdx.x;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarp = blockDim.x >> 5;
+  for (int pw = warp; pw < P.npol * P.wpf; pw += nwarp) {
+    const int p = pw / P.wpf, w = pw - p * P.wpf;
+    const uint8_t* src = raw + (long long)p * P.nsamp +
+                         (long long)j * P.nfft + (long long)w * P.nkurto;
+    float s2 = 0.0f, s4 = 0.0f;
+    for (int i = lane; i < P.nkurto; i += 32) {
+      const float x = conv_u8(src[i]);
+      const float x2 = __fmul_rn(x, x);
+      s2 = __fadd_rn(s2, x2);
+      s4 = __fadd_rn(s4, __fmul_rn(x2, x2));
+    }
+    for (int o = 16; o > 0; o >>= 1) {
+      s2 = __fadd_rn(s2, __shfl_xor_sync(0xffffffffu, s2, o));
+      s4 = __fadd_rn(s4, __shfl_xor_sync(0xffffffffu, s4, o));
+    }
+    if (lane == 0) {
+      const float m2 = __fmul_rn(s2, P.rkurto);
+      const float m4 = __fmul_rn(s4, P.rkurto);
+      m2s[pw] = m2;
+      kus[pw] = m2 == 0.0f ? 0.0f : __fdiv_rn(m4, __fmul_rn(m2, m2));
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x != 0) return;
+  int nflag = 0;
+  for (int w = 0; w < P.wpf; ++w) {
+    float d = dag_ts(kus[w], P.kf, P.dag_inf);
+    for (int p = 1; p < P.npol; ++p)
+      d = fmaxf(d, dag_ts(kus[p * P.wpf + w], P.kf, P.dag_inf));
+    dags[w] = d;
+    nflag += d >= P.dag_thresh;
+  }
+  // block TS from the windows that passed the fine gate
+  float dfb = 0.0f;
+  for (int p = 0; p < P.npol; ++p) {
+    float wsum = 0.0f, psum = 0.0f, qsum = 0.0f;
+    for (int w = 0; w < P.wpf; ++w) {
+      const float wt = dags[w] < P.dag_thresh ? 1.0f : 0.0f;
+      const float pw = m2s[p * P.wpf + w], q = kus[p * P.wpf + w];
+      wsum = __fadd_rn(wsum, wt);
+      psum = __fadd_rn(psum, __fmul_rn(wt, pw));
+      qsum = __fadd_rn(qsum,
+                       __fmul_rn(__fmul_rn(__fmul_rn(wt, q), pw), pw));
+    }
+    float kblk = 0.0f;
+    if (wsum > 0.0f) {
+      const float pblk = __fdiv_rn(psum, wsum);
+      kblk = __fdiv_rn(__fdiv_rn(qsum, wsum), __fmul_rn(pblk, pblk));
+    }
+    const float d = dag_ts(kblk, P.kb, P.dag_inf);
+    dfb = p == 0 ? d : fmaxf(dfb, d);
+  }
+  const bool block_ok = P.dag_fb_thresh > 0.0f ? dfb < P.dag_fb_thresh
+                                               : true;
+  int nkeep = 0;
+  for (int w = 0; w < P.wpf; ++w) {
+    const int k = (dags[w] < P.dag_thresh) && block_ok;
+    keep[(long long)j * P.wpf + w] = (uint8_t)k;
+    nkeep += k;
+  }
+  const float wt = __fmul_rn((float)nkeep, P.rwpf);
+  for (int p = 0; p < P.npol; ++p) weights[(long long)p * P.nblk + j] = wt;
+  atomicAdd(&dagcnt[j / P.ffts], nflag);
+}
+
+__global__ void __launch_bounds__(512)
+    dft_kernel(ChainParams P, const uint8_t* __restrict__ raw,
+               const uint8_t* __restrict__ keep, int stream0,
+               const float2* __restrict__ w1, const float2* __restrict__ tw,
+               const float2* __restrict__ w2, float* __restrict__ power) {
+  extern __shared__ float sm[];
+  float* xs = sm;             // (n1, n2) frame, row m1, column m2
+  float* br = xs + P.nfft;    // (n1, n2) stage-1 output after twiddle, re
+  float* bi = br + P.nfft;    //                                        im
+  const int n1 = P.n1, n2 = P.n2;
+  const int f = blockIdx.x;
+  const int p = f / P.nblk, j = f - p * P.nblk;
+  const bool masked = stream0 + (int)blockIdx.y == 1;
+  const uint8_t* src = raw + (long long)p * P.nsamp + (long long)j * P.nfft;
+  const uint8_t* kp = keep + (long long)j * P.wpf;
+  for (int i = threadIdx.x; i < P.nfft; i += blockDim.x) {
+    float x = conv_u8(src[i]);
+    if (masked && !kp[i / P.nkurto]) x = 0.0f;
+    xs[i] = x;
+  }
+  __syncthreads();
+  // stage 1: A[k1, m2] = sum_m1 x[m1, m2] W_n1^{m1 k1}, k1 <= n1/2;
+  // real input gives A[n1 - k1] = conj(A[k1])
+  const int half = n1 / 2;
+  for (int idx = threadIdx.x; idx < (half + 1) * n2; idx += blockDim.x) {
+    const int k1 = idx / n2, m2 = idx - k1 * n2;
+    float ar = 0.0f, ai = 0.0f;
+    for (int m1 = 0; m1 < n1; ++m1) {
+      const float x = xs[m1 * n2 + m2];
+      const float2 w = __ldg(&w1[m1 * n1 + k1]);
+      ar = fmaf(x, w.x, ar);
+      ai = fmaf(x, w.y, ai);
+    }
+    const float2 t = __ldg(&tw[k1 * n2 + m2]);
+    br[k1 * n2 + m2] = ar * t.x - ai * t.y;
+    bi[k1 * n2 + m2] = ar * t.y + ai * t.x;
+    const int kc = n1 - k1;
+    if (k1 > 0 && kc != k1) {
+      const float2 tc = __ldg(&tw[kc * n2 + m2]);
+      br[kc * n2 + m2] = ar * tc.x + ai * tc.y;
+      bi[kc * n2 + m2] = ar * tc.y - ai * tc.x;
+    }
+  }
+  __syncthreads();
+  // stage 2: X[k1 + n1 k2] = sum_m2 B[k1, m2] W_n2^{m2 k2}, then |X|^2
+  float* out = power + (((long long)blockIdx.y * P.npol + p) * P.nblk + j) *
+                           P.nchan;
+  for (int k = threadIdx.x; k < P.nchan; k += blockDim.x) {
+    const int k2 = k / n1, k1 = k - k2 * n1;
+    const float* rr = br + k1 * n2;
+    const float* ri = bi + k1 * n2;
+    float pr = 0.0f, pi = 0.0f;
+    for (int m2 = 0; m2 < n2; ++m2) {
+      const float2 w = __ldg(&w2[m2 * P.n2_out + k2]);
+      const float a = rr[m2], b = ri[m2];
+      pr = fmaf(a, w.x, pr);
+      pr = fmaf(-b, w.y, pr);
+      pi = fmaf(a, w.y, pi);
+      pi = fmaf(b, w.x, pi);
+    }
+    out[k] = pr * pr + pi * pi;
+  }
+}
+
+__device__ __forceinline__ void emit(const ChainParams& P, float v,
+                                     int row, int c, int lane,
+                                     uint8_t* __restrict__ out) {
+  const bool in = c >= P.chanmin && c <= P.chanmax;
+  const unsigned lev = (v >= P.q0) + (v >= P.q1) + (v >= P.q2);
+  unsigned b = in ? lev << (2 * (lane & 3)) : 0u;
+  b |= __shfl_xor_sync(0xffffffffu, b, 1);
+  b |= __shfl_xor_sync(0xffffffffu, b, 2);
+  if (in && (lane & 3) == 0)
+    out[(long long)row * P.nbytes + (c - P.chanmin) / 4] = (uint8_t)b;
+}
+
+// a loop over the (at most two) pols with compile-time indices, so the
+// per-pol state stays in registers
+#define PER_POL(p) \
+  _Pragma("unroll") for (int p = 0; p < 2; ++p) if (p < P.npol)
+
+__global__ void ema_kernel(ChainParams P, int stream0,
+                           const float* __restrict__ power,
+                           const float* __restrict__ weights,
+                           const float* __restrict__ bp_in,
+                           float* __restrict__ bp_out,
+                           uint8_t* __restrict__ packed,
+                           uint8_t* __restrict__ packed_kur,
+                           const int* __restrict__ dagcnt,
+                           float* __restrict__ dag_frac) {
+  const int s = stream0 + blockIdx.y;    // 0 plain, 1 weighted
+  // thread -> channel with (c - chanmin) % 4 == lane % 4, so four
+  // neighbouring lanes hold the four channels of one output byte
+  const int c = blockIdx.x * blockDim.x + threadIdx.x - P.pad;
+  const int lane = threadIdx.x & 31;
+  const bool valid = c >= 0 && c < P.nchan;
+  const int cl = min(max(c, 0), P.nchan - 1);
+  if (blockIdx.x == 0 && blockIdx.y == 0)
+    for (int k = threadIdx.x; k < P.nseg; k += blockDim.x)
+      dag_frac[k] = __fmul_rn((float)dagcnt[k], P.rwin);
+  const long long pstride = (long long)P.nblk * P.nchan;   // per pol
+  const float* pw = power + (long long)blockIdx.y * P.npol * pstride + cl;
+  float bp[2] = {0.0f, 0.0f};
+  PER_POL(p)
+    bp[p] = bp_in[((long long)s * P.npol + p) * P.nchan + cl];
+  uint8_t* out = s == 0 ? packed : packed_kur;
+  const int nout = P.ffts / P.nscrunch;
+  for (int seg = 0; seg < P.nseg; ++seg) {
+    const int t0 = seg * P.ffts;
+    if (s == 0) {
+      PER_POL(p) {
+        float sum = 0.0f;
+#pragma unroll 8
+        for (int t = 0; t < P.ffts; ++t)
+          sum = __fadd_rn(sum,
+                          pw[p * pstride + (long long)(t0 + t) * P.nchan]);
+        float seed = __fmul_rn(sum, P.rffts);
+        if (seed == 0.0f) seed = 1.0f;
+        if (bp[p] == 0.0f) bp[p] = seed;
+      }
+      for (int o = 0; o < nout; ++o) {
+        float acc = 0.0f;
+        for (int q = 0; q < P.nscrunch; ++q) {
+          const long long t = t0 + o * P.nscrunch + q;
+          float op[2] = {0.0f, 0.0f};
+          PER_POL(p) {
+            const float v = pw[p * pstride + t * P.nchan];
+            bp[p] = __fadd_rn(__fmul_rn(P.scale, v), __fmul_rn(P.oms, bp[p]));
+            op[p] = __fsub_rn(__fdiv_rn(v, bp[p]), 1.0f);
+          }
+          const float v = P.npol == 2
+                              ? __fmul_rn(P.sqrt_half, __fadd_rn(op[0], op[1]))
+                              : op[0];
+          acc = __fadd_rn(acc, v);
+        }
+        emit(P, __fmul_rn(acc, P.inv_sqrt_ns), seg * nout + o, c, lane, out);
+      }
+    } else {
+      PER_POL(p) {
+        float sum = 0.0f;
+        int ngood = 0;
+#pragma unroll 8
+        for (int t = 0; t < P.ffts; ++t) {
+          const float w = weights[(long long)p * P.nblk + t0 + t];
+          const float v = pw[p * pstride + (long long)(t0 + t) * P.nchan];
+          if (w > 0.0f) {
+            sum = __fadd_rn(sum, __fdiv_rn(v, w));
+            ++ngood;
+          }
+        }
+        const float seed =
+            ngood > 0 ? __fdiv_rn(sum, (float)ngood) : 1.0f;
+        float b0 = bp[p] == 0.0f ? seed : bp[p];
+        const bool stale = ngood > 0 && (seed > __fmul_rn(5.0f, b0) ||
+                                         seed < __fmul_rn(0.2f, b0));
+        bp[p] = stale ? seed : b0;
+      }
+      for (int o = 0; o < nout; ++o) {
+        float acc = 0.0f, wsum = 0.0f;
+        int cnt = 0;
+        for (int q = 0; q < P.nscrunch; ++q) {
+          const long long t = t0 + o * P.nscrunch + q;
+          float op[2] = {0.0f, 0.0f}, wp[2] = {0.0f, 0.0f};
+          PER_POL(p) {
+            const float w = weights[(long long)p * P.nblk + t];
+            const bool good = w > 0.0f;
+            const float x =
+                good ? __fdiv_rn(pw[p * pstride + t * P.nchan], w) : 0.0f;
+            const bool clipped = x > __fmul_rn(bp[p], P.clip_ratio);
+            if (good && !clipped)
+              bp[p] = __fadd_rn(__fmul_rn(P.scale, x),
+                                __fmul_rn(P.oms, bp[p]));
+            op[p] = good ? (clipped ? P.clip_value
+                                    : __fsub_rn(__fdiv_rn(x, bp[p]), 1.0f))
+                         : 0.0f;
+            wp[p] = w;
+          }
+          float v, wt;
+          if (P.npol == 2) {
+            const bool g0 = wp[0] >= P.min_weight, g1 = wp[1] >= P.min_weight;
+            if (g0 && g1) {
+              v = __fmul_rn(P.sqrt_half, __fadd_rn(op[0], op[1]));
+              wt = __fmul_rn(0.5f, __fadd_rn(wp[0], wp[1]));
+            } else {
+              v = __fadd_rn(__fmul_rn(op[0], g0 ? 1.0f : 0.0f),
+                            __fmul_rn(op[1], g1 ? 1.0f : 0.0f));
+              wt = __fadd_rn(__fmul_rn(wp[0], g0 ? 1.0f : 0.0f),
+                             __fmul_rn(wp[1], g1 ? 1.0f : 0.0f));
+            }
+          } else {
+            v = op[0];
+            wt = wp[0];
+          }
+          const bool gt = wt >= P.min_weight;
+          const float wg = gt ? wt : 0.0f;
+          cnt += gt;
+          wsum = __fadd_rn(wsum, wg);
+          acc = __fadd_rn(acc, __fmul_rn(wg, v));
+        }
+        const bool ok = __fmul_rn(wsum, P.rns) >= P.min_weight;
+        const float val =
+            ok ? __fdiv_rn(acc, sqrtf((float)max(cnt, 1))) : 0.0f;
+        emit(P, val, seg * nout + o, c, lane, out);
+      }
+    }
+  }
+  if (valid)
+    PER_POL(p)
+      bp_out[((long long)s * P.npol + p) * P.nchan + c] = bp[p];
+}
+
+}  // namespace
+
+// ip (int64): npol, nsamp, nfft, n1, n2, nkurto, seg_per_sec, nscrunch,
+//             rfi_mode, chanmin, chanmax
+// fp (f32):   scale, oms, dag_thresh, dag_fb_thresh, dag_inf, clip_ratio,
+//             clip_value, min_weight, sqrt_half, inv_sqrt_ns, q0, q1, q2,
+//             kf[5], kb[5]   (DagK order: c1, mu1, z21, z22, z23)
+// Device pointers: raw u8 (npol, nsamp); w1 complex (n1, n1); tw complex
+// (n1, n2); w2 complex (n2, n2_out); bp_in / bp_out f32 (2, npol, nchan);
+// power f32 scratch (nstreams, npol, nblk, nchan); keep u8 scratch
+// (nblk * wpf); dagcnt i32 (nseg), zeroed; packed / packed_kur u8
+// (nseg * nout, nbytes); weights f32 (npol, nblk); dag_frac f32 (nseg).
+// Launches on `stream`; returns cudaGetLastError() after the launches.
+extern "C" int vf_chain_second(const long long* ip, const float* fp,
+                               const void* raw, const void* w1,
+                               const void* tw, const void* w2,
+                               const void* bp_in, void* power, void* keep,
+                               void* dagcnt, void* packed, void* packed_kur,
+                               void* weights, void* dag_frac, void* bp_out,
+                               void* stream) {
+  ChainParams P;
+  P.npol = (int)ip[0];
+  P.nsamp = ip[1];
+  P.nfft = (int)ip[2];
+  P.n1 = (int)ip[3];
+  P.n2 = (int)ip[4];
+  P.nkurto = (int)ip[5];
+  P.nseg = (int)ip[6];
+  P.nscrunch = (int)ip[7];
+  const int rfi_mode = (int)ip[8];
+  P.chanmin = (int)ip[9];
+  P.chanmax = (int)ip[10];
+  P.n2_out = P.nfft / 2 / P.n1 + 1;
+  P.nchan = P.nfft / 2 + 1;
+  P.wpf = P.nfft / P.nkurto;
+  P.ffts = (int)(P.nsamp / P.nseg / P.nfft);
+  P.nblk = P.nseg * P.ffts;
+  P.nbytes = (P.chanmax - P.chanmin + 1) / 4;
+  P.pad = (4 - P.chanmin % 4) % 4;
+  P.scale = fp[0];
+  P.oms = fp[1];
+  P.dag_thresh = fp[2];
+  P.dag_fb_thresh = fp[3];
+  P.dag_inf = fp[4];
+  P.clip_ratio = fp[5];
+  P.clip_value = fp[6];
+  P.min_weight = fp[7];
+  P.sqrt_half = fp[8];
+  P.inv_sqrt_ns = fp[9];
+  P.q0 = fp[10];
+  P.q1 = fp[11];
+  P.q2 = fp[12];
+  P.kf = DagK{fp[13], fp[14], fp[15], fp[16], fp[17]};
+  P.kb = DagK{fp[18], fp[19], fp[20], fp[21], fp[22]};
+  P.rkurto = 1.0f / (float)P.nkurto;
+  P.rwpf = 1.0f / (float)P.wpf;
+  P.rwin = 1.0f / (float)(P.ffts * P.wpf);
+  P.rffts = 1.0f / (float)P.ffts;
+  P.rns = 1.0f / (float)P.nscrunch;
+  cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t e;
+
+  if (rfi_mode > 0) {
+    const size_t sm = (size_t)(2 * P.npol * P.wpf + P.wpf) * sizeof(float);
+    front_kernel<<<P.nblk, 256, sm, st>>>(P, (const uint8_t*)raw,
+                                          (uint8_t*)keep, (float*)weights,
+                                          (int*)dagcnt);
+    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  }
+  const int stream0 = rfi_mode == 1 ? 1 : 0;
+  const int nstreams = rfi_mode == 2 ? 2 : 1;
+  const size_t smem = (size_t)3 * P.nfft * sizeof(float);
+  e = cudaFuncSetAttribute(dft_kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  dft_kernel<<<dim3(P.npol * P.nblk, nstreams), 512, smem, st>>>(
+      P, (const uint8_t*)raw, (const uint8_t*)keep, stream0,
+      (const float2*)w1, (const float2*)tw, (const float2*)w2,
+      (float*)power);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  const int nthr = P.nchan + P.pad;
+  ema_kernel<<<dim3((nthr + 63) / 64, nstreams), 64, 0, st>>>(
+      P, stream0, (const float*)power, (const float*)weights,
+      (const float*)bp_in, (float*)bp_out, (uint8_t*)packed,
+      (uint8_t*)packed_kur, (const int*)dagcnt, (float*)dag_frac);
+  return (int)cudaGetLastError();
+}
+
+extern "C" const char* vf_error_string(int e) {
+  return cudaGetErrorString((cudaError_t)e);
+}
