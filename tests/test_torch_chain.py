@@ -5,7 +5,9 @@ tests/test_megakernel.py): >= 0.9999 of output levels agree and none
 differs by more than one level (f32 DFTs summed in different orders move
 a few samples across a quantizer edge); weights bit-equal; dag_frac
 within 1e-6; carried bandpass within 1e-4 relative.  The JAX chain runs
-with ema_impl='scan', the sequential EMA the port implements.
+with ema_impl='scan', the sequential EMA the port implements, and with
+its one-pass program (ema_impl='pallas', rfi_impl='pallas'), which the
+port's armed program mirrors.
 """
 
 import dataclasses
@@ -66,13 +68,7 @@ def _jax_state(st):
                                   np.asarray(st.tail), np.asarray(st.wtail))
 
 
-@pytest.mark.parametrize("arm", [False, True])
-@pytest.mark.parametrize("nbit", [2, 8])
-@pytest.mark.parametrize("rfi_mode", [0, 1, 2])
-def test_process_second_matches_jax(rfi_mode, nbit, arm):
-    cfg = PipelineConfig.tiny(rfi_mode=rfi_mode, nbit=nbit, inject_frb=True,
-                              inject_dm=30.0, inject_amp=1.5,
-                              ema_impl="scan")
+def _assert_second_matches_jax(cfg, nbit, arm, port_second):
     raw0 = _noise(cfg.sample_rate, seed=1)
     raw1 = _noise(cfg.sample_rate, seed=2, burst_at=40000)
     # one clean second seeds the bandpass in JAX; both packages continue
@@ -82,16 +78,67 @@ def test_process_second_matches_jax(rfi_mode, nbit, arm):
     st_t = _jax_state(st_j)
     oj, sj = jdsp.process_second(cfg, jnp.asarray(raw1), st_j,
                                  jnp.asarray(arm))
-    ot, stt = tdsp.process_second(cfg, torch.from_numpy(raw1), st_t, arm)
+    ot, stt = port_second(cfg, torch.from_numpy(raw1), st_t, arm)
     for field in ("packed", "packed_kur"):
         _assert_levels(getattr(ot, field), getattr(oj, field), nbit)
     assert np.array_equal(ot.weights.numpy(), np.asarray(oj.weights))
     assert abs(float(ot.dag_frac) - float(oj.dag_frac)) < 1e-6
-    if rfi_mode:
+    if cfg.rfi_mode:
         assert float(ot.dag_frac) > 0          # the burst was flagged
     _assert_bp(stt.bp, sj.bp)
     _assert_bp(stt.bp_kur, sj.bp_kur)
     assert stt.segs_since_inject == int(sj.segs_since_inject)
+
+
+def _armed_cfg(rfi_mode, nbit, **kw):
+    return PipelineConfig.tiny(rfi_mode=rfi_mode, nbit=nbit, inject_frb=True,
+                               inject_dm=30.0, inject_amp=1.5, **kw)
+
+
+@pytest.mark.parametrize("arm", [False, True])
+@pytest.mark.parametrize("nbit", [2, 8])
+@pytest.mark.parametrize("rfi_mode", [0, 1, 2])
+def test_process_second_matches_jax(rfi_mode, nbit, arm):
+    """The armed program against the JAX sequential ('scan') chain."""
+    _assert_second_matches_jax(_armed_cfg(rfi_mode, nbit, ema_impl="scan"),
+                               nbit, arm, tdsp.process_second)
+
+
+@pytest.mark.parametrize("arm", [False, True])
+@pytest.mark.parametrize("rfi_mode", [0, 1, 2])
+def test_process_second_matches_jax_pallas_program(rfi_mode, arm):
+    """The armed program against the JAX package's one-pass program
+    (ema_impl='pallas', rfi_impl='pallas': the Pallas RFI front per
+    segment, each Pallas EMA once per second), kernels in interpret
+    mode."""
+    cfg = _armed_cfg(rfi_mode, 2, ema_impl="pallas", rfi_impl="pallas")
+    _assert_second_matches_jax(cfg, 2, arm, tdsp.process_second)
+
+
+@pytest.mark.parametrize("arm", [False, True])
+@pytest.mark.parametrize("rfi_mode", [0, 2])
+def test_process_second_plain_matches_jax(rfi_mode, arm):
+    """The segment-by-segment torch composition (the kernel path's
+    oracle on the card) against the JAX sequential chain."""
+    _assert_second_matches_jax(_armed_cfg(rfi_mode, 2, ema_impl="scan"),
+                               2, arm, tdsp.process_second_plain)
+
+
+def test_twin_program_dispatch(tmp_path):
+    """The twin is the chain kernel only where megakernel_supported
+    takes the configuration (the JAX package's resolve_twin_impl)."""
+    from vlite_fast_tpu.config import SearchConfig
+    from vlite_fast_tpu_torch.runtime.pipeline import StationPipeline
+    assert tdsp.twin_program(PipelineConfig()) is tdsp.twin_second
+    assert tdsp.twin_program(PipelineConfig(inject_frb=True)) is \
+        tdsp.twin_second
+    assert tdsp.twin_program(PipelineConfig.tiny()) is tdsp.process_second
+    pipe = StationPipeline(1, PipelineConfig.tiny(inject_frb=True),
+                           SearchConfig.tiny(), out_dir=str(tmp_path))
+    assert pipe._twin is tdsp.process_second
+    pipe = StationPipeline(1, PipelineConfig.tiny(nbit=2),
+                           SearchConfig.tiny(), out_dir=str(tmp_path))
+    assert pipe._twin is tdsp.twin_second
 
 
 # tests/test_megakernel.py geometry: nfft 2048 (CT 32x64), 16 FFTs per

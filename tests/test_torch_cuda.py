@@ -6,11 +6,15 @@ a machine without it; tests/conftest.py imports jax, so run it there as
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-Bars: the chain kernel to the chain bar of tests/test_torch_chain.py
-(>= 0.9999 of 2-bit levels, none off by more than one, weights equal,
-dag_frac within 1e-6, bandpass within 1e-4 relative); the dedispersion
-kernel allclose(rtol=1e-5, atol=1e-4) (the same f32 terms summed in
-another order).
+Bars: the chain kernel and the armed program to the chain bar of
+tests/test_torch_chain.py (>= 0.9999 of 2-bit levels, none off by more
+than one, weights equal, dag_frac within 1e-6, bandpass within 1e-4
+relative); the dedispersion kernel allclose(rtol=1e-5, atol=1e-4) (the
+same f32 terms summed in another order); the EMA kernels allclose(rtol=
+2e-6, atol=2e-6) (the JAX package's bar for its Pallas EMAs; kernel and
+plain version sum in the same order); the RFI front kernel equal masked
+voltages, weights and flags, TS within 1e-5 absolute (cbrtf against a
+float64 cube root, then the cancellation Z22 - cbrt t).
 """
 
 import numpy as np
@@ -18,11 +22,16 @@ import pytest
 import torch
 
 from vlite_fast_tpu.config import PipelineConfig, SearchConfig
+from vlite_fast_tpu_torch.models import baseband_dsp as tdsp
 from vlite_fast_tpu_torch.models import search as tsearch
 from vlite_fast_tpu_torch.ops import dedisperse as tdd
 from vlite_fast_tpu_torch.ops import dedisperse_pallas as tddp
 from vlite_fast_tpu_torch.ops import megakernel as tmk
+from vlite_fast_tpu_torch.ops import pallas_kernels as tpk
 from vlite_fast_tpu_torch.ops import quantize as tq
+from vlite_fast_tpu_torch.ops import rfi_pallas as trfi
+from vlite_fast_tpu_torch.runtime.pipeline import (ObservationDocument,
+                                                   StationPipeline)
 
 pytestmark = pytest.mark.cuda
 
@@ -123,3 +132,138 @@ def test_launch_counters_count_kernel_launches(cuda):
     tmk.chain_second_v2_plain(raw, torch.zeros((2, 2, cfg.nchan),
                                                device=cuda), cfg)
     assert tmk.LAUNCHES == before + 1
+    before = trfi.LAUNCHES
+    trfi.rfi_front(raw, cfg.nkurto, cfg.nfft)
+    trfi.rfi_front_plain(raw, cfg.nkurto, cfg.nfft)
+    assert trfi.LAUNCHES == before + 1
+    p = torch.rand((2, 16, 33), device=cuda)
+    bp, w = torch.zeros((2, 33), device=cuda), torch.ones((2, 16),
+                                                          device=cuda)
+    before = dict(tpk.LAUNCHES)
+    tpk.normalize_ema_pallas(p, bp, 0.02)
+    tpk.normalize_ema_weighted_pallas(p, w, bp, 0.02)
+    tdsp.norm_ops.normalize_ema(p, bp, 0.02)
+    assert tpk.LAUNCHES == {k: v + 1 for k, v in before.items()}
+
+
+@pytest.mark.parametrize("dag_fb_thresh", [0.0, 5.0])
+@pytest.mark.parametrize("npol", [1, 2])
+def test_rfi_front_kernel_matches_plain(cuda, npol, dag_fb_thresh):
+    cfg = PipelineConfig.tiny()             # nkurto 50, nfft 500
+    raw = torch.from_numpy(np.ascontiguousarray(
+        _noise(200_000, seed=3, burst_at=40000)[:npol])).to(cuda)
+    got = trfi.rfi_front(raw, cfg.nkurto, cfg.nfft, cfg.dag_thresh,
+                         dag_fb_thresh)
+    want = trfi.rfi_front_plain(raw, cfg.nkurto, cfg.nfft, cfg.dag_thresh,
+                                dag_fb_thresh)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(got[1], want[1])
+    assert torch.equal(got[2] >= cfg.dag_thresh, want[2] >= cfg.dag_thresh)
+    np.testing.assert_allclose(got[2].cpu().numpy(), want[2].cpu().numpy(),
+                               rtol=0, atol=1e-5)
+    assert float(got[1].min()) < 1.0        # the gates fired
+
+
+def _ema_inputs(seed, cuda):
+    rng = np.random.default_rng(seed)
+    p = rng.chisquare(2, (2, 96, 300)).astype(np.float32)
+    p[:, 17] = 0.0                          # dead spectrum
+    p[:, 64:] *= 10.0                       # a step: the stale check fires
+    p[0, 40] *= 400.0                       # clipped spectrum
+    bp = np.full((2, 300), 1.5, np.float32)
+    bp[:, ::3] = 0.0                        # cold channels seed
+    w = np.ones((2, 96), np.float32)
+    w[:, 10] = 0.0                          # zero-weight row
+    w[1, 30:35] = 0.5
+    return (torch.from_numpy(a).to(cuda) for a in (p, bp, w))
+
+
+@pytest.mark.parametrize("time_tile", [0, 16])
+def test_ema_kernel_matches_plain(cuda, time_tile):
+    p, bp, _ = _ema_inputs(4, cuda)
+    got = tpk.normalize_ema_pallas(p, bp, 0.02, time_tile=time_tile)
+    want = tdsp.norm_ops.normalize_ema(p, bp, 0.02, time_tile)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(),
+                                   rtol=2e-6, atol=2e-6)
+
+
+@pytest.mark.parametrize("time_tile", [0, 16])
+def test_ema_weighted_kernel_matches_plain(cuda, time_tile):
+    p, bp, w = _ema_inputs(5, cuda)
+    got = tpk.normalize_ema_weighted_pallas(p, w, bp, 0.05,
+                                            time_tile=time_tile)
+    want = tdsp.norm_ops.normalize_ema_weighted(p, w, bp, 0.05,
+                                                time_tile=time_tile)
+    torch.cuda.synchronize()
+    for g, ww in zip(got, want):
+        np.testing.assert_allclose(g.cpu().numpy(), ww.cpu().numpy(),
+                                   rtol=2e-6, atol=2e-6)
+    assert (got[0][:, 10] == 0.0).all()
+    assert (got[0][0, 40] == 10.0).any()
+
+
+@pytest.mark.parametrize("arm", [False, True])
+@pytest.mark.parametrize("rfi_mode", [0, 1, 2])
+def test_armed_second_kernels_match_plain(cuda, rfi_mode, arm):
+    """process_second (the three kernels) against process_second_plain
+    (torch ops, segment by segment) on the card, over two seconds."""
+    cfg = PipelineConfig.tiny(rfi_mode=rfi_mode, nbit=2, inject_frb=True,
+                              inject_dm=30.0, inject_amp=1.5)
+    st_k = st_p = tdsp.init_state(cfg, cuda)
+    before = (trfi.LAUNCHES, dict(tpk.LAUNCHES))
+    for sec, seed in enumerate((1, 2)):
+        raw = torch.from_numpy(_noise(cfg.sample_rate, seed=seed,
+                                      burst_at=40000)).to(cuda)
+        got, st_k = tdsp.process_second(cfg, raw, st_k, arm and sec == 0)
+        want, st_p = tdsp.process_second_plain(cfg, raw, st_p,
+                                               arm and sec == 0)
+        torch.cuda.synchronize()
+        for field in ("packed", "packed_kur"):
+            _assert_levels(getattr(got, field), getattr(want, field))
+        assert torch.equal(got.weights, want.weights)
+        assert abs(float(got.dag_frac) - float(want.dag_frac)) < 1e-6
+        _assert_bp(st_k.bp, st_p.bp)
+        _assert_bp(st_k.bp_kur, st_p.bp_kur)
+        assert st_k.segs_since_inject == st_p.segs_since_inject
+    assert trfi.LAUNCHES - before[0] == (2 if rfi_mode else 0)
+    assert tpk.LAUNCHES["normalize_ema_pallas"] - \
+        before[1]["normalize_ema_pallas"] == (0 if rfi_mode == 1 else 2)
+    assert tpk.LAUNCHES["normalize_ema_weighted_pallas"] - \
+        before[1]["normalize_ema_weighted_pallas"] == (2 if rfi_mode else 0)
+
+
+def test_pipeline_off_megakernel_config_matches_cpu(cuda, tmp_path):
+    """An 8-bit configuration (no chain kernel) runs on the card: the
+    twin is process_second, and the candidates are the CPU run's
+    (compared as tests/test_torch_pipeline.py compares them)."""
+    cfg = PipelineConfig.tiny(inject_frb=True, inject_dm=30.0,
+                              inject_amp=2.0, inject_width_s=8e-3)
+    scfg = SearchConfig.tiny()
+    rng = np.random.default_rng(17)
+    secs = [np.clip(rng.standard_normal((2, cfg.sample_rate)) / 0.05914
+                    + 128.5, 0, 255).astype(np.uint8) for _ in range(3)]
+    results = []
+    for dev in ("cpu", cuda):
+        pipe = StationPipeline(1, cfg, scfg, out_dir=str(tmp_path),
+                               write_cands=False, device=dev)
+        assert pipe._twin is tdsp.process_second
+        before = (trfi.LAUNCHES, dict(tpk.LAUNCHES))
+        results.append(pipe.run_observation(
+            ((1.6e9 + s, b) for s, b in enumerate(secs)),
+            ObservationDocument(name="CUDA", start_time=1.6e9),
+            write_fil=False))
+    # on the card every second (armed and twin) went through the kernels
+    assert trfi.LAUNCHES - before[0] == len(secs)
+    assert all(v - before[1][k] == len(secs)
+               for k, v in tpk.LAUNCHES.items())
+    clear = scfg.snr_thresh + 0.5
+    cands = [sorted((c for c in r.candidates if c.snr > clear),
+                    key=lambda c: (c.peak_idx, c.dmi)) for r in results]
+    assert len(cands[0]) >= 1
+    assert [(c.dmi, c.peak_idx, c.tfilt) for c in cands[1]] == \
+        [(c.dmi, c.peak_idx, c.tfilt) for c in cands[0]]
+    np.testing.assert_allclose([c.snr for c in cands[1]],
+                               [c.snr for c in cands[0]], rtol=1e-3)

@@ -8,9 +8,11 @@ clusters candidates.  The JAX package `vlite_fast_tpu` stays beside this
 one as the reference the tests hold it against.
 
 Layout mirrors the JAX package (same sub-package and module names):
-  ops/      — torch ops and the two hand-written CUDA kernels
-              (ops/megakernel.chain_second_v2, ops/dedisperse_pallas)
-  models/   — the composed DSP chain and the gulp search
+  ops/      — torch ops and the wrappers of the hand-written CUDA kernels
+              (ops/megakernel.chain_second_v2, ops/rfi_pallas.rfi_front,
+              ops/pallas_kernels' two EMAs, ops/dedisperse_pallas)
+  models/   — the composed DSP chain (the twin and the armed program)
+              and the gulp search
   runtime/  — StationPipeline
   csrc/     — CUDA C++ sources, built by _build.py with nvcc on first use
 

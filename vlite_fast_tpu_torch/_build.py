@@ -9,11 +9,13 @@ takes seconds, not minutes):
          -o build/vlite_fast_tpu_torch/lib<name>-<hash>.so
 
 The library lands in `build/vlite_fast_tpu_torch/` at the repo root, named
-by a hash of its source, so an edited kernel is rebuilt and a stale one
-is never loaded.  nvcc's output (the `-Xptxas -v` register and shared
-memory report) is kept beside it as `.log`.  Nothing here runs at import
-time: the first call of `load` builds.  A failed build raises with the
-compiler's message; nothing falls back.
+by a hash of its source and of every `csrc/` header it includes, so an
+edited kernel or header is rebuilt and a stale one is never loaded.
+nvcc's output (the `-Xptxas -v` register and shared memory report) is
+kept beside it as `.log`.  Nothing here runs at import time: the first
+call of `load` builds (`load_all` builds several at once, one nvcc
+each).  A failed build raises with the compiler's message; nothing falls
+back.
 """
 
 from __future__ import annotations
@@ -21,18 +23,23 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / \
     "vlite_fast_tpu_torch"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+# every library of the port, by csrc/<name>.cu
+LIBRARIES = ("chain", "dedisperse", "ema", "rfi_front")
 
 _LIBS: dict = {}
 BUILD_SECONDS: dict = {}   # name -> wall seconds of the nvcc run (0 if cached)
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 
 
 def nvcc_path() -> str:
@@ -46,11 +53,26 @@ def nvcc_path() -> str:
     return found
 
 
+def sources(name: str) -> list:
+    """csrc/<name>.cu and the csrc headers it includes, transitively."""
+    found, todo = [], [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop()
+        if path in found:
+            continue
+        found.append(path)
+        for inc in _INCLUDE.findall(path.read_bytes()):
+            dep = path.parent / inc.decode()
+            if dep.exists():
+                todo.append(dep)
+    return found
+
+
 def lib_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha1(src.read_bytes()
-                          + " ".join(ARCH_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    h = hashlib.sha1(" ".join(ARCH_FLAGS).encode())
+    for src in sources(name):
+        h.update(src.name.encode() + b"\0" + src.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def build(name: str) -> Path:
@@ -83,6 +105,15 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build(name)))
         _LIBS[name] = lib
     return lib
+
+
+def load_all(names=LIBRARIES) -> None:
+    """Build the libraries not built yet, one nvcc each, all started
+    together; then load them."""
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        list(pool.map(build, names))
+    for name in names:
+        load(name)
 
 
 def check(rc: int, what: str, lib: ctypes.CDLL) -> None:

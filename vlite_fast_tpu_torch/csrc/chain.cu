@@ -38,16 +38,15 @@
 //
 // Arithmetic in the front and the EMA uses the unfused __fmul_rn /
 // __fadd_rn so the gates and the bandpass round as the plain torch
-// version and the JAX reference do (no contraction into FMA).
+// version and the JAX reference do (no contraction into FMA).  The front's
+// statistics live in front.cuh, shared with rfi_front.cu.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-namespace {
+#include "front.cuh"
 
-struct DagK {
-  float c1, mu1, z21, z22, z23;  // D'Agostino constants (constants.py)
-};
+namespace {
 
 struct ChainParams {
   long long nsamp;  // samples per pol in the second
@@ -61,95 +60,18 @@ struct ChainParams {
   DagK kf, kb;
 };
 
-__device__ __forceinline__ float conv_u8(uint8_t u) {
-  return u == 0 ? 0.0f : (float)u * 0.0078125f - 1.0f;  // exact
-}
-
-__device__ __forceinline__ float dag_ts(float kur, const DagK& k,
-                                        float dag_inf) {
-  const float den = __fadd_rn(
-      1.0f, __fmul_rn(__fsub_rn(__fsub_rn(kur, 3.0f), k.mu1), k.z23));
-  const float t = __fdiv_rn(k.c1, den);
-  float d = fabsf(__fmul_rn(k.z21, __fsub_rn(k.z22, cbrtf(t))));
-  if (!(t > 0.0f)) d = dag_inf;
-  if (kur == 0.0f) d = dag_inf;
-  return d;
-}
-
 __global__ void front_kernel(ChainParams P, const uint8_t* __restrict__ raw,
                              uint8_t* __restrict__ keep,
                              float* __restrict__ weights,
                              int* __restrict__ dagcnt) {
   extern __shared__ float sm[];
-  float* m2s = sm;                       // (npol, wpf) window power
-  float* kus = sm + P.npol * P.wpf;      // (npol, wpf) window kurtosis
-  float* dags = kus + P.npol * P.wpf;    // (wpf,) pol-combined fine TS
   const int j = blockIdx.x;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nwarp = blockDim.x >> 5;
-  for (int pw = warp; pw < P.npol * P.wpf; pw += nwarp) {
-    const int p = pw / P.wpf, w = pw - p * P.wpf;
-    const uint8_t* src = raw + (long long)p * P.nsamp +
-                         (long long)j * P.nfft + (long long)w * P.nkurto;
-    float s2 = 0.0f, s4 = 0.0f;
-    for (int i = lane; i < P.nkurto; i += 32) {
-      const float x = conv_u8(src[i]);
-      const float x2 = __fmul_rn(x, x);
-      s2 = __fadd_rn(s2, x2);
-      s4 = __fadd_rn(s4, __fmul_rn(x2, x2));
-    }
-    for (int o = 16; o > 0; o >>= 1) {
-      s2 = __fadd_rn(s2, __shfl_xor_sync(0xffffffffu, s2, o));
-      s4 = __fadd_rn(s4, __shfl_xor_sync(0xffffffffu, s4, o));
-    }
-    if (lane == 0) {
-      const float m2 = __fmul_rn(s2, P.rkurto);
-      const float m4 = __fmul_rn(s4, P.rkurto);
-      m2s[pw] = m2;
-      kus[pw] = m2 == 0.0f ? 0.0f : __fdiv_rn(m4, __fmul_rn(m2, m2));
-    }
-  }
-  __syncthreads();
+  const FrontCounts c =
+      front_block(P, raw, j, sm, keep + (long long)j * P.wpf);
   if (threadIdx.x != 0) return;
-  int nflag = 0;
-  for (int w = 0; w < P.wpf; ++w) {
-    float d = dag_ts(kus[w], P.kf, P.dag_inf);
-    for (int p = 1; p < P.npol; ++p)
-      d = fmaxf(d, dag_ts(kus[p * P.wpf + w], P.kf, P.dag_inf));
-    dags[w] = d;
-    nflag += d >= P.dag_thresh;
-  }
-  // block TS from the windows that passed the fine gate
-  float dfb = 0.0f;
-  for (int p = 0; p < P.npol; ++p) {
-    float wsum = 0.0f, psum = 0.0f, qsum = 0.0f;
-    for (int w = 0; w < P.wpf; ++w) {
-      const float wt = dags[w] < P.dag_thresh ? 1.0f : 0.0f;
-      const float pw = m2s[p * P.wpf + w], q = kus[p * P.wpf + w];
-      wsum = __fadd_rn(wsum, wt);
-      psum = __fadd_rn(psum, __fmul_rn(wt, pw));
-      qsum = __fadd_rn(qsum,
-                       __fmul_rn(__fmul_rn(__fmul_rn(wt, q), pw), pw));
-    }
-    float kblk = 0.0f;
-    if (wsum > 0.0f) {
-      const float pblk = __fdiv_rn(psum, wsum);
-      kblk = __fdiv_rn(__fdiv_rn(qsum, wsum), __fmul_rn(pblk, pblk));
-    }
-    const float d = dag_ts(kblk, P.kb, P.dag_inf);
-    dfb = p == 0 ? d : fmaxf(dfb, d);
-  }
-  const bool block_ok = P.dag_fb_thresh > 0.0f ? dfb < P.dag_fb_thresh
-                                               : true;
-  int nkeep = 0;
-  for (int w = 0; w < P.wpf; ++w) {
-    const int k = (dags[w] < P.dag_thresh) && block_ok;
-    keep[(long long)j * P.wpf + w] = (uint8_t)k;
-    nkeep += k;
-  }
-  const float wt = __fmul_rn((float)nkeep, P.rwpf);
+  const float wt = __fmul_rn((float)c.nkeep, P.rwpf);
   for (int p = 0; p < P.npol; ++p) weights[(long long)p * P.nblk + j] = wt;
-  atomicAdd(&dagcnt[j / P.ffts], nflag);
+  atomicAdd(&dagcnt[j / P.ffts], c.nflag);
 }
 
 __global__ void __launch_bounds__(512)
@@ -426,7 +348,7 @@ extern "C" int vf_chain_second(const long long* ip, const float* fp,
   cudaError_t e;
 
   if (rfi_mode > 0) {
-    const size_t sm = (size_t)(2 * P.npol * P.wpf + P.wpf) * sizeof(float);
+    const size_t sm = (size_t)front_smem_floats(P) * sizeof(float);
     front_kernel<<<P.nblk, 256, sm, st>>>(P, (const uint8_t*)raw,
                                           (uint8_t*)keep, (float*)weights,
                                           (int*)dagcnt);

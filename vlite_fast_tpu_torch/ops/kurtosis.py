@@ -58,6 +58,13 @@ def dagostino_ts(kur: torch.Tensor, n: int,
     return dag.max(dim=0).values
 
 
+def dag_consts(n: int) -> list:
+    """The TS constants as the CUDA fronts take them (csrc/front.cuh
+    DagK): [1 - 2/A, mu1, Z2_1, Z2_2, Z2_3]."""
+    k = C.dagostino_constants(n)
+    return [1.0 - 2.0 / k["A"], k["mu1"], k["Z2_1"], k["Z2_2"], k["Z2_3"]]
+
+
 def block_stats(pow_w: torch.Tensor, kur_w: torch.Tensor, dag: torch.Tensor,
                 windows_per_fft: int, dag_thresh: float = C.DAG_THRESH
                 ) -> tuple[torch.Tensor, torch.Tensor]:

@@ -15,8 +15,8 @@ planes and their helpers (bp_to/from_factored_v2,
 unfactor_pack_realign_v2) are TPU layout and have no counterpart here.
 
 Dispatch: a CPU tensor goes to `chain_second_v2_plain` (the port's
-baseband_dsp.process_second with injection off); a CUDA tensor launches
-the kernel or raises.  LAUNCHES counts kernel launches.
+baseband_dsp.process_second_plain with injection off); a CUDA tensor
+launches the kernel or raises.  LAUNCHES counts kernel launches.
 """
 
 from __future__ import annotations
@@ -32,6 +32,7 @@ from vlite_fast_tpu.config import PipelineConfig
 from vlite_fast_tpu_torch import _build
 from vlite_fast_tpu_torch.models import baseband_dsp as dsp
 from vlite_fast_tpu_torch.ops import channelize as ch_ops
+from vlite_fast_tpu_torch.ops import kurtosis as kur_ops
 from vlite_fast_tpu_torch.ops import normalize as norm_ops
 
 LAUNCHES = 0
@@ -50,11 +51,6 @@ def _tables(nfft: int, device: torch.device) -> tuple:
             torch.view_as_real(torch.from_numpy(np.ascontiguousarray(t)))
             .contiguous().to(device) for t in (w1, tw, w2))
     return _TABLES[key]
-
-
-def _dag_consts(n: int) -> list:
-    k = C.dagostino_constants(n)
-    return [1.0 - 2.0 / k["A"], k["mu1"], k["Z2_1"], k["Z2_2"], k["Z2_3"]]
 
 
 def chain_second_v2_plain(raw: torch.Tensor, bp: torch.Tensor,
@@ -129,8 +125,8 @@ def chain_second_v2(raw: torch.Tensor, bp: torch.Tensor,
     fvals = [s, oms, cfg.dag_thresh, cfg.dag_fb_thresh, C.DAG_INF,
              C.BP_CLIP_RATIO, C.BP_CLIP_VALUE, cfg.min_weight,
              norm_ops._SQRT_HALF, norm_ops.inv_sqrt(cfg.nscrunch),
-             *C.QUANT2_THRESH, *_dag_consts(cfg.nkurto),
-             *_dag_consts(cfg.nfft)]
+             *C.QUANT2_THRESH, *kur_ops.dag_consts(cfg.nkurto),
+             *kur_ops.dag_consts(cfg.nfft)]
     fp = (ctypes.c_float * len(fvals))(*fvals)
     ptr = lambda t: ctypes.c_void_p(t.data_ptr())
     rc = fn(ctypes.cast(ip, ctypes.c_void_p), ctypes.cast(fp, ctypes.c_void_p),

@@ -3,8 +3,16 @@
 Port of vlite_fast_tpu/ops/normalize.py (ref src/pb_kernels.cu:393-630).
 The bandpass EMA is the sequential recurrence (the JAX package's
 ema_impl='scan' semantics): one Python step per spectrum over the
-(npol, nchan) bandpass.  It runs in the armed window only; the fused
-CUDA kernel (ops/megakernel) carries every other second.
+(npol, nchan) bandpass.  These are the plain versions of the one-pass
+EMA kernels (ops/pallas_kernels) and the oracle of the fused chain
+kernel (ops/megakernel).
+
+`time_tile` splits time into tiles of that many spectra, each seeded
+(and, weighted, stale-checked) from its own rows with the bandpass
+carried across tiles, as the JAX package's Pallas EMAs do; with
+time_tile = ffts_per_seg a whole second in one call equals the
+per-segment calls.  A tile's mean is its rows summed in time order, the
+order the kernels sum in, so kernel and plain version agree bit for bit.
 """
 
 from __future__ import annotations
@@ -26,21 +34,40 @@ def ema_constants(scale: float) -> tuple[float, float]:
     return float(s), float(np.float32(1.0) - s)
 
 
-def normalize_ema(power: torch.Tensor, bp: torch.Tensor, scale: float
-                  ) -> tuple[torch.Tensor, torch.Tensor]:
+def tile_rows(ntime: int, time_tile: int) -> int:
+    """Spectra per time tile: time_tile (0 = all), lowered to a divisor
+    of ntime (the JAX package's _tile_geometry off the TPU)."""
+    tt = min(time_tile or ntime, ntime)
+    while ntime % tt:
+        tt -= 1
+    return tt
+
+
+def _row_sum(x: torch.Tensor, t0: int, n: int) -> torch.Tensor:
+    """x[:, t0:t0+n] summed over dim 1 one row at a time, in order."""
+    acc = torch.zeros_like(x[:, t0])
+    for t in range(t0, t0 + n):
+        acc = acc + x[:, t]
+    return acc
+
+
+def normalize_ema(power: torch.Tensor, bp: torch.Tensor, scale: float,
+                  time_tile: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
     """Unweighted bandpass normalization (detect_and_normalize2).
 
-    power: (npol, ntime, nchan); bp: (npol, nchan), 0 = seed from this
-    chunk's mean (1 if that mean is 0).  Returns (p/bp - 1, new bp)."""
+    power: (npol, ntime, nchan); bp: (npol, nchan), 0 = seed from the
+    tile's mean (1 if that mean is 0).  Returns (p/bp - 1, new bp)."""
     s, oms = ema_constants(scale)
-    seed = power.sum(dim=1) * recip(power.shape[1])
-    seed = torch.where(seed == 0.0, torch.ones_like(seed), seed)
-    bp = torch.where(bp == 0.0, seed, bp)
+    tt = tile_rows(power.shape[1], time_tile)
     out = torch.empty_like(power)
-    for t in range(power.shape[1]):
-        p_t = power[:, t]
-        bp = s * p_t + oms * bp
-        out[:, t] = p_t / bp - 1.0
+    for t0 in range(0, power.shape[1], tt):
+        seed = _row_sum(power, t0, tt) * recip(tt)
+        seed = torch.where(seed == 0.0, torch.ones_like(seed), seed)
+        bp = torch.where(bp == 0.0, seed, bp)
+        for t in range(t0, t0 + tt):
+            p_t = power[:, t]
+            bp = s * p_t + oms * bp
+            out[:, t] = p_t / bp - 1.0
     return out, bp
 
 
@@ -48,6 +75,7 @@ def normalize_ema_weighted(power: torch.Tensor, weights: torch.Tensor,
                            bp: torch.Tensor, scale: float,
                            clip_ratio: float = C.BP_CLIP_RATIO,
                            clip_value: float = C.BP_CLIP_VALUE,
+                           time_tile: int = 0,
                            ) -> tuple[torch.Tensor, torch.Tensor]:
     """Kurtosis-weighted normalization (detect_and_normalize3).
 
@@ -55,31 +83,33 @@ def normalize_ema_weighted(power: torch.Tensor, weights: torch.Tensor,
       w == 0          -> out = 0, no bandpass update
       p/w > clip*bp   -> out = clip_value, no bandpass update
       else            -> bp = s*(p/w) + (1-s)*bp ; out = (p/w)/bp - 1
-    Seeding (bp==0) from the mean of p/w over good spectra (1 if none),
-    and stale-bandpass recovery: a chunk mean more than 5x off the carry
-    in either direction re-seeds it."""
+    Per tile: seeding (bp==0) from the mean of p/w over good spectra (1
+    if none), and stale-bandpass recovery: a tile mean more than 5x off
+    the carry in either direction re-seeds it."""
     s, oms = ema_constants(scale)
+    tt = tile_rows(power.shape[1], time_tile)
     w3 = weights[:, :, None]
     good = w3 > 0.0
     zero = torch.zeros_like(power)
     pw = torch.where(good, power / torch.where(good, w3,
                                                torch.ones_like(w3)), zero)
-    ngood = good.sum(dim=1)
-    seed = torch.where(ngood > 0, pw.sum(dim=1) / ngood.clamp(min=1),
-                       torch.ones_like(pw[:, 0]))
-    bp = torch.where(bp == 0.0, seed, bp)
-    stale = (ngood > 0) & ((seed > 5.0 * bp) | (seed < 0.2 * bp))
-    bp = torch.where(stale, seed, bp)
     out = torch.empty_like(power)
     clip = torch.full_like(bp, clip_value)
-    for t in range(power.shape[1]):
-        p_t, good_t = pw[:, t], good[:, t]
-        clipped = p_t > bp * clip_ratio
-        update = good_t & ~clipped
-        bp = torch.where(update, s * p_t + oms * bp, bp)
-        out[:, t] = torch.where(good_t, torch.where(clipped, clip,
-                                                    p_t / bp - 1.0),
-                                torch.zeros_like(bp))
+    for t0 in range(0, power.shape[1], tt):
+        ngood = good[:, t0:t0 + tt].sum(dim=1)
+        seed = torch.where(ngood > 0, _row_sum(pw, t0, tt)
+                           / ngood.clamp(min=1), torch.ones_like(bp))
+        bp = torch.where(bp == 0.0, seed, bp)
+        stale = (ngood > 0) & ((seed > 5.0 * bp) | (seed < 0.2 * bp))
+        bp = torch.where(stale, seed, bp)
+        for t in range(t0, t0 + tt):
+            p_t, good_t = pw[:, t], good[:, t]
+            clipped = p_t > bp * clip_ratio
+            update = good_t & ~clipped
+            bp = torch.where(update, s * p_t + oms * bp, bp)
+            out[:, t] = torch.where(good_t, torch.where(clipped, clip,
+                                                        p_t / bp - 1.0),
+                                    torch.zeros_like(bp))
     return out, bp
 
 

@@ -10,9 +10,11 @@ ObservationProducts, StationPipeline):
 Host gating of the FRB injection is the JAX pipeline's: for the
 inject_window_seconds after each minute's arm the armed program
 (baseband_dsp.process_second with injection) runs; every other second
-runs the injection-free twin (baseband_dsp.twin_second), which on a CUDA
-device is the fused chain kernel.  The baseband ring (keep_ring) and the
-coadd/trigger/dumper roles are not ported yet.
+runs the injection-free twin that baseband_dsp.twin_program picks once
+for the configuration: the fused chain kernel (twin_second) where it
+takes the geometry, else process_second with injection off.  The
+baseband ring (keep_ring) and the coadd/trigger/dumper roles are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -190,6 +192,7 @@ class StationPipeline:
         self.state = dsp.init_state(cfg, self.device)
         # the injection-free twin runs outside the window after each arm
         self._cfg_noinject = dataclasses.replace(cfg, inject_frb=False)
+        self._twin = dsp.twin_program(cfg)
         self._inject_until = -1
         self._fb = GulpStream()
         self._fb_dev = DeviceGulpStream()
@@ -245,8 +248,7 @@ class StationPipeline:
         """Build the CUDA kernels before the first second is fed, so no
         build stalls the stream mid-observation (a no-op once loaded)."""
         if self.device.type == "cuda":
-            _build.load("chain")
-            _build.load("dedisperse")
+            _build.load_all()
 
     def feed_second(self, sec: float, buf) -> List[dd.Candidate]:
         """Run one second; returns candidates that became final while it
@@ -280,8 +282,8 @@ class StationPipeline:
         if armed:
             out, self.state = dsp.process_second(cfg, raw, self.state, arm)
         else:
-            out, self.state = dsp.twin_second(self._cfg_noinject, raw,
-                                              self.state, arm)
+            out, self.state = self._twin(self._cfg_noinject, raw,
+                                         self.state, arm)
         pending_new = out.packed_kur if cfg.rfi_mode else out.packed
         plain_new = (out.packed if (cfg.rfi_mode == 2
                                     and self._fil_plain is not None)

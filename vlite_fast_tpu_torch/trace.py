@@ -5,12 +5,15 @@
 At the production geometry (PipelineConfig(inject_frb=True),
 SearchConfig()) it traces, one window each after a warm-up call:
   twin   one injection-free second through the chain kernel;
-  armed  one armed second through the torch chain (injection on);
+  armed  one armed second through process_second (injection on): the
+         RFI front kernel, the torch.matmul channelize and injection,
+         both EMA kernels, the scrunches and the pack;
   gulp   one production gulp search from packed bytes on the device
          (dequantize, dedispersion kernel, boxcar S/N, banded top-k).
 For each window it prints the wall time, the summed device time of the
 kernels and the device busy share (device time / wall), then the kernels
-by device time.
+by device time; then the peak device memory of the armed second and of
+the whole run.
 Needs one NVIDIA GPU; data from seeded numpy generators.
 """
 
@@ -70,7 +73,9 @@ def main() -> None:
     out, state = dsp.twin_second(twin_cfg, raw, state)
 
     traced("twin", lambda: dsp.twin_second(twin_cfg, raw, state))
+    torch.cuda.reset_peak_memory_stats(dev)
     traced("armed", lambda: dsp.process_second(cfg, raw, state, True))
+    armed_peak = torch.cuda.max_memory_allocated(dev) / 2**30
 
     eng = search_mod.SinglePulseSearch(scfg, cfg.tsamp, cfg.freqs_mhz(),
                                        device=dev)
@@ -79,8 +84,8 @@ def main() -> None:
                                    1)[:full].contiguous()
     traced("gulp", lambda: eng.search_gulp_device(packed, cfg.nbit, 0,
                                                   scfg.gulp_samps))
-    print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
-          f" GiB", flush=True)
+    print(f"peak device memory: armed second {armed_peak:.2f} GiB, run "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
 
 
 if __name__ == "__main__":
