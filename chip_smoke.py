@@ -25,6 +25,17 @@ Phases, each printing a line:
   7. one armed full-geometry second and the next (PipelineConfig(
      inject_frb=True), armed at the first) through process_second, the
      three kernels, against process_second_plain on torch ops;
+  8. the relayout kernel (ops/megakernel.pallas_pretranspose) against its
+     plain version on one full-geometry second: u8 tiles byte-equal, bf16
+     tiles value-equal;
+  9. the pretransposed chain kernels on phase 2's two seconds against
+     phase 2's plain results: chain_second in its three pretranspose
+     modes (byte-identical to each other) and chain_second_v4 on u8 and
+     bf16 tiles, timed with the relayout counted in;
+ 10. phase 4's main path once for each twin_chain_impl of the
+     pretransposed programs (megakernel, megakernel3, megakernel3f,
+     megakernel4): the FRB recovered, and every twin second launching the
+     kernels of its program and never chain_second_v2;
 then one JSON line of per-kernel results, and last
 {"ok": true, "device": {...}}.  Any failure exits non-zero before that.
 Imports no jax.  Data comes from seeded numpy and torch generators.
@@ -145,6 +156,16 @@ def levels_check(got, want, worst: dict, what: str) -> None:
         check(rel < 1e-4, f"{what}: bandpass off by {rel} relative")
 
 
+def _chain_row(name: str, source: str, line: str, worst: dict, ms: float,
+               plain_ms: float, **extra) -> dict:
+    return {"name": name, "route": "cuda",
+            "source": f"vlite_fast_tpu_torch/csrc/{source}",
+            "replaces": f"vlite_fast_tpu/ops/megakernel.py:{line}",
+            "max_abs_err": worst["dlev"], "agree_2bit": worst["agree"],
+            "bp_rel_err": worst["bp_rel"], "ms": ms, "plain_ms": plain_ms,
+            **extra}
+
+
 def phase_chain(dev, raws) -> dict:
     from vlite_fast_tpu_torch import PipelineConfig
     from vlite_fast_tpu_torch.ops import megakernel as mk
@@ -152,7 +173,7 @@ def phase_chain(dev, raws) -> dict:
     bp_k = torch.zeros((2, 2, cfg.nchan), device=dev)
     bp_p = bp_k.clone()
     worst = {"agree": 1.0, "dlev": 0, "bp_rel": 0.0, "dag": 0.0}
-    t_plain = []
+    t_plain, gots, wants = [], [], []
     for sec, raw in enumerate(raws):
         want, ms_plain = timed_wall(
             lambda: mk.chain_second_v2_plain(raw, bp_p, cfg))
@@ -161,6 +182,8 @@ def phase_chain(dev, raws) -> dict:
         torch.cuda.synchronize()
         levels_check(got, want, worst, f"chain second {sec}")
         bp_k, bp_p = got[4], want[4]
+        gots.append(got)
+        wants.append(want)
     ms = cuda_ms(lambda: mk.chain_second_v2(raws[0], bp_k, cfg), 5)
     log(f"[2] chain kernel vs plain, 2 full-geometry seconds: 2-bit "
         f"agreement >= {worst['agree']:.6f} (bar 0.9999), max level diff "
@@ -168,12 +191,8 @@ def phase_chain(dev, raws) -> dict:
         f"bandpass rel diff {worst['bp_rel']:.2e}; kernel {ms:.2f} ms per "
         f"data-second (CUDA events, 5 reps), plain "
         f"{t_plain[0]:.0f} / {t_plain[1]:.0f} ms (wall)")
-    return {"name": "chain_second_v2", "route": "cuda",
-            "source": "vlite_fast_tpu_torch/csrc/chain.cu",
-            "replaces": "vlite_fast_tpu/ops/megakernel.py:1602",
-            "max_abs_err": worst["dlev"], "agree_2bit": worst["agree"],
-            "bp_rel_err": worst["bp_rel"], "ms": ms,
-            "plain_ms": min(t_plain)}
+    return (_chain_row("chain_second_v2", "chain.cu", "1602", worst, ms,
+                       min(t_plain)), gots, wants)
 
 
 def phase_dedisperse(dev) -> dict:
@@ -208,13 +227,98 @@ def phase_dedisperse(dev) -> dict:
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
 
 
+def phase_pretranspose(dev, raw) -> dict:
+    from vlite_fast_tpu_torch import PipelineConfig
+    from vlite_fast_tpu_torch.ops import megakernel as mk
+    cfg = PipelineConfig()
+    args = (raw, cfg.nfft, cfg.npol_in, cfg.seg_per_sec)
+    res = {}
+    for dtype, what in ((torch.uint8, "u8"), (torch.bfloat16, "bf16")):
+        got = mk.pallas_pretranspose(*args, dtype)
+        want, plain_ms = timed_wall(
+            lambda: mk.pallas_pretranspose_plain(*args, dtype))
+        check(got.dtype == dtype and torch.equal(got, want),
+              f"pallas_pretranspose {what}: differs from plain")
+        shape = tuple(got.shape)
+        del got, want
+        res[what] = (cuda_ms(lambda: mk.pallas_pretranspose(*args, dtype),
+                             5), plain_ms)
+    log(f"[8] pallas_pretranspose kernel vs plain, one full-geometry second "
+        f"({tuple(raw.shape)} u8 -> {shape} tiles): u8 byte-equal, bf16 "
+        f"value-equal; kernel {res['u8'][0]:.3f} ms u8, {res['bf16'][0]:.3f} "
+        f"ms bf16 (CUDA events, 5 reps), plain {res['u8'][1]:.0f} / "
+        f"{res['bf16'][1]:.0f} ms (wall)")
+    return {"name": "pallas_pretranspose", "route": "cuda",
+            "source": "vlite_fast_tpu_torch/csrc/pretranspose.cu",
+            "replaces": "vlite_fast_tpu/ops/megakernel.py:221",
+            "max_abs_err": 0.0, "ms": res["u8"][0], "plain_ms": res["u8"][1],
+            "ms_bf16": res["bf16"][0], "plain_ms_bf16": res["bf16"][1]}
+
+
+def phase_ct_chains(dev, raws, v2_gots, wants, plain_ms) -> list:
+    """Kernels B and C on phase 2's seconds, each carrying its own
+    bandpass, against phase 2's plain results."""
+    from vlite_fast_tpu_torch import PipelineConfig
+    from vlite_fast_tpu_torch.ops import megakernel as mk
+    cfg = PipelineConfig()
+    programs = [(f"chain_second[{m}]",
+                 lambda raw, bp, m=m: mk.chain_second(raw, bp, cfg,
+                                                      pretranspose=m))
+                for m in mk.PRETRANSPOSE]
+    programs += [(f"chain_second_v4[{d}]",
+                  lambda raw, bp, d=d: mk.chain_second_v4(raw, bp, cfg,
+                                                          pre_dtype=d))
+                 for d in ("u8", "bf16")]
+    outs, worst, ms = {}, {}, {}
+    for name, fn in programs:
+        bp = torch.zeros((2, 2, cfg.nchan), device=dev)
+        w = worst.setdefault(name.split("[")[0], {
+            "agree": 1.0, "dlev": 0, "bp_rel": 0.0, "dag": 0.0})
+        outs[name] = []
+        for sec, raw in enumerate(raws):
+            got = fn(raw, bp)
+            torch.cuda.synchronize()
+            levels_check(got, wants[sec], w, f"{name} second {sec}")
+            outs[name].append(got)
+            bp = got[4]
+        ms[name] = cuda_ms(lambda: fn(raws[0], bp), 5)
+    b_modes = [f"chain_second[{m}]" for m in mk.PRETRANSPOSE]
+    for name in b_modes[1:]:
+        check(all(torch.equal(a, b) for sec in range(len(raws))
+                  for a, b in zip(outs[b_modes[0]][sec], outs[name][sec])),
+              f"{name} differs from {b_modes[0]}")
+    same_v2 = all(torch.equal(a, b) for sec in range(len(raws))
+                  for a, b in zip(outs[b_modes[0]][sec], v2_gots[sec]))
+    wb, wc = worst["chain_second"], worst["chain_second_v4"]
+    log(f"[9] chain_second kernel vs plain, phase 2's 2 seconds: the three "
+        f"pretranspose modes byte-identical (and bit-equal to "
+        f"chain_second_v2: {same_v2}); 2-bit agreement >= {wb['agree']:.6f}, "
+        f"max level diff {wb['dlev']}, weights equal, dag_frac diff "
+        f"{wb['dag']:.2e}, bandpass rel diff {wb['bp_rel']:.2e}; per "
+        f"data-second with the relayout (CUDA events, 5 reps): "
+        + ", ".join(f"{m} {ms[f'chain_second[{m}]']:.2f} ms"
+                    for m in mk.PRETRANSPOSE))
+    log(f"[9] chain_second_v4 kernel vs plain, same seconds: 2-bit agreement "
+        f">= {wc['agree']:.6f}, max level diff {wc['dlev']}, weights equal, "
+        f"dag_frac diff {wc['dag']:.2e}, bandpass rel diff "
+        f"{wc['bp_rel']:.2e}; per data-second with the relayout (CUDA "
+        f"events, 5 reps): u8 {ms['chain_second_v4[u8]']:.2f} ms, bf16 "
+        f"{ms['chain_second_v4[bf16]']:.2f} ms; plain {plain_ms:.0f} ms")
+    return [_chain_row("chain_second", "chain.cu", "961", wb,
+                       ms["chain_second[pallas]"], plain_ms,
+                       ms_by_pretranspose={m: ms[f"chain_second[{m}]"]
+                                           for m in mk.PRETRANSPOSE}),
+            _chain_row("chain_second_v4", "chain_v4.cu", "2048", wc,
+                       ms["chain_second_v4[u8]"], plain_ms,
+                       ms_bf16=ms["chain_second_v4[bf16]"])]
+
+
 def _counts() -> dict:
     from vlite_fast_tpu_torch.ops import dedisperse_pallas as ddp
     from vlite_fast_tpu_torch.ops import megakernel as mk
     from vlite_fast_tpu_torch.ops import pallas_kernels as pk
     from vlite_fast_tpu_torch.ops import rfi_pallas
-    return {"chain_second_v2": mk.LAUNCHES,
-            "dedisperse_pallas": ddp.LAUNCHES,
+    return {**mk.LAUNCHES, "dedisperse_pallas": ddp.LAUNCHES,
             "rfi_front": rfi_pallas.LAUNCHES, **pk.LAUNCHES}
 
 
@@ -223,26 +327,36 @@ def _zero_counts() -> None:
     from vlite_fast_tpu_torch.ops import megakernel as mk
     from vlite_fast_tpu_torch.ops import pallas_kernels as pk
     from vlite_fast_tpu_torch.ops import rfi_pallas
-    mk.LAUNCHES = ddp.LAUNCHES = rfi_pallas.LAUNCHES = 0
-    pk.LAUNCHES.update(dict.fromkeys(pk.LAUNCHES, 0))
+    ddp.LAUNCHES = rfi_pallas.LAUNCHES = 0
+    for counts in (mk.LAUNCHES, pk.LAUNCHES):
+        counts.update(dict.fromkeys(counts, 0))
 
 
 ARMED_KERNELS = ("rfi_front", "normalize_ema_pallas",
                  "normalize_ema_weighted_pallas")
+CHAIN_KERNELS = ("chain_second_v2", "pallas_pretranspose", "chain_second",
+                 "chain_second_v4")
+# the kernels each twin second launches once, by twin_chain_impl
+TWIN_KERNELS = {"auto": ("chain_second_v2",),
+                "megakernel": ("chain_second",),
+                "megakernel3": ("pallas_pretranspose", "chain_second"),
+                "megakernel3f": ("pallas_pretranspose", "chain_second"),
+                "megakernel4": ("pallas_pretranspose", "chain_second_v4")}
 
 
-def phase_main_path(dev) -> dict:
+def phase_main_path(dev, twin: str = "auto", tag: str = "[4]",
+                    n_sec: int = 40) -> dict:
     from vlite_fast_tpu_torch import PipelineConfig, SearchConfig
     from vlite_fast_tpu_torch.models import baseband_dsp as dsp
     from vlite_fast_tpu_torch.runtime.pipeline import (ObservationDocument,
                                                        StationPipeline)
-    cfg, scfg = PipelineConfig(inject_frb=True), SearchConfig()
+    cfg = PipelineConfig(inject_frb=True, twin_chain_impl=twin)
+    scfg = SearchConfig()
     rng = np.random.default_rng(0)
     staged = [torch.from_numpy(np.clip(
         rng.standard_normal((cfg.npol_in, cfg.sample_rate)) / 0.05914
         + 128.5, 0, 255).astype(np.uint8)).to(dev) for _ in range(3)]
     out_dir = tempfile.mkdtemp(prefix="vfast_smoke_")
-    n_sec = 40
     per_sec = []                # kernel launches in each fed second
     try:
         pipe = StationPipeline(1, cfg, scfg, out_dir=out_dir,
@@ -264,22 +378,26 @@ def phase_main_path(dev) -> dict:
         peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
-    armed, twin = pipe.feed_seconds["armed"], pipe.feed_seconds["twin"]
+    armed = pipe.feed_seconds["armed"]
     gulps = int(pipe.metrics.get("vfast_gulps_searched"))
     window = dsp.inject_window_seconds(cfg)
     check(prod.seconds == n_sec, f"{prod.seconds} seconds processed")
     check(len(armed) == window, f"{len(armed)} armed seconds")
+    twin_kernels = TWIN_KERNELS[twin]
     for sec, n in enumerate(per_sec):
         if sec < window:        # armed at second 0
-            ok = n["chain_second_v2"] == 0 and all(
+            ok = not any(n[k] for k in CHAIN_KERNELS) and all(
                 n[k] == 1 for k in ARMED_KERNELS)
         else:
-            ok = n["chain_second_v2"] == 1 and not any(
-                n[k] for k in ARMED_KERNELS)
-        check(ok, f"second {sec} ({'armed' if sec < window else 'twin'}) "
-              f"launched {n}")
-    check(launches["chain_second_v2"] == len(twin) == n_sec - len(armed),
-          f"chain kernel launches {launches} vs {len(twin)} twin seconds")
+            ok = all(n[k] == (k in twin_kernels) for k in CHAIN_KERNELS) \
+                and not any(n[k] for k in ARMED_KERNELS)
+        check(ok, f"{tag} second {sec} "
+              f"({'armed' if sec < window else 'twin'}) launched {n}")
+    twin_s = pipe.feed_seconds["twin"]
+    check(len(twin_s) == n_sec - len(armed) and all(
+        launches[k] == (len(twin_s) if k in twin_kernels else 0)
+        for k in CHAIN_KERNELS),
+        f"chain kernel launches {launches} vs {len(twin_s)} twin seconds")
     check(all(launches[k] == len(armed) for k in ARMED_KERNELS),
           f"armed kernel launches {launches} vs {len(armed)} armed seconds")
     check(gulps >= 1 and launches["dedisperse_pallas"] == gulps,
@@ -291,18 +409,19 @@ def phase_main_path(dev) -> dict:
         if prod.candidates else None
     check(best is not None and best.snr >= 10.0,
           f"injected FRB not recovered: best near DM 80 {best}, top {top}")
-    log(f"[4] main path: {prod.seconds} s of one antenna in {wall:.1f} s "
-        f"wall, real-time factor {n_sec / wall:.3f}; per data-second "
-        f"armed {', '.join(f'{1e3 * a:.1f}' for a in armed)} ms, twin "
-        f"{1e3 * np.mean(twin):.1f} ms x{len(twin)} (median "
-        f"{1e3 * np.median(twin):.1f}); {gulps} gulps; FRB at DM "
+    log(f"{tag} main path, twin_chain_impl={twin!r}: {prod.seconds} s of "
+        f"one antenna in {wall:.1f} s wall, real-time factor "
+        f"{n_sec / wall:.3f}; per data-second armed "
+        f"{', '.join(f'{1e3 * a:.1f}' for a in armed)} ms, twin "
+        f"{1e3 * np.mean(twin_s):.1f} ms x{len(twin_s)} (median "
+        f"{1e3 * np.median(twin_s):.1f}); {gulps} gulps; FRB at DM "
         f"{best.dm:.2f} S/N {best.snr:.2f} (top candidate DM {top.dm:.2f} "
         f"S/N {top.snr:.2f}, {len(prod.candidates)} candidates); peak "
         f"device memory {peak:.2f} GiB; launches {launches} (each armed "
         f"second: rfi_front and both EMA kernels once; each twin second: "
-        f"the chain kernel once)")
+        f"{' and '.join(twin_kernels)} once)")
     for c in sorted(prod.candidates, key=lambda c: -c.snr)[:5]:
-        log(f"[4]   candidate DM {c.dm:.2f} S/N {c.snr:.2f} at "
+        log(f"{tag}   candidate DM {c.dm:.2f} S/N {c.snr:.2f} at "
             f"{c.peak_time:.3f} s, width 2^{c.tfilt}, {c.ngiant} crossings")
     return launches
 
@@ -435,7 +554,7 @@ def main() -> None:
     nsamp = PipelineConfig().sample_rate
     raws = [torch.from_numpy(with_burst(noise_uint8(nsamp, s),
                                         40_000_000)).to(dev) for s in (5, 6)]
-    k_chain = phase_chain(dev, raws)
+    k_chain, v2_gots, wants = phase_chain(dev, raws)
     k_dedisp = phase_dedisperse(dev)
     torch.cuda.empty_cache()
     launches = phase_main_path(dev)
@@ -443,9 +562,22 @@ def main() -> None:
     k_ema = phase_ema(dev)
     torch.cuda.empty_cache()
     phase_armed(dev, raws)
-    kernels = [k_chain, k_dedisp, k_rfi, *k_ema]
+    torch.cuda.empty_cache()
+    k_pre = phase_pretranspose(dev, raws[0])
+    k_ct = phase_ct_chains(dev, raws, v2_gots, wants, k_chain["plain_ms"])
+    del v2_gots, wants
+    torch.cuda.empty_cache()
+    # the pretransposed programs' kernels count in their own main paths
+    for twin in ("megakernel", "megakernel3", "megakernel3f", "megakernel4"):
+        got = phase_main_path(dev, twin, "[10]")
+        for k in ("pallas_pretranspose", "chain_second", "chain_second_v4"):
+            launches[k] += got[k]
+        torch.cuda.empty_cache()
+    kernels = [k_chain, k_dedisp, k_rfi, *k_ema, k_pre, *k_ct]
     for k in kernels:
         k["launches"] = launches[k["name"]]
+        check(k["launches"] > 0, f"{k['name']} never launched on a main "
+              "path")
     print(json.dumps({"kernels": kernels}))
     log(smi)
     print(json.dumps({"ok": True, "device": {

@@ -166,7 +166,7 @@ def test_kernel1_plain_matches_jax_chain_second_v2():
         float(cfg.dag_fb_thresh))
     packed, packed_kur, weights, dag_t, bp_t = tmk.chain_second_v2(
         torch.from_numpy(raw), torch.zeros((2, 2, cfg.nchan)), cfg)
-    assert tmk.LAUNCHES == 0                  # CPU: the plain version
+    assert tmk.LAUNCHES["chain_second_v2"] == 0   # CPU: the plain version
     _assert_levels(packed, jmk.unfactor_pack_realign_v2(
         pp, cfg.nfft, cfg.chanmin, cfg.chanmax), 2)
     _assert_levels(packed_kur, jmk.unfactor_pack_realign_v2(
@@ -216,12 +216,17 @@ def test_state_carry_two_seconds():
 
 
 def test_twin_rejects_unsupported_on_cuda_only():
-    """megakernel_supported is the CUDA kernel's gate; the armed config
-    is not supported, the twin is."""
+    """megakernel_supported is the JAX package's gate and
+    chain_kernel_takes the CUDA kernels' own; the armed config is
+    supported by neither, the twin by both."""
     cfg = PipelineConfig(inject_frb=True)
     assert not tdsp.megakernel_supported(cfg)
-    assert tdsp.megakernel_supported(dataclasses.replace(cfg,
-                                                         inject_frb=False))
+    assert not tdsp.chain_kernel_takes(cfg)
+    cfg0 = dataclasses.replace(cfg, inject_frb=False)
+    assert tdsp.megakernel_supported(cfg0)
+    assert tdsp.chain_kernel_takes(cfg0)
+    assert tdsp.chain_kernel_takes(cfg0, "ct")
     assert not tdsp.megakernel_supported(PipelineConfig.tiny())   # 8-bit
+    assert not tdsp.chain_kernel_takes(PipelineConfig.tiny())
     assert tdsp.inject_window_seconds(cfg) == \
         jdsp.inject_window_seconds(cfg)

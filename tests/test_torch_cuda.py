@@ -6,7 +6,9 @@ a machine without it; tests/conftest.py imports jax, so run it there as
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-Bars: the chain kernel and the armed program to the chain bar of
+Bars: the chain kernels (chain_second_v2, chain_second in its three
+pretranspose modes, chain_second_v4) and the armed program to the chain
+bar of
 tests/test_torch_chain.py (>= 0.9999 of 2-bit levels, none off by more
 than one, weights equal, dag_frac within 1e-6, bandpass within 1e-4
 relative); the dedispersion kernel allclose(rtol=1e-5, atol=1e-4) (the
@@ -14,7 +16,10 @@ same f32 terms summed in another order); the EMA kernels allclose(rtol=
 2e-6, atol=2e-6) (the JAX package's bar for its Pallas EMAs; kernel and
 plain version sum in the same order); the RFI front kernel equal masked
 voltages, weights and flags, TS within 1e-5 absolute (cbrtf against a
-float64 cube root, then the cancellation Z22 - cbrt t).
+float64 cube root, then the cancellation Z22 - cbrt t); the
+pretranspose kernel byte-equal (u8) and value-equal (bf16) to its plain
+version; chain_second's three modes byte-identical to each other and to
+chain_second_v2 (one loader-agnostic sum order).
 """
 
 import numpy as np
@@ -96,6 +101,96 @@ def test_chain_kernel_matches_plain(cuda, rfi_mode, npol):
         assert float(got[2].mean()) < 1.0   # the gates fired
 
 
+def _mk_cfg(**kw):
+    return PipelineConfig(sample_rate=2048 * 16 * 3, seg_per_sec=3,
+                          nfft=2048, nkurto=256, chanmin=101, chanmax=612,
+                          nscrunch=8, **kw)
+
+
+@pytest.mark.parametrize("npol", [1, 2])
+def test_pretranspose_kernel_matches_plain(cuda, npol):
+    cfg = _mk_cfg()
+    raw = torch.from_numpy(np.ascontiguousarray(
+        _noise(cfg.sample_rate, seed=8)[:npol])).to(cuda)
+    raw[0, :100] = 0                        # zero bytes convert to 0.0
+    args = (raw, cfg.nfft, npol, cfg.seg_per_sec)
+    for dtype in (torch.uint8, torch.bfloat16):
+        got = tmk.pallas_pretranspose(*args, dtype)
+        want = tmk.pallas_pretranspose_plain(*args, dtype)
+        torch.cuda.synchronize()
+        assert got.dtype == dtype and torch.equal(got, want)
+    assert torch.equal(tmk.pallas_pretranspose(*args),
+                       tmk.pretranspose_u8(*args))
+
+
+@pytest.mark.parametrize("npol", [1, 2])
+@pytest.mark.parametrize("rfi_mode", [0, 1, 2])
+def test_chain_second_kernel_matches_plain(cuda, rfi_mode, npol):
+    """Kernel B in its three pretranspose modes: byte-identical to each
+    other and to the v2 kernel, and at the chain bar against plain, over
+    two seconds with the bandpass carried."""
+    cfg = _mk_cfg(rfi_mode=rfi_mode, npol_in=npol)
+    raw = torch.from_numpy(np.ascontiguousarray(
+        _noise(cfg.sample_rate, seed=7, burst_at=40000)[:npol])).to(cuda)
+    bp = torch.zeros((2, npol, cfg.nchan), device=cuda)
+    for _ in range(2):
+        want = tmk.chain_second_ct_plain(raw, bp, cfg)
+        v2 = tmk.chain_second_v2(raw, bp, cfg)
+        outs = [tmk.chain_second(raw, bp, cfg, pretranspose=m)
+                for m in tmk.PRETRANSPOSE]
+        torch.cuda.synchronize()
+        for got in outs:
+            for g, r in zip(got, v2):
+                assert torch.equal(g, r)
+        got = outs[0]
+        for g, w in zip(got[:2], want[:2]):
+            _assert_levels(g, w)
+        assert torch.equal(got[2], want[2])
+        np.testing.assert_allclose(got[3].cpu().numpy(),
+                                   want[3].cpu().numpy(), atol=1e-6)
+        _assert_bp(got[4], want[4])
+        bp = got[4]
+    if rfi_mode:
+        assert float(got[2].mean()) < 1.0   # the gates fired
+
+
+@pytest.mark.parametrize("pre_dtype", ["u8", "bf16"])
+@pytest.mark.parametrize("npol", [1, 2])
+@pytest.mark.parametrize("rfi_mode", [0, 1, 2])
+def test_chain_second_v4_kernel_matches_plain(cuda, rfi_mode, npol,
+                                              pre_dtype):
+    cfg = _mk_cfg(rfi_mode=rfi_mode, npol_in=npol)
+    raw = torch.from_numpy(np.ascontiguousarray(
+        _noise(cfg.sample_rate, seed=9, burst_at=40000)[:npol])).to(cuda)
+    bp = torch.zeros((2, npol, cfg.nchan), device=cuda)
+    for _ in range(2):
+        want = tmk.chain_second_v4_plain(raw, bp, cfg)
+        got = tmk.chain_second_v4(raw, bp, cfg, pre_dtype=pre_dtype)
+        torch.cuda.synchronize()
+        for g, w in zip(got[:2], want[:2]):
+            _assert_levels(g, w)
+        assert torch.equal(got[2], want[2])
+        np.testing.assert_allclose(got[3].cpu().numpy(),
+                                   want[3].cpu().numpy(), atol=1e-6)
+        _assert_bp(got[4], want[4])
+        bp = got[4]
+
+
+def test_chain_second_v4_chunks_agree(cuda, monkeypatch):
+    """The intermediate walked in chunks of one segment gives the whole
+    second's result."""
+    cfg = _mk_cfg(rfi_mode=2)
+    raw = torch.from_numpy(_noise(cfg.sample_rate, seed=4,
+                                  burst_at=40000)).to(cuda)
+    bp = torch.zeros((2, 2, cfg.nchan), device=cuda)
+    whole = tmk.chain_second_v4(raw, bp, cfg)
+    monkeypatch.setattr(tmk, "V4_CHUNK_BYTES", 1)
+    chunked = tmk.chain_second_v4(raw, bp, cfg)
+    torch.cuda.synchronize()
+    for a, b in zip(whole, chunked):
+        assert torch.equal(a, b)
+
+
 def test_chain_kernel_rejects_unsupported(cuda):
     cfg = PipelineConfig.tiny()             # 8-bit: not the kernel's
     raw = torch.zeros((2, cfg.sample_rate), dtype=torch.uint8, device=cuda)
@@ -126,12 +221,27 @@ def test_launch_counters_count_kernel_launches(cuda):
     cfg = PipelineConfig(sample_rate=2048 * 16, seg_per_sec=1, nfft=2048,
                          nkurto=256, chanmin=100, chanmax=611)
     raw = torch.from_numpy(_noise(cfg.sample_rate, seed=1)).to(cuda)
-    before = tmk.LAUNCHES
+    before = dict(tmk.LAUNCHES)
     tmk.chain_second_v2(raw, torch.zeros((2, 2, cfg.nchan), device=cuda),
                         cfg)
     tmk.chain_second_v2_plain(raw, torch.zeros((2, 2, cfg.nchan),
                                                device=cuda), cfg)
-    assert tmk.LAUNCHES == before + 1
+    assert tmk.LAUNCHES == dict(before, chain_second_v2=before[
+        "chain_second_v2"] + 1)
+    before = dict(tmk.LAUNCHES)
+    bp0 = torch.zeros((2, 2, cfg.nchan), device=cuda)
+    for mode in tmk.PRETRANSPOSE:
+        tmk.chain_second(raw, bp0, cfg, pretranspose=mode)
+    tmk.chain_second_v4(raw, bp0, cfg)
+    tmk.chain_second_ct_plain(raw, bp0, cfg)
+    tmk.pallas_pretranspose_plain(raw, cfg.nfft, 2, 1)
+    # 'xla' relayouts with torch; 'pallas', 'pallas_bf16' and v4 each
+    # launch the pretranspose kernel
+    assert tmk.LAUNCHES == dict(
+        chain_second_v2=before["chain_second_v2"],
+        chain_second=before["chain_second"] + 3,
+        chain_second_v4=before["chain_second_v4"] + 1,
+        pallas_pretranspose=before["pallas_pretranspose"] + 3)
     before = trfi.LAUNCHES
     trfi.rfi_front(raw, cfg.nkurto, cfg.nfft)
     trfi.rfi_front_plain(raw, cfg.nkurto, cfg.nfft)
@@ -259,6 +369,43 @@ def test_pipeline_off_megakernel_config_matches_cpu(cuda, tmp_path):
     assert trfi.LAUNCHES - before[0] == len(secs)
     assert all(v - before[1][k] == len(secs)
                for k, v in tpk.LAUNCHES.items())
+    clear = scfg.snr_thresh + 0.5
+    cands = [sorted((c for c in r.candidates if c.snr > clear),
+                    key=lambda c: (c.peak_idx, c.dmi)) for r in results]
+    assert len(cands[0]) >= 1
+    assert [(c.dmi, c.peak_idx, c.tfilt) for c in cands[1]] == \
+        [(c.dmi, c.peak_idx, c.tfilt) for c in cands[0]]
+    np.testing.assert_allclose([c.snr for c in cands[1]],
+                               [c.snr for c in cands[0]], rtol=1e-3)
+
+
+def test_pipeline_megakernel4_matches_cpu(cuda, tmp_path):
+    """twin_chain_impl='megakernel4' on the card: every twin second
+    launches the pretranspose and the v4 chain kernel once (never the v2
+    kernel), and the candidates are the CPU run's."""
+    cfg = PipelineConfig.tiny(nbit=2, inject_frb=True, inject_dm=30.0,
+                              inject_amp=2.0, inject_width_s=8e-3,
+                              twin_chain_impl="megakernel4")
+    scfg = SearchConfig.tiny()
+    rng = np.random.default_rng(17)
+    secs = [np.clip(rng.standard_normal((2, cfg.sample_rate)) / 0.05914
+                    + 128.5, 0, 255).astype(np.uint8) for _ in range(4)]
+    ntwin = len(secs) - tdsp.inject_window_seconds(cfg)
+    assert ntwin >= 1
+    results = []
+    for dev in ("cpu", cuda):
+        pipe = StationPipeline(1, cfg, scfg, out_dir=str(tmp_path),
+                               write_cands=False, device=dev)
+        assert pipe._twin is tdsp.twin_second
+        assert pipe._cfg_noinject.chain_impl == "megakernel4"
+        before = dict(tmk.LAUNCHES)
+        results.append(pipe.run_observation(
+            ((1.6e9 + s, b) for s, b in enumerate(secs)),
+            ObservationDocument(name="CUDA", start_time=1.6e9),
+            write_fil=False))
+    assert tmk.LAUNCHES == dict(
+        before, chain_second_v4=before["chain_second_v4"] + ntwin,
+        pallas_pretranspose=before["pallas_pretranspose"] + ntwin)
     clear = scfg.snr_thresh + 0.5
     cands = [sorted((c for c in r.candidates if c.snr > clear),
                     key=lambda c: (c.peak_idx, c.dmi)) for r in results]

@@ -2,7 +2,10 @@
 
 A subprocess blocks jax (sys.modules['jax'] = None makes any import of it
 fail), imports vlite_fast_tpu_torch with every submodule, and runs one
-tiny second through the chain and one tiny gulp search on the CPU.
+tiny second through the armed program and through each chain kernel's
+entry point (the relayout, chain_second in its three modes,
+chain_second_v4), resolves every twin program, and runs one tiny gulp
+search, all on the CPU.
 """
 
 import os
@@ -30,6 +33,20 @@ raw = np.clip(rng.standard_normal((2, cfg.sample_rate)) / 0.05914 + 128.5,
               0, 255).astype(np.uint8)
 out, st = dsp.process_second(cfg, torch.from_numpy(raw), dsp.init_state(cfg))
 assert out.packed_kur.shape == (cfg.seg_per_sec * cfg.out_samps_per_seg, 48)
+from vlite_fast_tpu_torch.ops import megakernel as mk
+t = torch.from_numpy(raw)
+bp = torch.zeros((2, 2, cfg.nchan))
+xs = mk.pallas_pretranspose(t, cfg.nfft, 2, cfg.seg_per_sec, torch.bfloat16)
+assert xs.shape == (cfg.seg_per_sec, 2 * cfg.ffts_per_seg * 128, 128)
+for mode in mk.PRETRANSPOSE:
+    got = mk.chain_second(t, bp, cfg, pretranspose=mode)
+    assert torch.equal(got[1], out.packed_kur)
+got = mk.chain_second_v4(t, bp, cfg, pre_dtype="bf16")
+assert torch.equal(got[1], out.packed_kur)
+import dataclasses
+for twin in ("auto", "same") + dsp.MEGAKERNELS:
+    c = dataclasses.replace(cfg, inject_frb=True, twin_chain_impl=twin)
+    dsp.twin_program(c)(dsp.twin_config(c), t, dsp.init_state(c))
 eng = search.SinglePulseSearch(SearchConfig.tiny(), cfg.tsamp,
                                cfg.freqs_mhz(), nsub=64, nbatch=64)
 rows = SearchConfig.tiny().gulp_samps + eng.overlap

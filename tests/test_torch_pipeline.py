@@ -79,6 +79,38 @@ def test_pipeline_candidates_match_jax(tmp_path, monkeypatch):
         prod_j.fil_path)
 
 
+@pytest.mark.parametrize("seg_per_sec", [10, 100])
+def test_cold_start_candidates_match_jax(tmp_path, seg_per_sec):
+    """Both pipelines from a cold bandpass on 5 s of pure noise, injection
+    off: the same candidates.  Each segment seeds the bandpass from its
+    ffts_per_seg spectra; with the tiny geometry's 200 neither finds
+    anything, with 20 (seg_per_sec 100) both find the same start-up
+    transient in the first 0.1 s (the production geometry seeds from 32)."""
+    cfg = PipelineConfig.tiny(nbit=2, ema_impl="scan",
+                              seg_per_sec=seg_per_sec)
+    scfg = SearchConfig.tiny()
+    secs = _seconds(cfg, 5)
+    results = []
+    for pipe_cls, doc in ((JPipe, JDoc), (TPipe, TDoc)):
+        pipe = pipe_cls(1, cfg, scfg, out_dir=str(tmp_path / doc.__module__),
+                        keep_ring=False, write_cands=False)
+        results.append(pipe.run_observation(
+            ((1.6e9 + s, buf) for s, buf in enumerate(secs)),
+            doc(name="COLD", start_time=1.6e9), write_fil=False))
+        if pipe_cls is JPipe:
+            pipe.close()
+    clear = scfg.snr_thresh + 0.5
+    cands = [sorted(((c.dmi, c.peak_idx, c.tfilt, c.snr)
+                     for c in r.candidates if c.snr > clear))
+             for r in results]
+    assert [c[:3] for c in cands[1]] == [c[:3] for c in cands[0]]
+    np.testing.assert_allclose([c[3] for c in cands[1]],
+                               [c[3] for c in cands[0]], rtol=1e-3)
+    for r in results:
+        early = [c for c in r.candidates if c.peak_time < 0.1]
+        assert bool(early) == (seg_per_sec == 100), r.candidates
+
+
 def test_keep_ring_not_ported():
     with pytest.raises(NotImplementedError, match="ring"):
         TPipe(1, PipelineConfig.tiny(), SearchConfig.tiny(), keep_ring=True)

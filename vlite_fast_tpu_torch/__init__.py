@@ -9,8 +9,10 @@ one as the reference the tests hold it against.
 
 Layout mirrors the JAX package (same sub-package and module names):
   ops/      — torch ops and the wrappers of the hand-written CUDA kernels
-              (ops/megakernel.chain_second_v2, ops/rfi_pallas.rfi_front,
-              ops/pallas_kernels' two EMAs, ops/dedisperse_pallas)
+              (ops/megakernel: chain_second_v2, chain_second,
+              chain_second_v4 and pallas_pretranspose;
+              ops/rfi_pallas.rfi_front, ops/pallas_kernels' two EMAs,
+              ops/dedisperse_pallas)
   models/   — the composed DSP chain (the twin and the armed program)
               and the gulp search
   runtime/  — StationPipeline

@@ -35,7 +35,8 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / \
     "vlite_fast_tpu_torch"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 # every library of the port, by csrc/<name>.cu
-LIBRARIES = ("chain", "dedisperse", "ema", "rfi_front")
+LIBRARIES = ("chain", "chain_v4", "dedisperse", "ema", "pretranspose",
+             "rfi_front")
 
 _LIBS: dict = {}
 BUILD_SECONDS: dict = {}   # name -> wall seconds of the nvcc run (0 if cached)

@@ -45,7 +45,8 @@ __global__ void rfi_front_kernel(RfiParams P, const uint8_t* __restrict__ raw,
   extern __shared__ float sm[];
   uint8_t* keep = (uint8_t*)(sm + front_smem_floats(P));
   const long long j = blockIdx.x;
-  const FrontCounts c = front_block(P, raw, j, sm, keep);
+  const FrontCounts c = front_block(
+      P, NaturalU8{raw, P.nsamp, P.nfft}, j, sm, keep);
   const float* dags = sm + 2 * P.npol * P.wpf;
   if (threadIdx.x == 0) {
     const float wt = __fmul_rn((float)c.nkeep, P.rwpf);

@@ -9,19 +9,27 @@ only.  Raw 8-bit voltages go through
   -> pscrunch [+weights] -> tscrunch [+weights] -> trim + quantize + pack
 
 `process_second` is the armed program, the JAX package's
-ema_impl='pallas' form: the front half (convert, the RFI front kernel
-ops/rfi_pallas.rfi_front, channelize, inject, detect) over the whole
-second, then one launch per stream of the one-pass EMA kernels
-(ops/pallas_kernels) with one tile per segment, then the scrunches and
-the pack.  It serves the injection window after each minute's arm, and
-every second of a configuration the fused chain kernel does not take.
-Every other second runs the injection-free twin (`twin_second`), which
-on a CUDA device is the fused kernel ops/megakernel.chain_second_v2;
-`twin_program` picks between the two.  `process_second_plain` is the
-same function segment by segment on torch ops only, the oracle of both.
+ema_impl='pallas', rfi_impl='pallas' program: the front half (convert, the
+RFI front kernel ops/rfi_pallas.rfi_front, channelize, inject, detect)
+over the whole second, then one launch per stream of the one-pass EMA
+kernels (ops/pallas_kernels) with one tile per segment, then the
+scrunches and the pack.  It serves the injection window after each
+minute's arm.  Every other second runs the injection-free twin, resolved
+once per configuration from chain_impl and twin_chain_impl as the JAX
+package resolves them (`resolve_twin_impl`, `twin_config`,
+`twin_program`): 'xla' is `process_second` with injection off, and the
+megakernel values are `twin_second` on the fused chain kernels of
+ops/megakernel ('megakernel2' chain_second_v2; 'megakernel',
+'megakernel3', 'megakernel3f' chain_second with pretranspose 'xla',
+'pallas', 'pallas_bf16'; 'megakernel4' chain_second_v4).
+`process_second_plain` is the same function segment by segment on torch
+ops only, the oracle of all of them.
 
-Config knobs that only pick a TPU implementation (chain_impl,
-twin_chain_impl, ema_impl, rfi_impl, front_layout, batch_streams,
+The port reads the JAX package's "on the TPU backend" of
+twin_chain_impl='auto' as "on any device": 'auto' gives the v2 chain
+kernel wherever it takes the geometry, so the CPU tests go through its
+entry point too.  Knobs that only pick a TPU implementation inside a
+program (ema_impl, rfi_impl, front_layout, batch_streams,
 dft_exact_input, dft_stage2, dft_precision) are ignored: every ema_impl
 and rfi_impl gives the sequential EMA's results, and the DFT is f32.
 """
@@ -103,20 +111,110 @@ def inject_window_seconds(cfg: PipelineConfig) -> int:
                        / cfg.seg_per_sec)) + 1
 
 
-def megakernel_supported(cfg: PipelineConfig) -> bool:
-    """Configs the fused chain kernel (ops/megakernel) accepts: the
-    injection-free, 2-bit, single-output-pol chain with the CT DFT."""
+MEGAKERNELS = ("megakernel", "megakernel2", "megakernel3", "megakernel3f",
+               "megakernel4")
+# chain_second's pretranspose for each CT-major-layout chain_impl
+_PRETRANSPOSE = {"megakernel": "xla", "megakernel3": "pallas",
+                 "megakernel3f": "pallas_bf16"}
+
+
+def chain_kernel_takes(cfg: PipelineConfig, layout: str = "natural") -> bool:
+    """Configs the port's chain kernels (ops/megakernel) accept: the
+    injection-free, 2-bit, single-output-pol chain with the CT DFT, one
+    frame and its two stage-1 planes in one block's shared memory (227 KB
+    on Hopper); the CT-major layout ('ct') also needs both CT factors
+    within its 128 x 128 tile."""
     if cfg.inject_frb or cfg.channelizer != "matmul" or cfg.nbit != 2:
         return False
     if cfg.npol_out != 1 or cfg.npol_in not in (1, 2) or cfg.do_histo:
         return False
     try:
-        ch_ops._ct_split(cfg.nfft)
+        n1, n2 = ch_ops._ct_split(cfg.nfft)
     except ValueError:
         return False
-    # one frame and its two stage-1 planes live in one block's shared
-    # memory (227 KB on Hopper)
+    if layout == "ct" and (n1 > 128 or n2 > 128):
+        return False
     return 3 * 4 * cfg.nfft <= 232448
+
+
+def megakernel_supported(cfg: PipelineConfig) -> bool:
+    """The JAX package's gate for chain_impl = cfg.chain_impl
+    (vlite_fast_tpu/models/baseband_dsp.megakernel_supported): the
+    injection-free 2-bit chain on a CT split within one 128-lane tile;
+    with the RFI front, kurtosis windows of whole m1 rows (nkurto % n2 ==
+    0), as powers of two dividing n1 for 'megakernel2' and at most 32
+    windows per frame for the others."""
+    if cfg.inject_frb or cfg.channelizer != "matmul" or cfg.nbit != 2:
+        return False
+    if cfg.npol_out != 1 or cfg.npol_in not in (1, 2):
+        return False
+    n1, n2 = ch_ops._ct_split(cfg.nfft)
+    n2_out = cfg.nfft // 2 // n1 + 1
+    if n1 > 128 or n2 > 128 or 2 * n2_out > 128 or n1 % 4:
+        return False
+    if cfg.rfi_mode > 0:
+        if cfg.nkurto % n2 or cfg.nfft % cfg.nkurto:
+            return False
+        rw = cfg.nkurto // n2
+        if cfg.chain_impl == "megakernel2":
+            if n1 % rw or rw & (rw - 1):
+                return False
+        elif n1 // rw > 32:
+            return False
+    return True
+
+
+def resolve_twin_impl(cfg: PipelineConfig) -> str:
+    """chain_impl of the program that serves every second outside the
+    armed window (the JAX pipeline's `_cfg_noinject`).
+
+    With injection, the JAX package's resolve_twin_impl: 'same' mirrors
+    chain_impl, an explicit value is taken as it is, and 'auto' gives
+    'megakernel2' where the v2 chain kernel takes the geometry (on any
+    device, see the module docstring), else chain_impl.  Without
+    injection there is no armed program and chain_impl governs every
+    second, as in the JAX pipeline; only 'auto' with the default
+    chain_impl='xla' takes the v2 kernel's reading.
+
+    Raises ValueError where the JAX package raises: a megakernel
+    chain_impl with injection (the armed program cannot be one), and a
+    megakernel value whose gate (megakernel_supported) refuses the
+    configuration."""
+    if cfg.inject_frb and cfg.chain_impl in MEGAKERNELS:
+        raise ValueError(
+            f"chain_impl={cfg.chain_impl!r} cannot run the armed program "
+            "(inject_frb=True); choose the twin with twin_chain_impl")
+    t = cfg.twin_chain_impl
+    cfg0 = dataclasses.replace(cfg, inject_frb=False)
+    if t == "auto" and cfg.chain_impl == "xla":
+        return "megakernel2" if chain_kernel_takes(cfg0) else "xla"
+    if not cfg.inject_frb or t in ("same", "auto"):
+        impl = cfg.chain_impl
+    else:
+        impl = t
+    if impl in MEGAKERNELS and not megakernel_supported(
+            dataclasses.replace(cfg0, chain_impl=impl)):
+        raise ValueError(
+            f"chain_impl={impl!r} unsupported for this config (channelizer, "
+            "nbit, npol, CT geometry or kurtosis windows); see "
+            "baseband_dsp.megakernel_supported")
+    return impl
+
+
+def twin_config(cfg: PipelineConfig) -> PipelineConfig:
+    """The configuration the twin program runs: injection off, chain_impl
+    resolved (resolve_twin_impl, which raises on what it refuses)."""
+    return dataclasses.replace(cfg, inject_frb=False,
+                               chain_impl=resolve_twin_impl(cfg))
+
+
+def twin_program(cfg: PipelineConfig):
+    """The program of the seconds outside the armed window, to be called
+    with twin_config(cfg): `twin_second` for a megakernel chain_impl,
+    else `process_second`."""
+    if resolve_twin_impl(cfg) in MEGAKERNELS:
+        return twin_second
+    return process_second
 
 
 def _rfi_stage(cfg: PipelineConfig, x: torch.Tensor):
@@ -273,25 +371,29 @@ def process_second(cfg: PipelineConfig, raw_second: torch.Tensor,
     return SegmentOutput(packed, packed_kur, weights, dag_frac), new_state
 
 
-def twin_program(cfg: PipelineConfig):
-    """The injection-free program the pipeline runs outside the armed
-    window (the JAX package's resolve_twin_impl): `twin_second`, the
-    fused chain kernel, where megakernel_supported allows it, else
-    `process_second` with injection off."""
-    cfg0 = dataclasses.replace(cfg, inject_frb=False)
-    return twin_second if megakernel_supported(cfg0) else process_second
-
-
 def twin_second(cfg: PipelineConfig, raw_second: torch.Tensor,
                 state: DSPState, arm_inject: bool = False
                 ) -> tuple[SegmentOutput, DSPState]:
-    """The injection-free program through ops/megakernel.chain_second_v2:
-    the CUDA kernel for a CUDA tensor, its plain version (this module's
-    run_segments) for a CPU one."""
+    """The injection-free program on the fused chain kernel that
+    cfg.chain_impl names ('megakernel2', and any value that is not a
+    megakernel, the v2 kernel; see the module docstring): the CUDA kernel
+    for a CUDA tensor, the plain version (this module's run_segments) for
+    a CPU one.  The state is the natural DSPState of every program:
+    the bandpasses come back from the kernel, segs_since_inject advances
+    by seg_per_sec, the channelizer tails pass through."""
     from vlite_fast_tpu_torch.ops import megakernel as mk
     since = 0 if arm_inject else state.segs_since_inject
-    packed, packed_kur, weights, dag, bp_new = mk.chain_second_v2(
-        raw_second, torch.stack([state.bp, state.bp_kur]), cfg)
+    bp = torch.stack([state.bp, state.bp_kur])
+    impl = cfg.chain_impl
+    if impl == "megakernel4":
+        out = mk.chain_second_v4(raw_second, bp, cfg, pre_dtype="u8",
+                                 pre_impl="xlu")
+    elif impl in _PRETRANSPOSE:
+        out = mk.chain_second(raw_second, bp, cfg,
+                              pretranspose=_PRETRANSPOSE[impl])
+    else:
+        out = mk.chain_second_v2(raw_second, bp, cfg)
+    packed, packed_kur, weights, dag, bp_new = out
     new_state = state._replace(
         bp=bp_new[0], bp_kur=bp_new[1],
         segs_since_inject=since + cfg.seg_per_sec if since >= 0 else since)

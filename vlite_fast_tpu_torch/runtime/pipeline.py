@@ -10,16 +10,17 @@ ObservationProducts, StationPipeline):
 Host gating of the FRB injection is the JAX pipeline's: for the
 inject_window_seconds after each minute's arm the armed program
 (baseband_dsp.process_second with injection) runs; every other second
-runs the injection-free twin that baseband_dsp.twin_program picks once
-for the configuration: the fused chain kernel (twin_second) where it
-takes the geometry, else process_second with injection off.  The
+runs the injection-free twin, resolved once at construction from
+chain_impl and twin_chain_impl as the JAX pipeline resolves them
+(baseband_dsp.twin_config / twin_program: a fused chain kernel through
+twin_second, or process_second with injection off).  A configuration the
+resolution refuses raises ValueError here, not at its first second.  The
 baseband ring (keep_ring) and the coadd/trigger/dumper roles are not
 ported yet.
 """
 
 from __future__ import annotations
 
-import dataclasses
 import os
 import tempfile
 import time
@@ -191,7 +192,7 @@ class StationPipeline:
         self.write_cands = write_cands
         self.state = dsp.init_state(cfg, self.device)
         # the injection-free twin runs outside the window after each arm
-        self._cfg_noinject = dataclasses.replace(cfg, inject_frb=False)
+        self._cfg_noinject = dsp.twin_config(cfg)
         self._twin = dsp.twin_program(cfg)
         self._inject_until = -1
         self._fb = GulpStream()

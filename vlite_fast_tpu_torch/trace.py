@@ -1,10 +1,15 @@
 """Where the time goes on the card: a torch.profiler trace of the main path.
 
-    python -m vlite_fast_tpu_torch.trace
+    python -m vlite_fast_tpu_torch.trace [--twin auto|same|xla|megakernel|
+                                          megakernel2|megakernel3|
+                                          megakernel3f|megakernel4]
 
-At the production geometry (PipelineConfig(inject_frb=True),
-SearchConfig()) it traces, one window each after a warm-up call:
-  twin   one injection-free second through the chain kernel;
+At the production geometry (PipelineConfig(inject_frb=True,
+twin_chain_impl=TWIN), SearchConfig()) it traces, one window each after
+a warm-up call:
+  twin   one injection-free second through the twin program that TWIN
+         resolves to (baseband_dsp.twin_program; 'auto', the default,
+         is the v2 chain kernel);
   armed  one armed second through process_second (injection on): the
          RFI front kernel, the torch.matmul channelize and injection,
          both EMA kernels, the scrunches and the pack;
@@ -19,7 +24,7 @@ Needs one NVIDIA GPU; data from seeded numpy generators.
 
 from __future__ import annotations
 
-import dataclasses
+import argparse
 import time
 
 import numpy as np
@@ -60,19 +65,26 @@ def traced(name: str, fn, top: int = 8) -> None:
 
 
 def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--twin", default="auto",
+                    help="twin_chain_impl of the traced twin second")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("trace: needs an NVIDIA GPU")
     dev = torch.device("cuda", 0)
-    cfg, scfg = PipelineConfig(inject_frb=True), SearchConfig()
+    cfg = PipelineConfig(inject_frb=True, twin_chain_impl=args.twin)
+    scfg = SearchConfig()
     rng = np.random.default_rng(0)
     raw = torch.from_numpy(np.clip(
         rng.standard_normal((cfg.npol_in, cfg.sample_rate)) / 0.05914
         + 128.5, 0, 255).astype(np.uint8)).to(dev)
-    twin_cfg = dataclasses.replace(cfg, inject_frb=False)
+    twin, twin_cfg = dsp.twin_program(cfg), dsp.twin_config(cfg)
+    print(f"twin_chain_impl {args.twin!r}: {twin.__name__} with chain_impl "
+          f"{twin_cfg.chain_impl!r}", flush=True)
     state = dsp.init_state(cfg, dev)
-    out, state = dsp.twin_second(twin_cfg, raw, state)
+    out, state = twin(twin_cfg, raw, state)
 
-    traced("twin", lambda: dsp.twin_second(twin_cfg, raw, state))
+    traced("twin", lambda: twin(twin_cfg, raw, state))
     torch.cuda.reset_peak_memory_stats(dev)
     traced("armed", lambda: dsp.process_second(cfg, raw, state, True))
     armed_peak = torch.cuda.max_memory_allocated(dev) / 2**30
