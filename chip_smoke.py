@@ -27,7 +27,8 @@ Phases, each printing a line:
      three kernels, against process_second_plain on torch ops;
   8. the relayout kernel (ops/megakernel.pallas_pretranspose) against its
      plain version on one full-geometry second: u8 tiles byte-equal, bf16
-     tiles value-equal;
+     tiles value-equal; the u8 tiles timed beside one PyTorch call that
+     gives them (F.pad of the permuted view);
   9. the pretransposed chain kernels on phase 2's two seconds against
      phase 2's plain results: chain_second in its three pretranspose
      modes (byte-identical to each other) and chain_second_v4 on u8 and
@@ -36,14 +37,39 @@ Phases, each printing a line:
      pretransposed programs (megakernel, megakernel3, megakernel3f,
      megakernel4): the FRB recovered, and every twin second launching the
      kernels of its program and never chain_second_v2;
-then one JSON line of per-kernel results, and last
+ 11. the staged chain's stage A (ops/megakernel.dft_detect_power, the
+     split-plane bf16 DFT on the tensor cores): its path, two production
+     seconds (PipelineConfig(rfi_mode=0, dft_exact_input=True)); one
+     against dft_detect_oracle on the card (relative error, floor 1e-3,
+     bar 2e-3), timed beside torch.fft.rfft + |X|^2 of the same frames and
+     beside chain.cu's dft_kernel from a profiler trace;
+ 12. stage B (ops/megakernel.chain_second_plain): its path, the same two
+     seconds with the bandpass carried, against chain_second_plain_oracle
+     (2-bit agreement >= 0.9999, bandpass within 1e-4 relative); then the
+     JAX package's benchmarks/bench_megakernel_tpu.py: B against
+     chain_second_v2 at rfi_mode 0 from a fresh bandpass, both timed;
+ 13. the roll+select dedispersion (ops/dedisperse_pallas.
+     dedisperse_pallas_rollsel): phase 3's gulp against its plain version
+     (bit-equal: the same adds in the same order) and against phase 3's
+     kernel (allclose on every output); then its path, the JAX package's
+     benchmarks/bench_ddp_fold_tpu.py A/B on the linear 1024-trial grid,
+     both kernels timed;
+then the run's wall time, one JSON line of per-kernel results (each with
+its time, its plain version's, its bound from this run's shapes, the
+library call's time where one PyTorch call computes the function, and
+its launches on its path: [4] and [10] for kernels 1-8, [11]-[13] for
+the staged chain and the roll+select engine), the card's name and power
+limit, and last
 {"ok": true, "device": {...}}.  Any failure exits non-zero before that.
-Imports no jax.  Data comes from seeded numpy and torch generators.
+Imports nothing of jax or of the JAX package (checked at the end).  Data
+comes from seeded numpy and torch generators.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
+import math
 import shutil
 import subprocess
 import sys
@@ -78,6 +104,49 @@ def with_burst(raw: np.ndarray, at: int) -> np.ndarray:
     out = raw.astype(np.int16)
     out[0, at:at + 3000] += (60 * np.sin(0.3 * t)).astype(np.int16)
     return np.clip(out, 0, 255).astype(np.uint8)
+
+
+# the least time the card could take (NVIDIA H100 SXM data sheet, 700 W):
+# bytes over the memory rate, operations over the peak for their type
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"f32": 67e12, "bf16": 989e12}
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(moved: int, ops: float, kind: str = "f32") -> dict:
+    """bound_ms / bound_by for a function that moves `moved` bytes (each
+    input read once, each output written once) and does `ops` operations
+    of type `kind` (a multiply-add counts two, an add or a compare one)."""
+    t_bytes = moved / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S[kind] * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def chain_bound(cfg, raw, outs) -> dict:
+    """The chain's bound: the raw second in and the outputs out, and the
+    f32 operations the function needs on this second: a real FFT of each
+    frame (2.5 nfft log2 nfft), and ~8 operations per spectrum element
+    for detect and EMA in each stream the rfi_mode computes.  In rfi_mode
+    2 the kurtosis stream needs a transform of its own only in the frames
+    whose mask zeroed a window (weight < 1).  Besides the bound,
+    dft_as_written_ms: chain.cu's own direct two-stage DFT (stage 1 on
+    k1 <= n1/2 of real input, stage 2 on the nchan bins) for every
+    stream, at the f32 peak."""
+    from vlite_fast_tpu_torch.ops import channelize as ch_ops
+    n1, n2 = ch_ops._ct_split(cfg.nfft)
+    frames = cfg.npol_in * cfg.seg_per_sec * cfg.ffts_per_seg
+    nstreams = 2 if cfg.rfi_mode == 2 else 1
+    masked = int((outs[2] < 1).sum()) if cfg.rfi_mode == 2 else 0
+    ops = (frames + masked) * 2.5 * cfg.nfft * math.log2(cfg.nfft) \
+        + nstreams * frames * 8 * cfg.nchan
+    written = nstreams * frames * (4 * (n1 // 2 + 1) * n2 * n1
+                                   + 8 * cfg.nchan * n2)
+    return {**bound(nbytes(raw, *outs), ops),
+            "dft_as_written_ms": written / PEAK_OPS_PER_S["f32"] * 1e3}
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -185,14 +254,17 @@ def phase_chain(dev, raws) -> dict:
         gots.append(got)
         wants.append(want)
     ms = cuda_ms(lambda: mk.chain_second_v2(raws[0], bp_k, cfg), 5)
+    cb = chain_bound(cfg, raws[0], gots[0])
     log(f"[2] chain kernel vs plain, 2 full-geometry seconds: 2-bit "
         f"agreement >= {worst['agree']:.6f} (bar 0.9999), max level diff "
         f"{worst['dlev']}, weights equal, dag_frac diff {worst['dag']:.2e}, "
         f"bandpass rel diff {worst['bp_rel']:.2e}; kernel {ms:.2f} ms per "
-        f"data-second (CUDA events, 5 reps), plain "
+        f"data-second (CUDA events, 5 reps), bound {cb['bound_ms']:.3f} ms "
+        f"({cb['bound_by']}; chain.cu's direct DFT as written "
+        f"{cb['dft_as_written_ms']:.2f} ms at the f32 peak), plain "
         f"{t_plain[0]:.0f} / {t_plain[1]:.0f} ms (wall)")
     return (_chain_row("chain_second_v2", "chain.cu", "1602", worst, ms,
-                       min(t_plain)), gots, wants)
+                       min(t_plain), library_ms=None, **cb), gots, wants)
 
 
 def phase_dedisperse(dev) -> dict:
@@ -224,17 +296,42 @@ def phase_dedisperse(dev) -> dict:
     return {"name": "dedisperse_pallas", "route": "cuda",
             "source": "vlite_fast_tpu_torch/csrc/dedisperse.cu",
             "replaces": "vlite_fast_tpu/ops/dedisperse_pallas.py:333",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": None, **dedisp_bound(fb, plan, ntime_out)}
+
+
+def dedisp_bound(fb, plan, ntime_out) -> dict:
+    """The two-stage shift-and-sum's bound: the filterbank, the plan's
+    tables and the DM-time plane once each; one add per stage-1 term
+    (nbatch x nchan x (ntime_out + max_sub_delay)) and per stage-2 term
+    (ndm x nsub x ntime_out)."""
+    nbatch, nchan = plan.rel_delays.shape
+    ndm, nsub = plan.sub_delays.shape
+    ops = nbatch * nchan * (ntime_out + plan.max_sub_delay) \
+        + ndm * nsub * ntime_out
+    return bound(nbytes(fb, plan.rel_delays, plan.sub_delays,
+                        plan.chan_weights) + 4 * ndm * ntime_out, ops)
 
 
 def phase_pretranspose(dev, raw) -> dict:
     from vlite_fast_tpu_torch import PipelineConfig
+    from vlite_fast_tpu_torch.ops import channelize as ch_ops
     from vlite_fast_tpu_torch.ops import megakernel as mk
     cfg = PipelineConfig()
     args = (raw, cfg.nfft, cfg.npol_in, cfg.seg_per_sec)
+    n1, n2 = ch_ops._ct_split(cfg.nfft)
+    # one PyTorch call for the u8 tiles: pad the permuted view
+    library = lambda: torch.nn.functional.pad(
+        raw.reshape(cfg.npol_in, cfg.seg_per_sec, -1, n1, n2)
+        .permute(1, 0, 2, 4, 3), (0, mk.LANE - n1, 0, mk.LANE - n2))
     res = {}
     for dtype, what in ((torch.uint8, "u8"), (torch.bfloat16, "bf16")):
         got = mk.pallas_pretranspose(*args, dtype)
+        if dtype == torch.uint8:
+            pre_bound = bound(nbytes(raw, got), 0)
+            check(torch.equal(library().reshape(got.shape), got),
+                  "pallas_pretranspose u8: differs from the padded view")
+            lib_ms = cuda_ms(library, 5)
         want, plain_ms = timed_wall(
             lambda: mk.pallas_pretranspose_plain(*args, dtype))
         check(got.dtype == dtype and torch.equal(got, want),
@@ -246,12 +343,15 @@ def phase_pretranspose(dev, raw) -> dict:
     log(f"[8] pallas_pretranspose kernel vs plain, one full-geometry second "
         f"({tuple(raw.shape)} u8 -> {shape} tiles): u8 byte-equal, bf16 "
         f"value-equal; kernel {res['u8'][0]:.3f} ms u8, {res['bf16'][0]:.3f} "
-        f"ms bf16 (CUDA events, 5 reps), plain {res['u8'][1]:.0f} / "
-        f"{res['bf16'][1]:.0f} ms (wall)")
+        f"ms bf16 (CUDA events, 5 reps), bound {pre_bound['bound_ms']:.3f} "
+        f"ms u8 ({pre_bound['bound_by']}), plain {res['u8'][1]:.0f} / "
+        f"{res['bf16'][1]:.0f} ms (wall), F.pad of the permuted view (u8, "
+        f"equal) {lib_ms:.3f} ms (CUDA events)")
     return {"name": "pallas_pretranspose", "route": "cuda",
             "source": "vlite_fast_tpu_torch/csrc/pretranspose.cu",
             "replaces": "vlite_fast_tpu/ops/megakernel.py:221",
             "max_abs_err": 0.0, "ms": res["u8"][0], "plain_ms": res["u8"][1],
+            "library_ms": lib_ms, **pre_bound,
             "ms_bf16": res["bf16"][0], "plain_ms_bf16": res["bf16"][1]}
 
 
@@ -304,12 +404,15 @@ def phase_ct_chains(dev, raws, v2_gots, wants, plain_ms) -> list:
         f"{wc['bp_rel']:.2e}; per data-second with the relayout (CUDA "
         f"events, 5 reps): u8 {ms['chain_second_v4[u8]']:.2f} ms, bf16 "
         f"{ms['chain_second_v4[bf16]']:.2f} ms; plain {plain_ms:.0f} ms")
+    cb = chain_bound(cfg, raws[0], wants[0])
     return [_chain_row("chain_second", "chain.cu", "961", wb,
                        ms["chain_second[pallas]"], plain_ms,
+                       library_ms=None, **cb,
                        ms_by_pretranspose={m: ms[f"chain_second[{m}]"]
                                            for m in mk.PRETRANSPOSE}),
             _chain_row("chain_second_v4", "chain_v4.cu", "2048", wc,
                        ms["chain_second_v4[u8]"], plain_ms,
+                       library_ms=None, **cb,
                        ms_bf16=ms["chain_second_v4[bf16]"])]
 
 
@@ -319,6 +422,7 @@ def _counts() -> dict:
     from vlite_fast_tpu_torch.ops import pallas_kernels as pk
     from vlite_fast_tpu_torch.ops import rfi_pallas
     return {**mk.LAUNCHES, "dedisperse_pallas": ddp.LAUNCHES,
+            "dedisperse_pallas_rollsel": ddp.ROLLSEL_LAUNCHES,
             "rfi_front": rfi_pallas.LAUNCHES, **pk.LAUNCHES}
 
 
@@ -327,7 +431,7 @@ def _zero_counts() -> None:
     from vlite_fast_tpu_torch.ops import megakernel as mk
     from vlite_fast_tpu_torch.ops import pallas_kernels as pk
     from vlite_fast_tpu_torch.ops import rfi_pallas
-    ddp.LAUNCHES = rfi_pallas.LAUNCHES = 0
+    ddp.LAUNCHES = ddp.ROLLSEL_LAUNCHES = rfi_pallas.LAUNCHES = 0
     for counts in (mk.LAUNCHES, pk.LAUNCHES):
         counts.update(dict.fromkeys(counts, 0))
 
@@ -443,6 +547,8 @@ def phase_rfi_front(dev, raw) -> dict:
     check(err <= 1e-5, f"rfi_front: TS off by {err}")
     nflag, wmin = int(flags.sum()), float(got[1].min())
     check(nflag > 0 and wmin < 1.0, "rfi_front: the gates did not fire")
+    # convert, square, square again and two sums per sample
+    rb = bound(nbytes(raw, *got), 5 * raw.numel())
     del got, want
     ms = cuda_ms(lambda: rfi_pallas.rfi_front(raw, *args), 5)
     log(f"[5] rfi_front kernel vs plain, one full-geometry second "
@@ -454,7 +560,8 @@ def phase_rfi_front(dev, raw) -> dict:
     return {"name": "rfi_front", "route": "cuda",
             "source": "vlite_fast_tpu_torch/csrc/rfi_front.cu",
             "replaces": "vlite_fast_tpu/ops/rfi_pallas.py:133",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": None, **rb}
 
 
 def phase_ema(dev) -> list:
@@ -477,17 +584,21 @@ def phase_ema(dev) -> list:
     weights[1, 500:520] = 0.5
     bp = torch.zeros((npol, cfg.nchan), device=dev)
     s = cfg.bp_scale
-    cases = [("normalize_ema_pallas", ":102",
+    # per element: the EMA's multiply-add pair and the divide and
+    # subtract (4); weighted, the divide by the weight and the clip
+    # compare besides (6)
+    cases = [("normalize_ema_pallas", ":102", (power, bp), 4,
               lambda: pk.normalize_ema_pallas(power, bp, s, time_tile=tt),
               lambda: norm_ops.normalize_ema(power, bp, s, tt)),
-             ("normalize_ema_weighted_pallas", ":189",
-              lambda: pk.normalize_ema_weighted_pallas(
+             ("normalize_ema_weighted_pallas", ":189", (power, weights, bp),
+              6, lambda: pk.normalize_ema_weighted_pallas(
                   power, weights, bp, s, time_tile=tt),
               lambda: norm_ops.normalize_ema_weighted(
                   power, weights, bp, s, time_tile=tt))]
     rows = []
-    for name, line, kernel, plain in cases:
+    for name, line, ins, per_elem, kernel, plain in cases:
         got = kernel()
+        eb = bound(nbytes(*ins, *got), per_elem * power.numel())
         want, plain_ms = timed_wall(plain)
         err, bitwise = 0.0, True
         for g, w in zip(got, want):
@@ -505,7 +616,8 @@ def phase_ema(dev) -> list:
                      "source": "vlite_fast_tpu_torch/csrc/ema.cu",
                      "replaces": "vlite_fast_tpu/ops/pallas_kernels.py"
                                  + line,
-                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
+                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                     "library_ms": None, **eb})
     return rows
 
 
@@ -544,7 +656,235 @@ def phase_armed(dev, raws) -> None:
         f"{t_plain[1]:.0f} ms (wall)")
 
 
+def rel_err(got: torch.Tensor, want: torch.Tensor, floor: float) -> float:
+    return float(((got - want).abs() / want.abs().clamp(min=floor)).max())
+
+
+def agreement(a: torch.Tensor, b: torch.Tensor) -> tuple:
+    """(share of equal 2-bit levels, largest level difference)."""
+    la, lb = levels(a), levels(b)
+    check(la.shape == lb.shape, f"packed shapes {la.shape} vs {lb.shape}")
+    return float((la == lb).mean()), int(np.abs(la - lb).max())
+
+
+def staged_inputs(dev):
+    """The staged chain's configuration and two production seconds of
+    uniform bytes 1..255 (the JAX package's tests and GO/NO-GO bench)."""
+    from vlite_fast_tpu_torch import PipelineConfig
+    cfg = PipelineConfig(rfi_mode=0, dft_exact_input=True)
+    rng = np.random.default_rng(5)
+    raws = [torch.from_numpy(rng.integers(
+        1, 256, size=(cfg.npol_in, cfg.sample_rate), dtype=np.uint8)).to(dev)
+        for _ in range(2)]
+    return cfg, raws
+
+
+def dft_kernel_ms(cfg, raw) -> str:
+    """chain.cu's dft_kernel (the f32 DFT of chain_second_v2) on the same
+    second at rfi_mode 0, from a profiler trace: device ms, or 'not
+    measured' where the trace holds no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from vlite_fast_tpu_torch.ops import megakernel as mk
+    bp = torch.zeros((2, cfg.npol_in, cfg.nchan), device=raw.device)
+    mk.chain_second_v2(raw, bp, cfg)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        mk.chain_second_v2(raw, bp, cfg)
+        torch.cuda.synchronize()
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and "dft_kernel" in e.key:
+            us = getattr(e, "device_time_total", None)
+            us = e.cuda_time_total if us is None else us
+            return f"{us / 1e3:.2f} ms"
+    return "not measured"
+
+
+def phase_stage_a(dev) -> dict:
+    """Kernel A: its path (two seconds), then one second against the
+    oracle, timed beside torch.fft.rfft and chain.cu's dft_kernel."""
+    from vlite_fast_tpu_torch.ops import channelize as ch_ops
+    from vlite_fast_tpu_torch.ops import megakernel as mk
+    from vlite_fast_tpu_torch.ops import unpack as unpack_ops
+    cfg, raws = staged_inputs(dev)
+    args = (cfg.nfft, cfg.npol_in, cfg.seg_per_sec)
+    _zero_counts()
+    got = [mk.dft_detect_power(raw, *args) for raw in raws]
+    torch.cuda.synchronize()
+    launches = mk.LAUNCHES["dft_detect_power"]
+    want, plain_ms = timed_wall(lambda: mk.dft_detect_oracle(raws[0], *args))
+    check(got[0].shape == want.shape, f"stage A shape {tuple(got[0].shape)}")
+    check(bool(torch.isfinite(got[0]).all()), "stage A: non-finite power")
+    err = rel_err(got[0], want, 1e-3)
+    abs_err = float((got[0] - want).abs().max())
+    check(err < 2e-3, f"stage A: relative error {err} (bar 2e-3)")
+    n1, n2 = ch_ops._ct_split(cfg.nfft)
+    n2o, frames = cfg.nfft // 2 // n1 + 1, got[0].shape[0] * got[0].shape[1]
+    # stage 1: 4 real products (n2 x n1 x n1); stage 2: 6 (2 n2o x n2 x n1)
+    ops = frames * 2 * (4 * n2 * n1 * n1 + 6 * 2 * n2o * n2 * n1)
+    b = bound(nbytes(raws[0], got[0]), ops, "bf16")
+    del got, want
+    ms = cuda_ms(lambda: mk.dft_detect_power(raws[0], *args), 5)
+    x = unpack_ops.convert_uint8(raws[0]).reshape(-1, cfg.nfft)
+    lib_ms = cuda_ms(lambda: torch.fft.rfft(x).abs().square(), 5)
+    del x
+    dft_ms = dft_kernel_ms(cfg, raws[0])
+    log(f"[11] dft_detect_power kernel (tensor cores, split-plane bf16) vs "
+        f"dft_detect_oracle, one production second ({frames} frames of "
+        f"{cfg.nfft}, uniform bytes): max relative error {err:.3e} (floor "
+        f"1e-3, bar 2e-3); kernel {ms:.3f} ms (CUDA events, 5 reps), bound "
+        f"{b['bound_ms']:.3f} ms ({b['bound_by']}), plain {plain_ms:.0f} ms "
+        f"(wall), torch.fft.rfft + |X|^2 {lib_ms:.3f} ms (CUDA events), "
+        f"chain.cu dft_kernel on the same second (f32, profiler) {dft_ms}; "
+        f"{launches} launches on its path (2 seconds)")
+    return {"name": "dft_detect_power", "route": "cuda",
+            "source": "vlite_fast_tpu_torch/csrc/stage_ab.cu",
+            "replaces": "vlite_fast_tpu/ops/megakernel.py:349",
+            "launches": launches, "max_abs_err": abs_err, "max_rel_err": err,
+            "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, **b,
+            "dft_kernel_f32": dft_ms}
+
+
+def phase_stage_b(dev) -> dict:
+    """Kernel B: its path (two seconds, bandpass carried) against the
+    oracle, then bench_megakernel_tpu.py's A/B against chain_second_v2."""
+    from vlite_fast_tpu_torch.ops import megakernel as mk
+    cfg, raws = staged_inputs(dev)
+    args = (cfg.nfft, cfg.npol_in, cfg.seg_per_sec, cfg.nscrunch,
+            float(cfg.bp_scale), cfg.chanmin, cfg.chanmax)
+    bp0 = torch.zeros((cfg.npol_in, cfg.nchan), device=dev)
+    _zero_counts()
+    got, bp = [], bp0
+    for raw in raws:
+        packed, bp = mk.chain_second_plain(raw, bp, *args)
+        got.append((packed, bp))
+    torch.cuda.synchronize()
+    launches = mk.LAUNCHES["chain_second_plain"]
+    worst, dlev, bp_rel, plain_ms, bp_p = 1.0, 0, 0.0, [], bp0
+    for sec, raw in enumerate(raws):
+        (want, bp_p), ms_p = timed_wall(
+            lambda: mk.chain_second_plain_oracle(raw, bp_p, *args))
+        plain_ms.append(ms_p)
+        a, d = agreement(got[sec][0], want)
+        worst, dlev = min(worst, a), max(dlev, d)
+        bp_rel = max(bp_rel, rel_err(got[sec][1], bp_p, 1e-6))
+    check(worst >= 0.9999, f"stage B: 2-bit agreement {worst}")
+    check(bp_rel < 1e-4, f"stage B: bandpass off by {bp_rel} relative")
+    ms = cuda_ms(lambda: mk.chain_second_plain(raws[0], bp, *args), 5)
+    # benchmarks/bench_megakernel_tpu.py: fresh bandpass on both sides
+    pk, _ = mk.chain_second_plain(raws[0], bp0, *args)
+    bp2 = torch.zeros((2, cfg.npol_in, cfg.nchan), device=dev)
+    v2 = mk.chain_second_v2(raws[0], bp2, cfg)
+    torch.cuda.synchronize()
+    ab_agree, ab_dlev = agreement(pk, v2[0])
+    check(ab_agree >= 0.9999, f"stage B vs chain_second_v2: 2-bit agreement "
+          f"{ab_agree}")
+    v2_ms = cuda_ms(lambda: mk.chain_second_v2(raws[0], bp2, cfg), 5)
+    from vlite_fast_tpu_torch.ops import channelize as ch_ops
+    n1, n2 = ch_ops._ct_split(cfg.nfft)
+    n2o = cfg.nfft // 2 // n1 + 1
+    frames = cfg.npol_in * cfg.seg_per_sec * cfg.ffts_per_seg
+    ops = frames * 2 * (4 * n2 * n1 * n1 + 6 * 2 * n2o * n2 * n1)
+    b = bound(nbytes(raws[0], bp0, *got[0]), ops, "bf16")
+    log(f"[12] chain_second_plain kernel (stage A's DFT + chain.cuh's EMA "
+        f"in rfi_mode 0) vs chain_second_plain_oracle, 2 production seconds, "
+        f"bandpass carried: 2-bit agreement >= {worst:.6f} (bar 0.9999), max "
+        f"level diff {dlev}, bandpass rel diff {bp_rel:.2e} (bar 1e-4); "
+        f"kernel {ms:.2f} ms per data-second (CUDA events, 5 reps), bound "
+        f"{b['bound_ms']:.3f} ms ({b['bound_by']}), plain "
+        f"{plain_ms[0]:.0f} / {plain_ms[1]:.0f} ms (wall); "
+        f"bench_megakernel_tpu.py A/B from a fresh bandpass: agreement with "
+        f"chain_second_v2 (rfi_mode 0, f32 DFT) {ab_agree:.6f} (bar 0.9999, "
+        f"max level diff {ab_dlev}), stage B {ms:.2f} ms vs chain_second_v2 "
+        f"{v2_ms:.2f} ms per data-second; {launches} launches on its path")
+    return {"name": "chain_second_plain", "route": "cuda",
+            "source": "vlite_fast_tpu_torch/csrc/stage_ab.cu",
+            "replaces": "vlite_fast_tpu/ops/megakernel.py:516",
+            "launches": launches, "max_abs_err": dlev, "agree_2bit": worst,
+            "bp_rel_err": bp_rel, "ms": ms, "plain_ms": min(plain_ms),
+            "library_ms": None, **b, "agree_2bit_vs_chain_second_v2": ab_agree,
+            "chain_second_v2_rfi0_ms": v2_ms}
+
+
+def phase_rollsel(dev) -> dict:
+    """Kernels C1/C2 on phase 3's gulp against the plain version and the
+    fold kernel, then the A/B of bench_ddp_fold_tpu.py as their path."""
+    from vlite_fast_tpu_torch import PipelineConfig, SearchConfig
+    from vlite_fast_tpu_torch import constants as C
+    from vlite_fast_tpu_torch.models import search
+    from vlite_fast_tpu_torch.ops import dedisperse as dd
+    from vlite_fast_tpu_torch.ops import dedisperse_pallas as ddp
+    cfg, scfg = PipelineConfig(), SearchConfig()
+    eng = search.SinglePulseSearch(scfg, cfg.tsamp, cfg.freqs_mhz(),
+                                   nsub=128, nbatch=128, device=dev)
+    plan = eng.plan
+    full = scfg.gulp_samps + eng.overlap
+    ntime_out = full - plan.max_delay
+    rng = np.random.default_rng(11)                       # phase 3's gulp
+    fb = torch.from_numpy(rng.standard_normal(
+        (full, cfg.nchanout)).astype(np.float32)).to(dev)
+    got = ddp.dedisperse_pallas_rollsel(fb, plan, ntime_out)
+    want, plain_ms = timed_wall(
+        lambda: ddp.dedisperse_rollsel_plain(fb, plan, ntime_out))
+    bit_equal = torch.equal(got, want)
+    err = float((got - want).abs().max())
+    check(bit_equal, f"rollsel kernel differs from its plain version: max "
+          f"abs {err}")
+    fold = ddp.dedisperse_pallas(fb, plan, ntime_out)
+    fold_err = float((got - fold).abs().max())
+    check(torch.allclose(got, fold, rtol=1e-5, atol=1e-4),
+          f"rollsel kernel differs from the fold kernel: max abs {fold_err}")
+    del got, want, fold
+    # benchmarks/bench_ddp_fold_tpu.py: the linear 1024-trial grid
+    lin = dataclasses.replace(scfg, dm_grid_mode="linear", ndm=1024)
+    freqs = C.channel_freqs_mhz()[C.CHANMIN:C.CHANMAX + 1]
+    lplan = dd.make_plan(dd.dm_grid(lin.dm_min, lin.dm_max, lin.ndm), freqs,
+                         cfg.tsamp, nsub=128, nbatch=128,
+                         zap_ranges=lin.zap_ranges, device=dev)
+    rng = np.random.default_rng(1)
+    lfb = torch.from_numpy(rng.standard_normal(
+        (lin.gulp_samps + lplan.max_delay, C.NCHANOUT)).astype(
+            np.float32)).to(dev)
+    _zero_counts()
+    a = ddp.dedisperse_pallas_rollsel(lfb, lplan, lin.gulp_samps)
+    torch.cuda.synchronize()
+    launches = ddp.ROLLSEL_LAUNCHES
+    b_ = ddp.dedisperse_pallas(lfb, lplan, lin.gulp_samps)
+    ab_err = float((a - b_).abs().max())
+    check(torch.allclose(a, b_, rtol=1e-5, atol=1e-4),
+          f"linear grid: rollsel vs fold kernel max abs {ab_err}")
+    ab_equal = torch.equal(a, b_)
+    lb = dedisp_bound(lfb, lplan, lin.gulp_samps)
+    del a, b_
+    ms_r = cuda_ms(lambda: ddp.dedisperse_pallas_rollsel(
+        lfb, lplan, lin.gulp_samps), 3)
+    ms_f = cuda_ms(lambda: ddp.dedisperse_pallas(lfb, lplan, lin.gulp_samps),
+                   3)
+    ms = cuda_ms(lambda: ddp.dedisperse_pallas_rollsel(fb, plan, ntime_out),
+                 3)
+    b = dedisp_bound(fb, plan, ntime_out)
+    ndm = len(plan.dms)
+    log(f"[13] dedisperse_pallas_rollsel kernels (C1 shared-memory subband "
+        f"tiles, C2 trials in registers) vs plain, phase 3's gulp ({full} x "
+        f"{cfg.nchanout}, {ndm} tol-grid trials): bit-equal {bit_equal}; vs "
+        f"phase 3's fold kernel max abs diff {fold_err:.3e} (allclose rtol "
+        f"1e-5 atol 1e-4); kernel {ms:.2f} ms (CUDA events, 3 reps), bound "
+        f"{b['bound_ms']:.3f} ms ({b['bound_by']}), plain {plain_ms:.0f} ms "
+        f"(wall); bench_ddp_fold_tpu.py A/B, linear 1024 trials, {lin.gulp_samps}"
+        f"-sample gulp: rollsel {ms_r:.2f} ms vs fold {ms_f:.2f} ms per gulp "
+        f"(bound {lb['bound_ms']:.3f} ms), max abs diff {ab_err:.3e}, "
+        f"bit-equal {ab_equal}; {launches} launch on its path")
+    return {"name": "dedisperse_pallas_rollsel", "route": "cuda",
+            "source": "vlite_fast_tpu_torch/csrc/dedisperse_rollsel.cu",
+            "replaces": "vlite_fast_tpu/ops/dedisperse_pallas.py:129",
+            "launches": launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "library_ms": None, **b,
+            "max_abs_err_vs_fold": fold_err, "linear_1024_ms": ms_r,
+            "linear_1024_fold_ms": ms_f}
+
+
 def main() -> None:
+    t_start = time.perf_counter()
     smi = phase_device()
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -573,11 +913,21 @@ def main() -> None:
         for k in ("pallas_pretranspose", "chain_second", "chain_second_v4"):
             launches[k] += got[k]
         torch.cuda.empty_cache()
-    kernels = [k_chain, k_dedisp, k_rfi, *k_ema, k_pre, *k_ct]
-    for k in kernels:
+    for k in (k_chain, k_dedisp, k_rfi, *k_ema, k_pre, *k_ct):
         k["launches"] = launches[k["name"]]
-        check(k["launches"] > 0, f"{k['name']} never launched on a main "
-              "path")
+    # the staged chain and the roll+select engine count on their own paths
+    staged = [phase_stage_a(dev)]
+    torch.cuda.empty_cache()
+    staged.append(phase_stage_b(dev))
+    torch.cuda.empty_cache()
+    staged.append(phase_rollsel(dev))
+    kernels = [k_chain, k_dedisp, k_rfi, *k_ema, k_pre, *k_ct, *staged]
+    for k in kernels:
+        check(k["launches"] > 0, f"{k['name']} never launched on its path")
+    jax_mods = sorted(m for m in sys.modules
+                      if m.split(".")[0] in ("jax", "vlite_fast_tpu"))
+    check(not jax_mods, f"imported {jax_mods}")
+    log(f"[total] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     log(smi)
     print(json.dumps({"ok": True, "device": {

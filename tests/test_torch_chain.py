@@ -21,11 +21,17 @@ from vlite_fast_tpu.config import PipelineConfig
 from vlite_fast_tpu.models import baseband_dsp as jdsp
 from vlite_fast_tpu.ops import megakernel as jmk
 from vlite_fast_tpu.ops import quantize as jq
+from vlite_fast_tpu_torch import config as tconfig
 from vlite_fast_tpu_torch import interop
 from vlite_fast_tpu_torch.models import baseband_dsp as tdsp
 from vlite_fast_tpu_torch.ops import megakernel as tmk
 
 torch.set_num_threads(1)
+
+
+def _t(cfg):
+    """The port's config of the same class and fields as a JAX package one."""
+    return getattr(tconfig, type(cfg).__name__)(**dataclasses.asdict(cfg))
 
 
 def _noise(nsamp, seed, burst_at=None):
@@ -65,7 +71,8 @@ def _assert_bp(got, want):
 def _jax_state(st):
     return interop.state_from_jax(np.asarray(st.bp), np.asarray(st.bp_kur),
                                   np.asarray(st.segs_since_inject),
-                                  np.asarray(st.tail), np.asarray(st.wtail))
+                                  np.asarray(st.tail), np.asarray(st.wtail),
+                                  device="cpu")
 
 
 def _assert_second_matches_jax(cfg, nbit, arm, port_second):
@@ -78,7 +85,7 @@ def _assert_second_matches_jax(cfg, nbit, arm, port_second):
     st_t = _jax_state(st_j)
     oj, sj = jdsp.process_second(cfg, jnp.asarray(raw1), st_j,
                                  jnp.asarray(arm))
-    ot, stt = port_second(cfg, torch.from_numpy(raw1), st_t, arm)
+    ot, stt = port_second(_t(cfg), torch.from_numpy(raw1), st_t, arm)
     for field in ("packed", "packed_kur"):
         _assert_levels(getattr(ot, field), getattr(oj, field), nbit)
     assert np.array_equal(ot.weights.numpy(), np.asarray(oj.weights))
@@ -127,17 +134,19 @@ def test_process_second_plain_matches_jax(rfi_mode, arm):
 def test_twin_program_dispatch(tmp_path):
     """The twin is the chain kernel only where megakernel_supported
     takes the configuration (the JAX package's resolve_twin_impl)."""
-    from vlite_fast_tpu.config import SearchConfig
+    from vlite_fast_tpu_torch.config import PipelineConfig, SearchConfig
     from vlite_fast_tpu_torch.runtime.pipeline import StationPipeline
     assert tdsp.twin_program(PipelineConfig()) is tdsp.twin_second
     assert tdsp.twin_program(PipelineConfig(inject_frb=True)) is \
         tdsp.twin_second
     assert tdsp.twin_program(PipelineConfig.tiny()) is tdsp.process_second
     pipe = StationPipeline(1, PipelineConfig.tiny(inject_frb=True),
-                           SearchConfig.tiny(), out_dir=str(tmp_path))
+                           SearchConfig.tiny(), out_dir=str(tmp_path),
+                           device="cpu")
     assert pipe._twin is tdsp.process_second
     pipe = StationPipeline(1, PipelineConfig.tiny(nbit=2),
-                           SearchConfig.tiny(), out_dir=str(tmp_path))
+                           SearchConfig.tiny(), out_dir=str(tmp_path),
+                           device="cpu")
     assert pipe._twin is tdsp.twin_second
 
 
@@ -156,7 +165,7 @@ def test_kernel1_plain_matches_jax_chain_second_v2():
     interpret mode (its factored outputs refolded by the JAX package's own
     helpers)."""
     cfg = _mk_cfg()
-    assert tdsp.megakernel_supported(cfg)
+    assert tdsp.megakernel_supported(_t(cfg))
     raw = _noise(cfg.sample_rate, seed=5, burst_at=40000)
     bp0 = jmk.bp_to_factored_v2(jnp.zeros((4, cfg.nchan), jnp.float32),
                                 cfg.nfft)
@@ -165,7 +174,7 @@ def test_kernel1_plain_matches_jax_chain_second_v2():
         cfg.nkurto, 2, float(cfg.bp_scale), float(cfg.dag_thresh),
         float(cfg.dag_fb_thresh))
     packed, packed_kur, weights, dag_t, bp_t = tmk.chain_second_v2(
-        torch.from_numpy(raw), torch.zeros((2, 2, cfg.nchan)), cfg)
+        torch.from_numpy(raw), torch.zeros((2, 2, cfg.nchan)), _t(cfg))
     assert tmk.LAUNCHES["chain_second_v2"] == 0   # CPU: the plain version
     _assert_levels(packed, jmk.unfactor_pack_realign_v2(
         pp, cfg.nfft, cfg.chanmin, cfg.chanmax), 2)
@@ -200,14 +209,14 @@ def test_state_carry_two_seconds():
         st_j = st_j_next
     # from JAX's state after second 1
     _, st1, st2 = outs_j[1]
-    ot, stt = tdsp.twin_second(cfg, torch.from_numpy(raws[1]),
+    ot, stt = tdsp.twin_second(_t(cfg), torch.from_numpy(raws[1]),
                                _jax_state(st1))
     _assert_levels(ot.packed_kur, outs_j[1][0].packed_kur, 2)
     _assert_bp(stt.bp_kur, st2.bp_kur)
     # the port carrying its own state across both seconds
-    st_t = tdsp.init_state(cfg)
+    st_t = tdsp.init_state(_t(cfg), device="cpu")
     for r in raws:
-        ot, st_t = tdsp.twin_second(cfg, torch.from_numpy(r), st_t)
+        ot, st_t = tdsp.twin_second(_t(cfg), torch.from_numpy(r), st_t)
     _assert_levels(ot.packed, outs_j[1][0].packed, 2)
     _assert_bp(st_t.bp, st2.bp)
     _assert_bp(st_t.bp_kur, st2.bp_kur)
@@ -219,14 +228,15 @@ def test_twin_rejects_unsupported_on_cuda_only():
     """megakernel_supported is the JAX package's gate and
     chain_kernel_takes the CUDA kernels' own; the armed config is
     supported by neither, the twin by both."""
-    cfg = PipelineConfig(inject_frb=True)
+    jcfg = PipelineConfig(inject_frb=True)
+    cfg = _t(jcfg)
     assert not tdsp.megakernel_supported(cfg)
     assert not tdsp.chain_kernel_takes(cfg)
     cfg0 = dataclasses.replace(cfg, inject_frb=False)
     assert tdsp.megakernel_supported(cfg0)
     assert tdsp.chain_kernel_takes(cfg0)
     assert tdsp.chain_kernel_takes(cfg0, "ct")
-    assert not tdsp.megakernel_supported(PipelineConfig.tiny())   # 8-bit
-    assert not tdsp.chain_kernel_takes(PipelineConfig.tiny())
+    assert not tdsp.megakernel_supported(_t(PipelineConfig.tiny()))  # 8-bit
+    assert not tdsp.chain_kernel_takes(_t(PipelineConfig.tiny()))
     assert tdsp.inject_window_seconds(cfg) == \
-        jdsp.inject_window_seconds(cfg)
+        jdsp.inject_window_seconds(jcfg)

@@ -19,14 +19,20 @@ voltages, weights and flags, TS within 1e-5 absolute (cbrtf against a
 float64 cube root, then the cancellation Z22 - cbrt t); the
 pretranspose kernel byte-equal (u8) and value-equal (bf16) to its plain
 version; chain_second's three modes byte-identical to each other and to
-chain_second_v2 (one loader-agnostic sum order).
+chain_second_v2 (one loader-agnostic sum order); the staged chain's
+stage A (dft_detect_power, tensor cores) within 2e-3 relative (floor
+1e-3) of dft_detect_oracle, the JAX package's bar for its stage A, and
+stage B (chain_second_plain) to the 2-bit bar and a bandpass within 1e-4
+relative; the roll+select dedispersion bit-equal to its plain version
+(the same adds in the same order) and allclose(rtol=1e-5, atol=1e-4) to
+the fold kernel.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from vlite_fast_tpu.config import PipelineConfig, SearchConfig
+from vlite_fast_tpu_torch.config import PipelineConfig, SearchConfig
 from vlite_fast_tpu_torch.models import baseband_dsp as tdsp
 from vlite_fast_tpu_torch.models import search as tsearch
 from vlite_fast_tpu_torch.ops import dedisperse as tdd
@@ -238,7 +244,7 @@ def test_launch_counters_count_kernel_launches(cuda):
     # 'xla' relayouts with torch; 'pallas', 'pallas_bf16' and v4 each
     # launch the pretranspose kernel
     assert tmk.LAUNCHES == dict(
-        chain_second_v2=before["chain_second_v2"],
+        before,
         chain_second=before["chain_second"] + 3,
         chain_second_v4=before["chain_second_v4"] + 1,
         pallas_pretranspose=before["pallas_pretranspose"] + 3)
@@ -414,3 +420,78 @@ def test_pipeline_megakernel4_matches_cpu(cuda, tmp_path):
         [(c.dmi, c.peak_idx, c.tfilt) for c in cands[0]]
     np.testing.assert_allclose([c.snr for c in cands[1]],
                                [c.snr for c in cands[0]], rtol=1e-3)
+
+
+def _uniform(npol, nsamp, seed):
+    rng = np.random.default_rng(seed)
+    return rng.integers(1, 256, size=(npol, nsamp), dtype=np.uint8)
+
+
+# tests/test_megakernel.py's geometry (nfft 2048 = 32 x 64, 16 FFTs, 3
+# segments), and the production CT split (12500 = 100 x 125) on 2 short
+# segments
+STAGED = [(2048, 16, 3), (12500, 4, 2)]
+
+
+@pytest.mark.parametrize("nfft,ffts,nseg", STAGED)
+@pytest.mark.parametrize("npol", [1, 2])
+def test_dft_detect_power_kernel_matches_oracle(cuda, npol, nfft, ffts,
+                                                nseg):
+    raw = torch.from_numpy(_uniform(npol, nfft * ffts * nseg, 3)).to(cuda)
+    raw[0, :50] = 0                         # zero bytes convert to 0.0
+    before = dict(tmk.LAUNCHES)
+    got = tmk.dft_detect_power(raw, nfft, npol, nseg)
+    want = tmk.dft_detect_oracle(raw, nfft, npol, nseg)
+    torch.cuda.synchronize()
+    assert tmk.LAUNCHES == dict(
+        before, dft_detect_power=before["dft_detect_power"] + 1)
+    assert got.shape == want.shape == (nseg, npol * ffts, nfft // 2 + 1)
+    rel = (got - want).abs() / want.abs().clamp(min=1e-3)
+    assert float(rel.max()) < 2e-3, float(rel.max())
+
+
+@pytest.mark.parametrize("nfft,ffts,nseg", STAGED)
+@pytest.mark.parametrize("npol", [1, 2])
+def test_chain_second_plain_kernel_matches_oracle(cuda, npol, nfft, ffts,
+                                                  nseg):
+    nscrunch = 4 if ffts % 8 else 8
+    chanmin, chanmax = (101, 612) if nfft == 2048 else (2155, 6250)
+    chanmax -= (chanmax - chanmin + 1) % 4
+    args = (nfft, npol, nseg, nscrunch, 0.02, chanmin, chanmax)
+    bp_k = bp_p = torch.zeros((npol, nfft // 2 + 1), device=cuda)
+    for seed in (5, 6):                     # the second carries the bandpass
+        raw = torch.from_numpy(_uniform(npol, nfft * ffts * nseg,
+                                        seed)).to(cuda)
+        before = dict(tmk.LAUNCHES)
+        got, bp_k = tmk.chain_second_plain(raw, bp_k, *args)
+        want, bp_p = tmk.chain_second_plain_oracle(raw, bp_p, *args)
+        torch.cuda.synchronize()
+        assert tmk.LAUNCHES == dict(
+            before, chain_second_plain=before["chain_second_plain"] + 1)
+        assert got.shape == want.shape == (
+            nseg * ffts // nscrunch, (chanmax - chanmin + 1) // 4)
+        _assert_levels(got, want)
+        _assert_bp(bp_k, bp_p)
+
+
+@pytest.mark.parametrize("sub_chunk", [16, 3])
+@pytest.mark.parametrize("nsub", [8, 64])
+@pytest.mark.parametrize("mode", ["linear", "tol"])
+def test_rollsel_kernel_matches_plain(cuda, mode, nsub, sub_chunk):
+    freqs = np.linspace(400.0, 350.0, 256)
+    scfg = SearchConfig(dm_min=0.0, dm_max=100.0, ndm=64, dm_grid_mode=mode)
+    dms = tsearch.make_dm_grid(scfg, 2e-3, freqs)
+    plan = tdd.make_plan(dms, freqs, 2e-3, nsub=nsub, nbatch=16,
+                         zap_ranges=((0, 10),), device=cuda)
+    rng = np.random.default_rng(nsub)
+    fb = torch.from_numpy(rng.standard_normal(
+        (300 + plan.max_delay, 256)).astype(np.float32)).to(cuda)
+    before = tddp.ROLLSEL_LAUNCHES
+    got = tddp.dedisperse_pallas_rollsel(fb, plan, 300, sub_chunk)
+    want = tddp.dedisperse_rollsel_plain(fb, plan, 300, sub_chunk)
+    fold = tddp.dedisperse_pallas(fb, plan, 300)
+    torch.cuda.synchronize()
+    assert tddp.ROLLSEL_LAUNCHES == before + 1
+    assert torch.equal(got, want)
+    np.testing.assert_allclose(got.cpu().numpy(), fold.cpu().numpy(),
+                               rtol=1e-5, atol=1e-4)

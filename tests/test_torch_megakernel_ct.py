@@ -29,11 +29,18 @@ from vlite_fast_tpu.config import PipelineConfig
 from vlite_fast_tpu.models import baseband_dsp as jdsp
 from vlite_fast_tpu.ops import megakernel as jmk
 from vlite_fast_tpu.ops import quantize as jq
+from vlite_fast_tpu_torch import config as tconfig
 from vlite_fast_tpu_torch import interop
 from vlite_fast_tpu_torch.models import baseband_dsp as tdsp
 from vlite_fast_tpu_torch.ops import megakernel as tmk
 
 torch.set_num_threads(1)
+
+
+def _t(cfg):
+    """The port's config of the same class and fields as a JAX package one."""
+    return getattr(tconfig, type(cfg).__name__)(**dataclasses.asdict(cfg))
+
 
 NFFT, NSEG = 2048, 3
 
@@ -176,7 +183,7 @@ def test_pallas_pretranspose_matches_jax(raw):
 def test_chain_second_matches_jax(raw, jax_v1, rfi_mode, pretranspose):
     cfg = _cfg(rfi_mode)
     got = tmk.chain_second(torch.from_numpy(raw),
-                           torch.zeros((2, 2, cfg.nchan)), cfg,
+                           torch.zeros((2, 2, cfg.nchan)), _t(cfg),
                            pretranspose=pretranspose)
     assert tmk.LAUNCHES["chain_second"] == 0
     _assert_chain_matches(cfg, got, jax_v1[rfi_mode])
@@ -186,14 +193,14 @@ def test_chain_second_matches_jax(raw, jax_v1, rfi_mode, pretranspose):
 def test_chain_second_v4_matches_jax(raw, jax_v4, pre_dtype):
     cfg = _cfg(2)
     got = tmk.chain_second_v4(torch.from_numpy(raw),
-                              torch.zeros((2, 2, cfg.nchan)), cfg,
+                              torch.zeros((2, 2, cfg.nchan)), _t(cfg),
                               pre_dtype=pre_dtype, pre_impl="xlu")
     assert tmk.LAUNCHES["chain_second_v4"] == 0
     _assert_chain_matches(cfg, got, jax_v4[pre_dtype])
 
 
 def test_wrappers_reject_unknown_modes(raw):
-    cfg, t = _cfg(), torch.from_numpy(raw)
+    cfg, t = _t(_cfg()), torch.from_numpy(raw)
     bp = torch.zeros((2, 2, cfg.nchan))
     with pytest.raises(ValueError, match="pretranspose"):
         tmk.chain_second(t, bp, cfg, pretranspose="mxu")
@@ -215,9 +222,9 @@ def test_state_carry_from_jax_megakernel_second(chain_impl):
     st_t = interop.state_from_jax(
         np.asarray(st1.bp), np.asarray(st1.bp_kur),
         np.asarray(st1.segs_since_inject), np.asarray(st1.tail),
-        np.asarray(st1.wtail))
-    assert tdsp.twin_program(cfg) is tdsp.twin_second
-    ot, stt = tdsp.twin_second(cfg, torch.from_numpy(raws[1]), st_t)
+        np.asarray(st1.wtail), device="cpu")
+    assert tdsp.twin_program(_t(cfg)) is tdsp.twin_second
+    ot, stt = tdsp.twin_second(_t(cfg), torch.from_numpy(raws[1]), st_t)
     for field in ("packed", "packed_kur"):
         _assert_levels(getattr(ot, field), getattr(oj, field))
     assert np.array_equal(ot.weights.numpy(), np.asarray(oj.weights))

@@ -1,0 +1,250 @@
+"""The port's staged chain (stage A: dft_detect_power; stage B:
+chain_second_plain) against the JAX package's, on the CPU.
+
+The JAX kernels run in interpret mode, as tests/test_megakernel.py runs
+them, at its geometry (nfft 2048 split 32 x 64, 16 FFTs per segment, 3
+segments, chanmin 101 so that chanmin % 4 != 0, chanmax 612).  The port
+returns linear channels; the JAX side is unfolded with its own helpers
+(unfactor_pack_realign, bp_from_factored).  Bars: tests/test_megakernel.py's
+own for its stages — stage A within 2e-3 relative (floor 1e-3) of the
+kernel and of the bf16-emulation oracle, 5e-3 (floor 1e-2) of the f32 XLA
+chain; stage B's 2-bit levels agree on > 0.9999, bandpass within 1e-4
+relative.
+"""
+
+import numpy as np
+import pytest
+import torch
+import jax.numpy as jnp
+
+from vlite_fast_tpu.config import PipelineConfig
+from vlite_fast_tpu.models import baseband_dsp as jdsp
+from vlite_fast_tpu.ops import channelize as jch
+from vlite_fast_tpu.ops import megakernel as jmk
+from vlite_fast_tpu.ops import normalize as jnorm
+from vlite_fast_tpu.ops import quantize as jq
+from vlite_fast_tpu.ops import unpack as junpack
+from vlite_fast_tpu_torch import interop
+from vlite_fast_tpu_torch.ops import channelize as tch
+from vlite_fast_tpu_torch.ops import megakernel as tmk
+
+torch.set_num_threads(1)
+
+NFFT, FFTS, NSEG = 2048, 16, 3
+SEG_SAMPS = NFFT * FFTS
+N1, N2 = 32, 64
+N2O = NFFT // 2 // N1 + 1
+NCHAN = NFFT // 2 + 1
+
+
+def _cfg(**kw):
+    kw = dict(dict(chanmin=101, chanmax=612), **kw)
+    return PipelineConfig(sample_rate=SEG_SAMPS * NSEG, seg_per_sec=NSEG,
+                          nfft=NFFT, nkurto=256, nscrunch=8, rfi_mode=0,
+                          ema_impl="scan", dft_exact_input=True, **kw)
+
+
+def _raw(npol, seed=3):
+    rng = np.random.default_rng(seed)
+    return rng.integers(1, 256, size=(npol, SEG_SAMPS * NSEG), dtype=np.uint8)
+
+
+def _unfold(planes, npol):
+    """JAX stage A's factored (nseg, nb, 64, 128) planes -> the port's
+    (nseg, npol * ffts, nchan)."""
+    p = np.asarray(planes)[:, :, :N2O, :N1]
+    return p.reshape(NSEG, npol * FFTS, -1)[:, :, :NCHAN]
+
+
+def _rel(got, want, floor):
+    got, want = np.asarray(got), np.asarray(want)
+    return float((np.abs(got - want) / np.maximum(np.abs(want), floor)).max())
+
+
+def _levels(packed):
+    return np.asarray(jq.unpack_bits(jnp.asarray(np.asarray(packed)), 2))
+
+
+def _agree(a, b):
+    la, lb = _levels(a), _levels(b)
+    assert la.shape == lb.shape
+    return float((la == lb).mean())
+
+
+def _stage_b_args(cfg, npol):
+    return (NFFT, npol, NSEG, cfg.nscrunch, float(cfg.bp_scale),
+            cfg.chanmin, cfg.chanmax)
+
+
+@pytest.mark.parametrize("npol", [1, 2])
+def test_stage_a_plain_matches_jax_kernel_and_oracle(npol):
+    raw = _raw(npol)
+    raw[0, :50] = 0                        # zero bytes convert to 0.0
+    got = tmk.dft_detect_power(torch.from_numpy(raw), NFFT, npol, NSEG)
+    assert tmk.LAUNCHES["dft_detect_power"] == 0      # CPU: the plain version
+    assert got.shape == (NSEG, npol * FFTS, NCHAN)
+    kern = _unfold(jmk.dft_detect_power(jnp.asarray(raw), NFFT, npol, NSEG),
+                   npol)
+    oracle = _unfold(jmk.dft_detect_oracle(raw, NFFT, npol, NSEG), npol)
+    assert _rel(got, kern, 1e-3) < 2e-3
+    assert _rel(got, oracle, 1e-3) < 2e-3
+    assert torch.equal(got, tmk.dft_detect_oracle(torch.from_numpy(raw),
+                                                  NFFT, npol, NSEG))
+
+
+def test_stage_a_matches_f32_chain():
+    """The split-plane power against the f32 channelizer's |X|^2."""
+    raw = _raw(2)
+    got = tmk.dft_detect_power(torch.from_numpy(raw), NFFT, 2, NSEG)
+    x = junpack.convert_uint8(jnp.asarray(raw[:, :SEG_SAMPS]))
+    spec = jch.channelize(x, NFFT, method="matmul", precision="high",
+                          exact_bf16_input=True)
+    want = np.asarray(jnorm.detect(spec)).reshape(2 * FFTS, -1)
+    assert _rel(got[0], want, 1e-2) < 5e-3
+
+
+@pytest.mark.parametrize("npol", [1, 2])
+def test_stage_b_plain_matches_jax_over_two_calls(npol):
+    """Two seconds with the bandpass carried.  The port's second call
+    starts from the JAX bandpass of the first (interop.bp_from_factored);
+    the port's own carry matches JAX's too."""
+    cfg = _cfg()
+    args = _stage_b_args(cfg, npol)
+    raws = [_raw(npol, seed) for seed in (11, 12)]
+    bpf = jmk.bp_to_factored(jnp.zeros((npol, NCHAN), jnp.float32), NFFT)
+    bp_t = torch.zeros((npol, NCHAN))
+    for sec, raw in enumerate(raws):
+        planes, bpf_next = jmk.chain_second_plain(
+            jnp.asarray(raw), bpf, NFFT, npol, NSEG, cfg.nscrunch,
+            float(cfg.bp_scale))
+        want = jmk.unfactor_pack_realign(planes, NFFT, cfg.chanmin,
+                                         cfg.chanmax)
+        start = torch.from_numpy(interop.bp_from_factored(bpf, NFFT, NCHAN))
+        got, bp_from_jax = tmk.chain_second_plain(torch.from_numpy(raw),
+                                                  start, *args)
+        assert got.shape == tuple(want.shape) and got.dtype == torch.uint8
+        assert _agree(got, want) > 0.9999
+        got_own, bp_t = tmk.chain_second_plain(torch.from_numpy(raw), bp_t,
+                                               *args)
+        assert _agree(got_own, want) > 0.9999
+        bp_j = interop.bp_from_factored(bpf_next, NFFT, NCHAN)
+        assert _rel(bp_from_jax, bp_j, 1e-6) < 1e-4
+        assert _rel(bp_t, bp_j, 1e-6) < 1e-4
+        bpf = bpf_next
+    assert tmk.LAUNCHES["chain_second_plain"] == 0
+
+
+@pytest.mark.parametrize("chanmin,chanmax", [(101, 612), (100, 611)])
+def test_stage_b_plain_matches_jax_xla_chain(chanmin, chanmax):
+    """Stage B against the JAX package's XLA chain (process_segment, the
+    sequential EMA), chanmin % 4 != 0 and == 0."""
+    cfg = _cfg(chanmin=chanmin, chanmax=chanmax)
+    raw = _raw(2)
+    st = jdsp.init_state(cfg)
+    outs = []
+    for s in range(NSEG):
+        seg = jnp.asarray(raw[:, s * SEG_SAMPS:(s + 1) * SEG_SAMPS])
+        o, st = jdsp.process_segment(cfg, seg, st)
+        outs.append(np.asarray(o.packed))
+    got, bp = tmk.chain_second_plain(torch.from_numpy(raw),
+                                     torch.zeros((2, NCHAN)),
+                                     *_stage_b_args(cfg, 2))
+    assert _agree(got, np.concatenate(outs)) > 0.9999
+    assert _rel(bp, st.bp, 1e-6) < 1e-4
+
+
+def test_bp_from_factored_inverts_jax_bp_to_factored():
+    bp = np.random.default_rng(1).random((2, NCHAN), dtype=np.float32)
+    back = interop.bp_from_factored(jmk.bp_to_factored(jnp.asarray(bp), NFFT),
+                                    NFFT, NCHAN)
+    assert np.array_equal(back, bp)
+    assert np.array_equal(
+        back, np.asarray(jmk.bp_from_factored(
+            jmk.bp_to_factored(jnp.asarray(bp), NFFT), NFFT, NCHAN)))
+
+
+@pytest.mark.parametrize("nfft", [2048, 12500])
+def test_split_planes_match_jax_dft_planes(nfft):
+    """The port's natural-shape split planes are the JAX package's padded
+    DFTPlanes, unpadded: W1 transposed, the twiddle's first b-block, and
+    the packed [w2r | w2i] columns apart."""
+    n1, n2 = tch._ct_split(nfft)
+    n2o = nfft // 2 // n1 + 1
+    jp = jmk.dft_planes(nfft, 1)
+    sp = tmk.split_planes(nfft, "cpu")
+    for got, want in ((sp.w1r_hi, jp.w1r_hi), (sp.w1r_lo, jp.w1r_lo),
+                      (sp.w1i_hi, jp.w1i_hi), (sp.w1i_lo, jp.w1i_lo)):
+        assert np.array_equal(got.numpy(), want[:n1, :n1].T)
+    assert np.array_equal(sp.twr.numpy(), jp.twr[:n2, :n1].T)
+    assert np.array_equal(sp.twi.numpy(), jp.twi[:n2, :n1].T)
+    for got, want in ((sp.w2r_hi, jp.w2c_hi[:n2, :n2o]),
+                      (sp.w2r_lo, jp.w2c_lo[:n2, :n2o]),
+                      (sp.w2i_hi, jp.w2c_hi[:n2, 64:64 + n2o]),
+                      (sp.w2i_lo, jp.w2c_lo[:n2, 64:64 + n2o])):
+        assert np.array_equal(got.numpy(), want)
+
+
+def _bf16(bits):
+    return torch.from_numpy(np.ascontiguousarray(bits, np.uint16).view(
+        np.int16)).view(torch.bfloat16).float().numpy()
+
+
+@pytest.mark.parametrize("nfft", [2048, 12500])
+def test_tc_planes_hold_the_split_planes_in_fragment_order(nfft):
+    """Reading tc_planes back through the mma.sync m16n8k16 fragment
+    layouts (A: rows g, g+8 and columns 2t, 2t+1, +8; B: rows 2t, 2t+1,
+    +8 and column g; the accumulator: rows g, g+8 and columns 2t, 2t+1,
+    lane = 4 g + t) gives the split planes, zero-padded."""
+    n1, n2 = tch._ct_split(nfft)
+    n2o = nfft // 2 // n1 + 1
+    mt, ks2, nt2 = -(-n1 // 16), -(-n2 // 16), -(-n2o // 8)
+    a1, tw, b2 = (t.numpy() for t in tmk.tc_planes(nfft, "cpu"))
+    a1, b2 = a1.view(np.uint32), b2.view(np.uint32)
+    sp = tmk.split_planes(nfft, "cpu")
+    lane = np.arange(32)
+    g, t = lane // 4, lane % 4
+    lo, hi = lambda w: _bf16(w & 0xFFFF), lambda w: _bf16(w >> 16)
+    for p, plane in enumerate((sp.w1r_hi, sp.w1r_lo, sp.w1i_hi, sp.w1i_lo)):
+        w = np.zeros((16 * mt, 16 * mt), np.float32)
+        for i in range(mt):
+            for k in range(mt):
+                r, c, f = 16 * i + g, 16 * k + 2 * t, a1[p, i, k]
+                for reg, (dr, dc) in enumerate(((0, 0), (8, 0), (0, 8),
+                                                (8, 8))):
+                    w[r + dr, c + dc] = lo(f[:, reg])
+                    w[r + dr, c + dc + 1] = hi(f[:, reg])
+        want = np.zeros_like(w)
+        want[:n1, :n1] = plane.numpy()
+        assert np.array_equal(w, want)
+    for p, plane in enumerate((sp.twr, sp.twi)):
+        w = np.zeros((16 * mt, 16 * ks2), np.float32)
+        for i in range(mt):
+            for j in range(2 * ks2):
+                r, c, f = 16 * i + g, 8 * j + 2 * t, tw[p, i, j]
+                w[r, c], w[r, c + 1] = f[:, 0], f[:, 1]
+                w[r + 8, c], w[r + 8, c + 1] = f[:, 2], f[:, 3]
+        want = np.zeros_like(w)
+        want[:n1, :n2] = plane.numpy()
+        assert np.array_equal(w, want)
+    for p, plane in enumerate((sp.w2r_hi, sp.w2r_lo, sp.w2i_hi, sp.w2i_lo)):
+        w = np.zeros((16 * ks2, 8 * nt2), np.float32)
+        for k in range(ks2):
+            for n in range(nt2):
+                r, c, f = 16 * k + 2 * t, 8 * n + g, b2[p, k, n]
+                w[r, c], w[r + 1, c] = lo(f[:, 0]), hi(f[:, 0])
+                w[r + 8, c], w[r + 9, c] = lo(f[:, 1]), hi(f[:, 1])
+        want = np.zeros_like(w)
+        want[:n2, :n2o] = plane.numpy()
+        assert np.array_equal(w, want)
+
+
+def test_staged_wrappers_refuse_other_devices():
+    """A tensor that is neither on the CPU nor on a card is refused: the
+    wrappers launch the kernel or raise, and never fall back."""
+    raw = torch.zeros((2, SEG_SAMPS * NSEG), dtype=torch.uint8,
+                      device="meta")
+    with pytest.raises(ValueError, match="device"):
+        tmk.dft_detect_power(raw, NFFT, 2, NSEG)
+    with pytest.raises(ValueError, match="device"):
+        tmk.chain_second_plain(raw, torch.zeros((2, NCHAN), device="meta"),
+                               *_stage_b_args(_cfg(), 2))

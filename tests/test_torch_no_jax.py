@@ -1,11 +1,14 @@
-"""The port imports and runs with jax absent (the GPU machine has no jax).
+"""The port imports and runs with jax and the JAX package absent (the GPU
+machine has no jax, and the port keeps its own copies of the package's
+host modules).
 
-A subprocess blocks jax (sys.modules['jax'] = None makes any import of it
-fail), imports vlite_fast_tpu_torch with every submodule, and runs one
-tiny second through the armed program and through each chain kernel's
-entry point (the relayout, chain_second in its three modes,
-chain_second_v4), resolves every twin program, and runs one tiny gulp
-search, all on the CPU.
+A subprocess blocks jax and vlite_fast_tpu (sys.modules[name] = None
+makes any import of either fail), imports vlite_fast_tpu_torch with every
+submodule, and runs one tiny second through the armed program and
+through each chain kernel's entry point (the relayout, chain_second in
+its three modes, chain_second_v4), resolves every twin program, runs the
+staged chain's stages A and B and the roll+select dedispersion, and runs
+one tiny gulp search, all on the CPU.
 """
 
 import os
@@ -15,6 +18,7 @@ import sys
 SCRIPT = r"""
 import sys
 sys.modules["jax"] = None
+sys.modules["vlite_fast_tpu"] = None
 import importlib, pkgutil
 import numpy as np
 import torch
@@ -31,7 +35,7 @@ cfg = PipelineConfig.tiny(nbit=2)
 rng = np.random.default_rng(0)
 raw = np.clip(rng.standard_normal((2, cfg.sample_rate)) / 0.05914 + 128.5,
               0, 255).astype(np.uint8)
-out, st = dsp.process_second(cfg, torch.from_numpy(raw), dsp.init_state(cfg))
+out, st = dsp.process_second(cfg, torch.from_numpy(raw), dsp.init_state(cfg, 'cpu'))
 assert out.packed_kur.shape == (cfg.seg_per_sec * cfg.out_samps_per_seg, 48)
 from vlite_fast_tpu_torch.ops import megakernel as mk
 t = torch.from_numpy(raw)
@@ -46,15 +50,35 @@ assert torch.equal(got[1], out.packed_kur)
 import dataclasses
 for twin in ("auto", "same") + dsp.MEGAKERNELS:
     c = dataclasses.replace(cfg, inject_frb=True, twin_chain_impl=twin)
-    dsp.twin_program(c)(dsp.twin_config(c), t, dsp.init_state(c))
+    dsp.twin_program(c)(dsp.twin_config(c), t, dsp.init_state(c, 'cpu'))
 eng = search.SinglePulseSearch(SearchConfig.tiny(), cfg.tsamp,
-                               cfg.freqs_mhz(), nsub=64, nbatch=64)
+                               cfg.freqs_mhz(), nsub=64, nbatch=64,
+                               device="cpu")
 rows = SearchConfig.tiny().gulp_samps + eng.overlap
 reps = rows // out.packed_kur.shape[0] + 1
 packed = np.tile(out.packed_kur.numpy(), (reps, 1))[:rows]
 cands = eng.search_gulp_packed(packed, 2)
+nfft, ffts, nseg = 2048, 4, 2
+u8 = torch.from_numpy(rng.integers(1, 256, (2, nfft * ffts * nseg),
+                                   dtype=np.uint8))
+power = mk.dft_detect_power(u8, nfft, 2, nseg)
+assert power.shape == (nseg, 2 * ffts, nfft // 2 + 1)
+packed_b, bp_b = mk.chain_second_plain(u8, torch.zeros((2, nfft // 2 + 1)),
+                                       nfft, 2, nseg, 4, 0.02, 101, 612)
+assert packed_b.shape == (nseg * ffts // 4, 128) and bool((bp_b > 0).all())
+from vlite_fast_tpu_torch.ops import dedisperse as dd
+from vlite_fast_tpu_torch.ops import dedisperse_pallas as ddp
+freqs = np.linspace(400.0, 350.0, 64)
+plan = dd.make_plan(dd.dm_grid(0.0, 100.0, 16), freqs, 2e-3, nsub=8,
+                    nbatch=4, device="cpu")
+fb = torch.from_numpy(rng.standard_normal((200 + plan.max_delay, 64))
+                      .astype(np.float32))
+dmt = ddp.dedisperse_pallas_rollsel(fb, plan, 200)
+assert torch.allclose(dmt, dd.dedisperse(fb, plan, 200), rtol=1e-5, atol=1e-4)
+assert mk.LAUNCHES["dft_detect_power"] == mk.LAUNCHES["chain_second_plain"] \
+    == ddp.ROLLSEL_LAUNCHES == 0
 loaded = {m.split(".")[0] for m, mod in sys.modules.items() if mod is not None}
-assert "jax" not in loaded
+assert not loaded & {"jax", "vlite_fast_tpu"}, loaded
 print("OK", len(names))
 """
 

@@ -10,6 +10,7 @@ and width, and S/N within rtol 1e-3 (the 2-bit filterbanks agree to
 >= 0.9999 of levels, not bit for bit).
 """
 
+import dataclasses
 import os
 
 import numpy as np
@@ -19,12 +20,26 @@ import torch
 from vlite_fast_tpu.config import PipelineConfig, SearchConfig
 from vlite_fast_tpu.runtime.control import ObservationDocument as JDoc
 from vlite_fast_tpu.runtime.pipeline import StationPipeline as JPipe
+from vlite_fast_tpu_torch import config as tconfig
 from vlite_fast_tpu_torch.models import baseband_dsp as tdsp
 from vlite_fast_tpu_torch.ops import megakernel as tmk
 from vlite_fast_tpu_torch.runtime.pipeline import ObservationDocument as TDoc
 from vlite_fast_tpu_torch.runtime.pipeline import StationPipeline as TPipe
 
 torch.set_num_threads(1)
+
+
+def _t(cfg):
+    """The port's config of the same class and fields as a JAX package one."""
+    return getattr(tconfig, type(cfg).__name__)(**dataclasses.asdict(cfg))
+
+
+def _pipe(pipe_cls, cfg, scfg, **kw):
+    """pipe_cls on the CPU from a JAX package config pair (the port's
+    StationPipeline takes the port's configs and an explicit device)."""
+    if pipe_cls is JPipe:
+        return JPipe(1, cfg, scfg, **kw)
+    return TPipe(1, _t(cfg), _t(scfg), device="cpu", **kw)
 
 
 def _seconds(cfg, n):
@@ -46,8 +61,9 @@ def test_pipeline_candidates_match_jax(tmp_path, monkeypatch):
                         lambda *a: twin_calls.append(1) or chain(*a))
     results = []
     for pipe_cls, doc in ((JPipe, JDoc), (TPipe, TDoc)):
-        pipe = pipe_cls(1, cfg, scfg, out_dir=str(tmp_path / doc.__module__),
-                        keep_ring=False, write_cands=False)
+        pipe = _pipe(pipe_cls, cfg, scfg,
+                     out_dir=str(tmp_path / doc.__module__),
+                     keep_ring=False, write_cands=False)
         prod = pipe.run_observation(
             ((1.6e9 + s, buf) for s, buf in enumerate(secs)),
             doc(name="PARITY", start_time=1.6e9), write_fil=True)
@@ -56,10 +72,10 @@ def test_pipeline_candidates_match_jax(tmp_path, monkeypatch):
             pipe.close()
     prod_j, prod_t = results
     assert prod_t.seconds == prod_j.seconds == len(secs)
-    assert 1 < tdsp.inject_window_seconds(cfg) < len(secs)
+    assert 1 < tdsp.inject_window_seconds(_t(cfg)) < len(secs)
     # host gating: every second after the armed window went through the
     # chain kernel's entry point (its plain version here, on the CPU)
-    assert len(twin_calls) == len(secs) - tdsp.inject_window_seconds(cfg)
+    assert len(twin_calls) == len(secs) - tdsp.inject_window_seconds(_t(cfg))
     clear = scfg.snr_thresh + 0.5
     cj = sorted((c for c in prod_j.candidates if c.snr > clear),
                 key=lambda c: (c.peak_idx, c.dmi))
@@ -92,8 +108,9 @@ def test_cold_start_candidates_match_jax(tmp_path, seg_per_sec):
     secs = _seconds(cfg, 5)
     results = []
     for pipe_cls, doc in ((JPipe, JDoc), (TPipe, TDoc)):
-        pipe = pipe_cls(1, cfg, scfg, out_dir=str(tmp_path / doc.__module__),
-                        keep_ring=False, write_cands=False)
+        pipe = _pipe(pipe_cls, cfg, scfg,
+                     out_dir=str(tmp_path / doc.__module__),
+                     keep_ring=False, write_cands=False)
         results.append(pipe.run_observation(
             ((1.6e9 + s, buf) for s, buf in enumerate(secs)),
             doc(name="COLD", start_time=1.6e9), write_fil=False))
@@ -113,4 +130,31 @@ def test_cold_start_candidates_match_jax(tmp_path, seg_per_sec):
 
 def test_keep_ring_not_ported():
     with pytest.raises(NotImplementedError, match="ring"):
-        TPipe(1, PipelineConfig.tiny(), SearchConfig.tiny(), keep_ring=True)
+        TPipe(1, _t(PipelineConfig.tiny()), _t(SearchConfig.tiny()),
+              keep_ring=True, device="cpu")
+
+
+def test_entry_points_default_to_the_card(tmp_path):
+    """Built without a device, the entry points ask for "cuda"; where
+    there is no card they raise rather than fall back to the CPU."""
+    from vlite_fast_tpu_torch import interop
+    from vlite_fast_tpu_torch.models import search as tsearch
+    from vlite_fast_tpu_torch.ops import dedisperse as tdd
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the defaults run there")
+    cfg, scfg = tconfig.PipelineConfig.tiny(), tconfig.SearchConfig.tiny()
+    freqs = cfg.freqs_mhz()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TPipe(1, cfg, scfg, out_dir=str(tmp_path))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tsearch.SinglePulseSearch(scfg, cfg.tsamp, freqs)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tdsp.init_state(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tdd.make_plan(tdd.dm_grid(0.0, 100.0, 8), freqs, cfg.tsamp, nsub=8,
+                      nbatch=8)
+    z = np.zeros((2, cfg.nchan), np.float32)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        interop.state_from_jax(z, z, 0, z, z)
+    assert TPipe(1, cfg, scfg, out_dir=str(tmp_path),
+                 device="cpu").device == torch.device("cpu")

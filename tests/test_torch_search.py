@@ -7,6 +7,8 @@ orders); boxcar S/N rtol 1e-5 (atol 1e-5 for S/N near zero, where the
 cumulative sums' rounding is absolute); top-k crossings identical.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -16,6 +18,7 @@ from vlite_fast_tpu.config import SearchConfig
 from vlite_fast_tpu.models import search as jsearch
 from vlite_fast_tpu.ops import dedisperse as jdd
 from vlite_fast_tpu.ops import dedisperse_pallas as jddp
+from vlite_fast_tpu_torch import config as tconfig
 from vlite_fast_tpu_torch import interop
 from vlite_fast_tpu_torch.models import search as tsearch
 from vlite_fast_tpu_torch.ops import dedisperse as tdd
@@ -31,7 +34,8 @@ FREQS = np.linspace(400.0, 350.0, NCHAN)
 def _grid(mode):
     scfg = SearchConfig(dm_min=0.0, dm_max=100.0, ndm=64,
                         dm_grid_mode=mode)
-    dms = tsearch.make_dm_grid(scfg, TSAMP, FREQS)
+    dms = tsearch.make_dm_grid(
+        tconfig.SearchConfig(**dataclasses.asdict(scfg)), TSAMP, FREQS)
     assert np.array_equal(dms, jsearch.make_dm_grid(scfg, TSAMP, FREQS))
     return dms
 
@@ -39,14 +43,14 @@ def _grid(mode):
 def _plans(mode, nsub, nbatch=16):
     dms = _grid(mode)
     kw = dict(nsub=nsub, nbatch=nbatch, zap_ranges=((0, 10), (200, 210)))
-    return (tdd.make_plan(dms, FREQS, TSAMP, **kw),
+    return (tdd.make_plan(dms, FREQS, TSAMP, device="cpu", **kw),
             jdd.make_plan(dms, FREQS, TSAMP, **kw))
 
 
 @pytest.mark.parametrize("mode", ["linear", "tol"])
 def test_plan_from_jax_equal(mode):
     pt, pj = _plans(mode, 64)
-    pi = interop.plan_from_jax(pj)
+    pi = interop.plan_from_jax(pj, device="cpu")
     for name in ("rel_delays", "sub_delays", "batch_of_dm", "chan_weights"):
         a, b = getattr(pt, name).numpy(), getattr(pi, name).numpy()
         assert np.array_equal(a, np.asarray(getattr(pj, name))), name

@@ -24,12 +24,26 @@ from vlite_fast_tpu.config import PipelineConfig, SearchConfig
 from vlite_fast_tpu.models import baseband_dsp as jdsp
 from vlite_fast_tpu.runtime.control import ObservationDocument as JDoc
 from vlite_fast_tpu.runtime.pipeline import StationPipeline as JPipe
+from vlite_fast_tpu_torch import config as tconfig
 from vlite_fast_tpu_torch.models import baseband_dsp as tdsp
 from vlite_fast_tpu_torch.ops import megakernel as tmk
 from vlite_fast_tpu_torch.runtime.pipeline import ObservationDocument as TDoc
 from vlite_fast_tpu_torch.runtime.pipeline import StationPipeline as TPipe
 
 torch.set_num_threads(1)
+
+
+def _t(cfg):
+    """The port's config of the same class and fields as a JAX package one."""
+    return getattr(tconfig, type(cfg).__name__)(**dataclasses.asdict(cfg))
+
+
+def _pipe(pipe_cls, cfg, scfg, **kw):
+    """pipe_cls on the CPU from a JAX package config pair (the port's
+    StationPipeline takes the port's configs and an explicit device)."""
+    if pipe_cls is JPipe:
+        return JPipe(1, cfg, scfg, **kw)
+    return TPipe(1, _t(cfg), _t(scfg), device="cpu", **kw)
 
 MK = ("megakernel", "megakernel2", "megakernel3", "megakernel3f",
       "megakernel4")
@@ -51,7 +65,8 @@ def _feed(pipe, secs, doc=TDoc):
 @pytest.mark.parametrize("twin", ["same", "xla"])
 def test_same_twin_runs_the_armed_program(tmp_path, monkeypatch, twin):
     """The fault of the parent: 'same' and 'xla' went to the v2 kernel."""
-    cfg = PipelineConfig.tiny(nbit=2, inject_frb=True, twin_chain_impl=twin)
+    cfg = _t(PipelineConfig.tiny(nbit=2, inject_frb=True,
+                                 twin_chain_impl=twin))
     secs = _seconds(cfg, 4)
     window = tdsp.inject_window_seconds(cfg)
     assert 1 <= window < len(secs)
@@ -62,8 +77,8 @@ def test_same_twin_runs_the_armed_program(tmp_path, monkeypatch, twin):
                         or real(c, *a))
     monkeypatch.setattr(tmk, "chain_second_v2",
                         lambda *a: v2.append(1) or chain(*a))
-    pipe = TPipe(1, cfg, SearchConfig.tiny(), out_dir=str(tmp_path),
-                 write_cands=False)
+    pipe = TPipe(1, cfg, _t(SearchConfig.tiny()), out_dir=str(tmp_path),
+                 write_cands=False, device="cpu")
     _feed(pipe, secs)
     assert programs == [True] * window + [False] * (len(secs) - window)
     assert v2 == []
@@ -102,6 +117,7 @@ def test_resolution_matches_jax_over_config_grid():
                                   chain_impl=chain_impl,
                                   twin_chain_impl=twin)
         want = _jax_verdict(cfg)
+        cfg = _t(cfg)
         got, program = _port_verdict(cfg)
         seen.add((want, got))
         if twin == "auto" and want == "xla" and got == "megakernel2":
@@ -130,7 +146,8 @@ def test_resolution_matches_jax_over_config_grid():
         "nkurto-megakernel3"])
 def test_pipeline_refuses_at_construction(tmp_path, cfg):
     with pytest.raises(ValueError):
-        TPipe(1, cfg, SearchConfig.tiny(), out_dir=str(tmp_path))
+        TPipe(1, _t(cfg), _t(SearchConfig.tiny()), out_dir=str(tmp_path),
+              device="cpu")
 
 
 def test_pipeline_megakernel3_matches_jax(tmp_path, monkeypatch):
@@ -153,14 +170,15 @@ def test_pipeline_megakernel3_matches_jax(tmp_path, monkeypatch):
                         lambda *a: v2.append(1) or chain_v2(*a))
     results = []
     for pipe_cls, doc in ((JPipe, JDoc), (TPipe, TDoc)):
-        pipe = pipe_cls(1, cfg, scfg, out_dir=str(tmp_path / doc.__module__),
-                        keep_ring=False, write_cands=False)
+        pipe = _pipe(pipe_cls, cfg, scfg,
+                     out_dir=str(tmp_path / doc.__module__),
+                     keep_ring=False, write_cands=False)
         results.append(_feed(pipe, secs, doc))
         if pipe_cls is JPipe:
             pipe.close()
     prod_j, prod_t = results
     assert prod_t.seconds == prod_j.seconds == len(secs)
-    window = tdsp.inject_window_seconds(cfg)
+    window = tdsp.inject_window_seconds(_t(cfg))
     assert modes == ["pallas"] * (len(secs) - window) and v2 == []
     clear = scfg.snr_thresh + 0.5
     cj = sorted((c for c in prod_j.candidates if c.snr > clear),

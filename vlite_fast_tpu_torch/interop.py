@@ -10,13 +10,16 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from vlite_fast_tpu_torch import devices
 from vlite_fast_tpu_torch.models.baseband_dsp import DSPState
+from vlite_fast_tpu_torch.ops import channelize as ch_ops
 from vlite_fast_tpu_torch.ops.dedisperse import DedispPlan
 
 
 def state_from_jax(bp, bp_kur, segs_since_inject, tail, wtail,
-                   device="cpu") -> DSPState:
+                   device="cuda") -> DSPState:
     """The port's DSPState from the numpy fields of a JAX DSPState."""
+    device = devices.resolve(device)
     t = lambda a: torch.from_numpy(
         np.array(a, dtype=np.float32, copy=True)).to(device)
     return DSPState(bp=t(bp), bp_kur=t(bp_kur),
@@ -32,9 +35,10 @@ def state_to_numpy(state: DSPState) -> dict:
             "wtail": state.wtail.cpu().numpy()}
 
 
-def plan_from_jax(plan, device="cpu") -> DedispPlan:
+def plan_from_jax(plan, device="cuda") -> DedispPlan:
     """The port's DedispPlan from a JAX DedispPlan's tables (read with
     np.asarray) and static scalars."""
+    device = devices.resolve(device)
     t = lambda a, dt: torch.from_numpy(
         np.array(a, dtype=dt, copy=True)).to(device)
     return DedispPlan(
@@ -46,3 +50,14 @@ def plan_from_jax(plan, device="cpu") -> DedispPlan:
         max_delay=int(plan.max_delay), max_sub_delay=int(plan.max_sub_delay),
         nsub=int(plan.nsub), nchan_eff=float(plan.nchan_eff),
         rel_delays_max=int(plan.rel_delays_max))
+
+
+def bp_from_factored(bp_fact, nfft: int, nchan: int) -> np.ndarray:
+    """The linear (npol, nchan) bandpass from the JAX package's factored
+    (npol, 64, 128) stage-B plane (its megakernel.bp_from_factored, in
+    numpy): plane entry (k2, k1) is channel k = k1 + n1 * k2."""
+    n1, _ = ch_ops._ct_split(nfft)
+    n2o = nfft // 2 // n1 + 1
+    f = np.asarray(bp_fact, dtype=np.float32)
+    return np.ascontiguousarray(
+        f[:, :n2o, :n1].reshape(f.shape[0], -1)[:, :nchan])

@@ -42,7 +42,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from vlite_fast_tpu.config import PipelineConfig
+from vlite_fast_tpu_torch import devices
+from vlite_fast_tpu_torch.config import PipelineConfig
 from vlite_fast_tpu_torch.ops import channelize as ch_ops
 from vlite_fast_tpu_torch.ops import injection as inj_ops
 from vlite_fast_tpu_torch.ops import kurtosis as kur_ops
@@ -78,8 +79,9 @@ def _check_supported(cfg: PipelineConfig) -> None:
         raise NotImplementedError("do_histo is not ported yet")
 
 
-def init_state(cfg: PipelineConfig, device="cpu") -> DSPState:
+def init_state(cfg: PipelineConfig, device="cuda") -> DSPState:
     _check_supported(cfg)
+    device = devices.resolve(device)
     z = lambda: torch.zeros((cfg.npol_in, cfg.nchan), dtype=torch.float32,
                             device=device)
     return DSPState(

@@ -14,7 +14,8 @@ from typing import List
 import numpy as np
 import torch
 
-from vlite_fast_tpu.config import SearchConfig
+from vlite_fast_tpu_torch import devices
+from vlite_fast_tpu_torch.config import SearchConfig
 from vlite_fast_tpu_torch.ops import dedisperse as dd
 from vlite_fast_tpu_torch.ops import dedisperse_pallas as ddp
 from vlite_fast_tpu_torch.ops import quantize as q_ops
@@ -111,11 +112,11 @@ class SinglePulseSearch:
 
     def __init__(self, scfg: SearchConfig, tsamp: float,
                  freqs_mhz: np.ndarray, nsub: int = 0, nbatch: int = 0,
-                 device="cpu"):
+                 device="cuda"):
         if scfg.engine == "fourier":
             raise NotImplementedError("the 'fourier' engine is not ported")
         self.scfg = scfg
-        self.device = torch.device(device)
+        self.device = devices.resolve(device)
         self.tsamp = float(tsamp)
         self.freqs_mhz = np.asarray(freqs_mhz)
         self.dms = make_dm_grid(scfg, self.tsamp, self.freqs_mhz)

@@ -16,7 +16,8 @@ from typing import NamedTuple, Sequence
 import numpy as np
 import torch
 
-from vlite_fast_tpu import constants as C
+from vlite_fast_tpu_torch import constants as C
+from vlite_fast_tpu_torch import devices
 
 
 # ---------------------------------------------------------------------------
@@ -80,7 +81,8 @@ class DedispPlan:
 
 def make_plan(dms: np.ndarray, freqs_mhz: np.ndarray, tsamp: float,
               nsub: int = 128, nbatch: int = 128,
-              zap_ranges: Sequence[tuple] = (), device="cpu") -> DedispPlan:
+              zap_ranges: Sequence[tuple] = (), device="cuda") -> DedispPlan:
+    device = devices.resolve(device)
     nchan = len(freqs_mhz)
     ndm = len(dms)
     nbatch = min(nbatch, ndm)

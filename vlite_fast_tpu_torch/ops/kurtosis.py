@@ -15,7 +15,7 @@ from typing import NamedTuple
 
 import torch
 
-from vlite_fast_tpu import constants as C
+from vlite_fast_tpu_torch import constants as C
 from vlite_fast_tpu_torch.ops.normalize import recip
 
 

@@ -1,7 +1,7 @@
 """The fused DSP chain for one second: CUDA kernels + plain versions.
 
-Replaces four TPU kernels of vlite_fast_tpu/ops/megakernel.py, all on
-the injection-free twin:
+Replaces six TPU kernels of vlite_fast_tpu/ops/megakernel.py.  Four are
+on the injection-free twin:
 
   chain_second_v2      (body _full_kernel_v2) on the raw second:
                        csrc/chain.cu, layout 0;
@@ -13,45 +13,70 @@ the injection-free twin:
   chain_second_v4      (body _full_kernel_v4) the same with both DFT
                        stages batched: csrc/chain_v4.cu.
 
+Two are the staged chain, the JAX package's milestones towards the
+fused kernel (its tests and benchmarks/bench_megakernel_tpu.py reach
+them; no configuration does):
+
+  dft_detect_power     (body _stageA_kernel) stage A: convert, the
+                       split-plane bf16 Cooley-Tukey DFT, detect:
+                       csrc/stage_ab.cu on csrc/dft_tc.cuh (tensor cores);
+  chain_second_plain   (body _mk_stageB_kernel) stage B: stage A, then the
+                       plain stream's EMA, scrunches and 2-bit pack with
+                       the bandpass carried: the same DFT, then chain.cuh's
+                       EMA launch in rfi_mode 0.
+
 The three chains compute one function (a front, a Cooley-Tukey DFT, an
 EMA/back-end launch on the current stream).  On the card they are bound
 by the DFT's f32 FMA work (~0.36 TFLOP per data-second, on CUDA cores)
 and by the EMA's walk through 10240 spectra in order; chain.cu keeps
 each frame and its stage-1 planes in shared memory, chain_v4.cu passes a
-complex intermediate between two batched passes.  The source headers
-have the details.
+complex intermediate between two batched passes.  The staged chain
+keeps the TPU kernels' arithmetic (bf16 hi/lo operand planes, f32 sums)
+and is bound by its bf16 products, which run on the tensor cores.  The
+source headers have the details.
 
-They work in the natural layout: raw (npol, nsamp) u8 and bandpass
-(2, npol, nchan) [plain; kur] in, packed sel_and_dig rows out.  The TPU
-kernels' factored planes and their helpers (bp_to/from_factored[_v2],
-unfactor_pack_realign[_v2]) are TPU layout and have no counterpart here;
-`pretranspose_u8` is XLA in the reference and stays torch.
+They work in the natural layout: raw (npol, nsamp) u8 in, linear
+channels out.  The chains take the bandpass (2, npol, nchan) [plain;
+kur] and return packed sel_and_dig rows.  Stage A returns power (nseg,
+npol * ffts, nfft // 2 + 1) f32; stage B takes and returns the bandpass
+(npol, nfft // 2 + 1) and returns the sel_and_dig rows (nseg * nout,
+(chanmax - chanmin + 1) // 4) u8.  The TPU kernels' factored (k2, k1)
+planes, which every JAX caller unfolds at once, and their helpers
+(bp_to/from_factored[_v2], unfactor_pack_realign[_v2]) are TPU layout
+and have no counterpart here: the outputs equal the JAX helpers'
+unfolding of the JAX outputs (interop.bp_from_factored carries a JAX
+stage-B bandpass over).  `pretranspose_u8` is XLA in the reference and
+stays torch.
 
 Dispatch: a CPU tensor goes to the plain version (for the chains the
 port's baseband_dsp.process_second_plain with injection off, one
-function for all three); a CUDA tensor launches the kernel or raises.
-LAUNCHES counts kernel launches per wrapper.
+function for all three; dft_detect_oracle and chain_second_plain_oracle
+for the stages); a CUDA tensor launches the kernel or raises.  LAUNCHES
+counts kernel launches per wrapper.
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from vlite_fast_tpu import constants as C
-from vlite_fast_tpu.config import PipelineConfig
+from vlite_fast_tpu_torch import constants as C
+from vlite_fast_tpu_torch.config import PipelineConfig
 from vlite_fast_tpu_torch import _build
 from vlite_fast_tpu_torch.models import baseband_dsp as dsp
 from vlite_fast_tpu_torch.ops import channelize as ch_ops
 from vlite_fast_tpu_torch.ops import kurtosis as kur_ops
 from vlite_fast_tpu_torch.ops import normalize as norm_ops
+from vlite_fast_tpu_torch.ops import quantize as q_ops
 from vlite_fast_tpu_torch.ops import unpack as unpack_ops
 
 LAUNCHES = {"chain_second_v2": 0, "pallas_pretranspose": 0,
-            "chain_second": 0, "chain_second_v4": 0}
+            "chain_second": 0, "chain_second_v4": 0,
+            "dft_detect_power": 0, "chain_second_plain": 0}
 LANE = 128               # the CT-major tile is LANE x LANE
 PRETRANSPOSE = ("xla", "pallas", "pallas_bf16")
 # intermediate scratch of chain_second_v4 per launch chunk
@@ -306,3 +331,306 @@ def chain_second_v4(raw: torch.Tensor, bp: torch.Tensor, cfg: PipelineConfig,
                         2 if bf16 else 1, bp, cfg, chunk=chunk)
     LAUNCHES["chain_second_v4"] += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# The staged chain: stage A (dft_detect_power) and stage B
+# (chain_second_plain), the TPU kernels' split-plane bf16 arithmetic
+# ---------------------------------------------------------------------------
+
+def _hi_lo(m: torch.Tensor) -> tuple:
+    """f32 -> (hi, lo), both bf16-exact f32: hi = bf16(m), lo = bf16(m - hi),
+    each rounded to nearest even (the JAX package's _hi_lo and _split)."""
+    hi = m.to(torch.bfloat16).to(torch.float32)
+    lo = (m - hi).to(torch.bfloat16).to(torch.float32)
+    return hi, lo
+
+
+class SplitPlanes(NamedTuple):
+    """The constants of the split-plane DFT at natural shapes (f32, the
+    hi/lo planes bf16-exact): the counterpart of the JAX package's
+    DFTPlanes without its 128-lane padding and twiddle tiling."""
+
+    w1r_hi: torch.Tensor   # (n1, n1) [k1, m1] stage-1 real plane
+    w1r_lo: torch.Tensor
+    w1i_hi: torch.Tensor   # imaginary plane
+    w1i_lo: torch.Tensor
+    twr: torch.Tensor      # (n1, n2) [k1, m2] twiddle, f32
+    twi: torch.Tensor
+    w2r_hi: torch.Tensor   # (n2, n2_out) [m2, k2] stage-2 real plane
+    w2r_lo: torch.Tensor
+    w2i_hi: torch.Tensor
+    w2i_lo: torch.Tensor
+
+
+_SPLIT: dict = {}
+
+
+def split_planes(nfft: int, device) -> SplitPlanes:
+    """The split planes of nfft = n1 * n2 on `device` (built once)."""
+    key = (nfft, str(device))
+    if key not in _SPLIT:
+        n1, _ = ch_ops._ct_split(nfft)
+        w1, tw, w2 = ch_ops._ct_tables(nfft)
+        w2 = w2[:, :nfft // 2 // n1 + 1]
+        f32 = lambda a: torch.from_numpy(np.ascontiguousarray(
+            a.astype(np.float32)))
+        # stage 1 contracts m1 against W1[m1, k1] = w1[k1, m1] (the JAX
+        # package's w1.T); the port keeps W1's transpose, [k1, m1], which
+        # is w1 itself
+        planes = (*_hi_lo(f32(w1.real)), *_hi_lo(f32(w1.imag)),
+                  f32(tw.real), f32(tw.imag),
+                  *_hi_lo(f32(w2.real)), *_hi_lo(f32(w2.imag)))
+        _SPLIT[key] = SplitPlanes(*(p.to(device) for p in planes))
+    return _SPLIT[key]
+
+
+def _frames(raw: torch.Tensor, nfft: int, npol: int,
+            seg_per_sec: int) -> torch.Tensor:
+    """(npol, nsamp) u8 -> (nseg, npol, ffts, n1, n2) frames, sample
+    n = m1 * n2 + m2 at [m1, m2] (a view)."""
+    n1, n2 = ch_ops._ct_split(nfft)
+    ffts = raw.shape[1] // seg_per_sec // nfft
+    return raw.reshape(npol, seg_per_sec, ffts, n1, n2).transpose(0, 1)
+
+
+def dft_detect_oracle(raw: torch.Tensor, nfft: int, npol: int,
+                      seg_per_sec: int, seg_chunk: int = 32) -> torch.Tensor:
+    """Stage A's plain version: the split-plane bf16 DFT emulated in f32
+    (each operand rounded to bf16 values, every product exact in f32, the
+    sums f32 matrix products), then |X|^2, in the JAX package's order of
+    terms (its dft_detect_oracle).  raw u8 (npol, nsamp) -> power f32
+    (nseg, npol * ffts, nfft // 2 + 1), linear channels.  seg_chunk
+    segments at a time bound the memory at production size."""
+    n1, n2 = ch_ops._ct_split(nfft)
+    n2o = nfft // 2 // n1 + 1
+    nchan = nfft // 2 + 1
+    sp = split_planes(nfft, raw.device)
+    fr = _frames(raw, nfft, npol, seg_per_sec)
+    ffts = fr.shape[2]
+    out = torch.empty((seg_per_sec, npol * ffts, nchan), dtype=torch.float32,
+                      device=raw.device)
+    for s0 in range(0, seg_per_sec, seg_chunk):
+        s1 = min(s0 + seg_chunk, seg_per_sec)
+        x = unpack_ops.convert_uint8(fr[s0:s1].reshape(-1, n1, n2))
+        ar = torch.matmul(sp.w1r_hi, x) + torch.matmul(sp.w1r_lo, x)
+        ai = torch.matmul(sp.w1i_hi, x) + torch.matmul(sp.w1i_lo, x)
+        br = ar * sp.twr - ai * sp.twi
+        bi = ar * sp.twi + ai * sp.twr
+        rh, rl = _hi_lo(br)
+        ih, il = _hi_lo(bi)
+
+        def stage2(w_hi, w_lo, h, lo):
+            return (torch.matmul(h, w_hi) + torch.matmul(lo, w_hi)
+                    + torch.matmul(h, w_lo))
+
+        pr = (stage2(sp.w2r_hi, sp.w2r_lo, rh, rl)
+              - stage2(sp.w2i_hi, sp.w2i_lo, ih, il))
+        pi = (stage2(sp.w2i_hi, sp.w2i_lo, rh, rl)
+              + stage2(sp.w2r_hi, sp.w2r_lo, ih, il))
+        p = pr * pr + pi * pi                          # (f, k1, k2)
+        lin = p.transpose(1, 2).reshape(-1, n2o * n1)[:, :nchan]
+        out[s0:s1] = lin.reshape(s1 - s0, npol * ffts, nchan)
+    return out
+
+
+def tc_planes(nfft: int, device) -> tuple:
+    """The split planes in the tensor-core fragment order csrc/dft_tc.cuh
+    reads (mma.sync m16n8k16; lane = 4 g + t): a1 int32 (4, mt, ks1, 32,
+    4) of W1 as the A operand, tw f32 (2, mt, 2 ks2, 32, 4) in stage 1's
+    accumulator order, b2 int32 (4, ks2, nt2, 32, 2) of W2 as the B
+    operand, every padded entry 0."""
+    key = ("tc", nfft, str(device))
+    if key in _SPLIT:
+        return _SPLIT[key]
+    n1, n2 = ch_ops._ct_split(nfft)
+    n2o = nfft // 2 // n1 + 1
+    mt, ks2, nt2 = -(-n1 // 16), -(-n2 // 16), -(-n2o // 8)
+    sp = split_planes(nfft, "cpu")
+
+    def bits(m, rows, cols):
+        """bf16 bit patterns of m zero-padded to (rows, cols), uint32."""
+        out = np.zeros((rows, cols), np.uint32)
+        b = m.to(torch.bfloat16).view(torch.int16).numpy().view(np.uint16)
+        out[:m.shape[0], :m.shape[1]] = b
+        return out
+
+    g = (np.arange(32) // 4)[None, None, :]
+    t = (np.arange(32) % 4)[None, None, :]
+    i = np.arange(mt)[:, None, None]
+    k = np.arange(mt)[None, :, None]
+    a1 = np.empty((4, mt, mt, 32, 4), np.uint32)
+    for pi, m in enumerate((sp.w1r_hi, sp.w1r_lo, sp.w1i_hi, sp.w1i_lo)):
+        w = bits(m, 16 * mt, 16 * mt)
+        r0, c0 = 16 * i + g, 16 * k + 2 * t
+        pair = lambda r, c: w[r, c] | (w[r, c + 1] << 16)
+        a1[pi] = np.stack([pair(r0, c0), pair(r0 + 8, c0), pair(r0, c0 + 8),
+                           pair(r0 + 8, c0 + 8)], axis=-1)
+    twp = np.zeros((2, 16 * mt, 16 * ks2), np.float32)
+    twp[0, :n1, :n2] = sp.twr.numpy()
+    twp[1, :n1, :n2] = sp.twi.numpy()
+    j = np.arange(2 * ks2)[None, :, None]
+    r0, c0 = 16 * i + g, 8 * j + 2 * t
+    tw = np.stack([twp[:, r0, c0], twp[:, r0, c0 + 1], twp[:, r0 + 8, c0],
+                   twp[:, r0 + 8, c0 + 1]], axis=-1)
+    b2 = np.empty((4, ks2, nt2, 32, 2), np.uint32)
+    ks = np.arange(ks2)[:, None, None]
+    n = np.arange(nt2)[None, :, None]
+    for pi, m in enumerate((sp.w2r_hi, sp.w2r_lo, sp.w2i_hi, sp.w2i_lo)):
+        w = bits(m, 16 * ks2, 8 * nt2)
+        r, c = 16 * ks + 2 * t, 8 * n + g
+        pair = lambda r, c: w[r, c] | (w[r + 1, c] << 16)
+        b2[pi] = np.stack([pair(r, c), pair(r + 8, c)], axis=-1)
+    planes = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                   for a in (a1.view(np.int32), tw, b2.view(np.int32)))
+    _SPLIT[key] = planes
+    return planes
+
+
+def _check_stage_args(name: str, raw: torch.Tensor, nfft: int, npol: int,
+                      seg_per_sec: int) -> None:
+    if raw.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {raw.device}")
+    n1, n2 = ch_ops._ct_split(nfft)
+    if n1 > 128 or nfft // 2 // n1 + 1 > 64 or nfft % 4 \
+            or nfft // 4 > 16 * 32 * -(-n1 // 16):
+        raise ValueError(f"{name}: the CUDA kernel takes CT splits n1 <= 128 "
+                         f"with n2_out <= 64 and nfft % 4 == 0; got nfft "
+                         f"{nfft} = {n1} x {n2}")
+    nsamp = raw.shape[-1]
+    if raw.dtype != torch.uint8 or raw.dim() != 2 or raw.shape[0] != npol \
+            or nsamp % (seg_per_sec * nfft) or nsamp % 4 \
+            or not raw.is_contiguous() or raw.data_ptr() % 16:
+        raise ValueError(f"{name}: raw must be contiguous, 16-byte aligned "
+                         f"uint8 ({npol}, k * {seg_per_sec * nfft})")
+
+
+def dft_detect_power(raw: torch.Tensor, nfft: int, npol: int,
+                     seg_per_sec: int) -> torch.Tensor:
+    """Stage A: convert, the split-plane bf16 Cooley-Tukey DFT, detect.
+
+    raw u8 (npol, nsamp) -> power f32 (nseg, npol * ffts, nfft // 2 + 1),
+    row (pol, fft) within a segment, linear channels: the JAX package's
+    dft_detect_power with its factored planes unfolded."""
+    if raw.device.type == "cpu":
+        return dft_detect_oracle(raw, nfft, npol, seg_per_sec)
+    _check_stage_args("dft_detect_power", raw, nfft, npol, seg_per_sec)
+    n1, n2 = ch_ops._ct_split(nfft)
+    nsamp = raw.shape[1]
+    ffts = nsamp // seg_per_sec // nfft
+    out = torch.empty((seg_per_sec, npol * ffts, nfft // 2 + 1),
+                      dtype=torch.float32, device=raw.device)
+    a1, tw, b2 = tc_planes(nfft, raw.device)
+    lib = _build.load("stage_ab")
+    fn = lib.vf_dft_detect_power
+    fn.argtypes = [ctypes.c_void_p] * 7
+    fn.restype = ctypes.c_int
+    ip = (ctypes.c_longlong * 6)(npol, nsamp, nfft, n1, n2, seg_per_sec)
+    rc = fn(ctypes.cast(ip, ctypes.c_void_p),
+            *(ctypes.c_void_p(t.data_ptr()) for t in (raw, a1, tw, b2, out)),
+            ctypes.c_void_p(torch.cuda.current_stream(raw.device)
+                            .cuda_stream))
+    _build.check(rc, "vf_dft_detect_power", lib)
+    LAUNCHES["dft_detect_power"] += 1
+    return out
+
+
+def chain_second_plain_oracle(raw: torch.Tensor, bp: torch.Tensor, nfft: int,
+                              npol: int, seg_per_sec: int, nscrunch: int,
+                              scale: float, chanmin: int, chanmax: int):
+    """Stage B's plain version: dft_detect_oracle's power, then the plain
+    stream's back end as the JAX package's _mk_stageB_kernel defines it,
+    one spectrum at a time over the channels, in the kernel's order:
+    per segment the bandpass seeds where it is 0 from the segment mean
+    (row sum in order, times 1/ffts; a mean of 0 seeds 1); per spectrum
+    b' = s p + (1 - s) b and p / b' - 1; pscrunch sqrt(1/2) (v0 + v1)
+    (none for npol 1); tscrunch the sum of nscrunch in order times
+    1/sqrt(nscrunch); QUANT2_THRESH levels packed as sel_and_dig.
+
+    Returns (packed u8 (nseg * nout, (chanmax - chanmin + 1) // 4),
+    bandpass f32 (npol, nfft // 2 + 1))."""
+    power = dft_detect_oracle(raw, nfft, npol, seg_per_sec)
+    nseg, rows, nchan = power.shape
+    ffts = rows // npol
+    power = power.reshape(nseg, npol, ffts, nchan)
+    s, oms = norm_ops.ema_constants(scale)
+    rs, ns = norm_ops.recip(ffts), norm_ops.inv_sqrt(nscrunch)
+    nout = ffts // nscrunch
+    bp = bp.clone()
+    ts = torch.empty((nseg * nout, nchan), dtype=torch.float32,
+                     device=raw.device)
+    one = torch.ones_like(bp)
+    for seg in range(nseg):
+        p = power[seg]                                   # (npol, ffts, nchan)
+        seed = norm_ops._row_sum(p, 0, ffts) * rs
+        seed = torch.where(seed == 0.0, one, seed)
+        bp = torch.where(bp == 0.0, seed, bp)
+        for o in range(nout):
+            acc = torch.zeros_like(bp[0])
+            for q in range(nscrunch):
+                p_t = p[:, o * nscrunch + q]
+                bp = s * p_t + oms * bp
+                v = p_t / bp - 1.0
+                v = norm_ops._SQRT_HALF * (v[0] + v[1]) if npol == 2 else v[0]
+                acc = acc + v
+            ts[seg * nout + o] = acc * ns
+    packed = q_ops.sel_and_dig(ts[None], chanmin, chanmax, 2)
+    return packed, bp
+
+
+def chain_second_plain(raw: torch.Tensor, bp: torch.Tensor, nfft: int,
+                       npol: int, seg_per_sec: int, nscrunch: int,
+                       scale: float, chanmin: int, chanmax: int):
+    """Stage B: one second of the plain (rfi_mode 0) stream through stage
+    A's DFT, the EMA bandpass, pscrunch, tscrunch and the 2-bit pack.
+
+    raw u8 (npol, nsamp); bp f32 (npol, nfft // 2 + 1), the carried
+    bandpass (0 seeds).  Returns (packed u8 (nseg * nout, (chanmax -
+    chanmin + 1) // 4), new bandpass): the JAX package's chain_second_plain
+    through unfactor_pack_realign and bp_from_factored."""
+    if raw.device.type == "cpu":
+        return chain_second_plain_oracle(raw, bp, nfft, npol, seg_per_sec,
+                                         nscrunch, scale, chanmin, chanmax)
+    _check_stage_args("chain_second_plain", raw, nfft, npol, seg_per_sec)
+    nchan = nfft // 2 + 1
+    if bp.dtype != torch.float32 or tuple(bp.shape) != (npol, nchan) \
+            or not bp.is_contiguous() or bp.device != raw.device:
+        raise ValueError(f"chain_second_plain: bp must be contiguous f32 "
+                         f"({npol}, {nchan}) on {raw.device}")
+    if not 0 <= chanmin <= chanmax < nchan or (chanmax - chanmin + 1) % 4:
+        raise ValueError(f"chain_second_plain: channels {chanmin}..{chanmax} "
+                         f"must lie in 0..{nchan - 1}, a multiple of 4")
+    n1, n2 = ch_ops._ct_split(nfft)
+    nsamp = raw.shape[1]
+    ffts = nsamp // seg_per_sec // nfft
+    if ffts % nscrunch:
+        raise ValueError(f"chain_second_plain: nscrunch {nscrunch} must "
+                         f"divide {ffts} FFTs per segment")
+    dev = raw.device
+    power = torch.empty((npol, seg_per_sec * ffts, nchan),
+                        dtype=torch.float32, device=dev)
+    dagcnt = torch.zeros((seg_per_sec,), dtype=torch.int32, device=dev)
+    dag_frac = torch.empty((seg_per_sec,), dtype=torch.float32, device=dev)
+    packed = torch.zeros((seg_per_sec * (ffts // nscrunch),
+                          (chanmax - chanmin + 1) // 4),
+                         dtype=torch.uint8, device=dev)
+    bp_out = bp.clone()
+    a1, tw, b2 = tc_planes(nfft, dev)
+    s, oms = norm_ops.ema_constants(scale)
+    # chain.cuh's chain_params with rfi_mode 0 (no front: nkurto = nfft)
+    ip = (ctypes.c_longlong * 11)(npol, nsamp, nfft, n1, n2, nfft,
+                                  seg_per_sec, nscrunch, 0, chanmin, chanmax)
+    fvals = [s, oms, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, norm_ops._SQRT_HALF,
+             norm_ops.inv_sqrt(nscrunch), *C.QUANT2_THRESH] + [0.0] * 10
+    fp = (ctypes.c_float * len(fvals))(*fvals)
+    lib = _build.load("stage_ab")
+    fn = lib.vf_chain_second_plain
+    fn.argtypes = [ctypes.c_void_p] * 13
+    fn.restype = ctypes.c_int
+    rc = fn(ctypes.cast(ip, ctypes.c_void_p), ctypes.cast(fp, ctypes.c_void_p),
+            *(ctypes.c_void_p(t.data_ptr()) for t in
+              (raw, a1, tw, b2, bp, power, dagcnt, dag_frac, packed, bp_out)),
+            ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    _build.check(rc, "vf_chain_second_plain", lib)
+    LAUNCHES["chain_second_plain"] += 1
+    return packed, bp_out

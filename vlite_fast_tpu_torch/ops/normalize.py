@@ -20,7 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from vlite_fast_tpu import constants as C
+from vlite_fast_tpu_torch import constants as C
 
 
 def detect(spec: torch.Tensor) -> torch.Tensor:

@@ -27,7 +27,7 @@ import ctypes
 
 import torch
 
-from vlite_fast_tpu import constants as C
+from vlite_fast_tpu_torch import constants as C
 from vlite_fast_tpu_torch import _build
 from vlite_fast_tpu_torch.ops import normalize as norm_ops
 

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-from vlite_fast_tpu import constants as C
+from vlite_fast_tpu_torch import constants as C
 
 # One packed byte whose every sample slot holds the quantizer's
 # near-zero level: the pad fill for ragged search gulps.

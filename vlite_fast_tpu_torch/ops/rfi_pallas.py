@@ -19,7 +19,7 @@ import ctypes
 
 import torch
 
-from vlite_fast_tpu import constants as C
+from vlite_fast_tpu_torch import constants as C
 from vlite_fast_tpu_torch import _build
 from vlite_fast_tpu_torch.ops import kurtosis as kur_ops
 from vlite_fast_tpu_torch.ops import unpack as unpack_ops

@@ -30,15 +30,15 @@ from typing import Iterable, List, Optional
 import numpy as np
 import torch
 
-from vlite_fast_tpu import constants as C
-from vlite_fast_tpu.config import PipelineConfig, SearchConfig
-from vlite_fast_tpu.utils import sigproc
-from vlite_fast_tpu.utils.log import Metrics, RTMonitor, make_logger
-from vlite_fast_tpu_torch import _build
+from vlite_fast_tpu_torch import _build, devices
+from vlite_fast_tpu_torch import constants as C
+from vlite_fast_tpu_torch.config import PipelineConfig, SearchConfig
 from vlite_fast_tpu_torch.models import baseband_dsp as dsp
 from vlite_fast_tpu_torch.models import search as search_mod
 from vlite_fast_tpu_torch.ops import dedisperse as dd
 from vlite_fast_tpu_torch.ops import quantize as q_ops
+from vlite_fast_tpu_torch.utils import sigproc
+from vlite_fast_tpu_torch.utils.log import Metrics, RTMonitor, make_logger
 
 
 @dataclass
@@ -170,7 +170,7 @@ class StationPipeline:
     def __init__(self, station_id: int, cfg: PipelineConfig,
                  scfg: SearchConfig, out_dir: Optional[str] = None,
                  keep_ring: bool = False, write_cands: bool = True,
-                 device="cpu"):
+                 device="cuda"):
         if keep_ring:
             raise NotImplementedError(
                 "keep_ring=True needs the baseband ring "
@@ -179,7 +179,7 @@ class StationPipeline:
         self.station_id = station_id
         self.cfg = cfg
         self.scfg = scfg
-        self.device = torch.device(device)
+        self.device = devices.resolve(device)
         self.out_dir = out_dir or os.path.join(tempfile.gettempdir(),
                                                "vfast")
         os.makedirs(self.out_dir, exist_ok=True)

@@ -32,7 +32,7 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from vlite_fast_tpu.config import PipelineConfig, SearchConfig
+from vlite_fast_tpu_torch.config import PipelineConfig, SearchConfig
 from vlite_fast_tpu_torch.models import baseband_dsp as dsp
 from vlite_fast_tpu_torch.models import search as search_mod
 
