@@ -6,10 +6,13 @@ Phases, each printing a line:
   0. device: requires CUDA; the card's name and power limit (nvidia-smi);
   1. build: every CUDA library from vlite_fast_tpu_torch/csrc, one nvcc
      each, all started together;
-  2. the chain kernel (ops/megakernel.chain_second_v2) against its plain
-     version on the card: two consecutive full-geometry seconds
-     (PipelineConfig(), rfi_mode 2) of Gaussian 8-bit noise with a
-     sinusoidal burst in one pol;
+  2. the chain kernel (ops/megakernel.chain_second_v2: the front, the
+     tensor-core DFT of every frame and of the kurtosis stream's blocks
+     flagged in part, the two-phase EMA) against its plain version on the
+     card: two consecutive full-geometry seconds (PipelineConfig(),
+     rfi_mode 2) of Gaussian 8-bit noise with a sinusoidal burst in one
+     pol; its launches' device times from a profiler trace and the share
+     of kurtosis frames it transformed;
   3. the dedispersion kernel (ops/dedisperse_pallas.dedisperse_pallas)
      against its plain version on one production gulp with the
      tolerance-grid plan;
@@ -29,25 +32,27 @@ Phases, each printing a line:
      plain version on one full-geometry second: u8 tiles byte-equal, bf16
      tiles value-equal; the u8 tiles timed beside one PyTorch call that
      gives them (F.pad of the permuted view);
-  9. the pretransposed chain kernels on phase 2's two seconds against
-     phase 2's plain results: chain_second in its three pretranspose
-     modes (byte-identical to each other) and chain_second_v4 on u8 and
-     bf16 tiles, timed with the relayout counted in;
+  9. the pretransposed chain kernels (f32 DFTs) on phase 2's two seconds
+     against phase 2's plain results: chain_second in its three
+     pretranspose modes (byte-identical to each other, at the chain bar
+     against chain_second_v2) and chain_second_v4 on u8 and bf16 tiles,
+     timed with the relayout counted in;
  10. phase 4's main path once for each twin_chain_impl of the
      pretransposed programs (megakernel, megakernel3, megakernel3f,
      megakernel4): the FRB recovered, and every twin second launching the
      kernels of its program and never chain_second_v2;
  11. the staged chain's stage A (ops/megakernel.dft_detect_power, the
-     split-plane bf16 DFT on the tensor cores): its path, two production
-     seconds (PipelineConfig(rfi_mode=0, dft_exact_input=True)); one
-     against dft_detect_oracle on the card (relative error, floor 1e-3,
-     bar 2e-3), timed beside torch.fft.rfft + |X|^2 of the same frames and
-     beside chain.cu's dft_kernel from a profiler trace;
+     split-plane bf16 DFT on the tensor cores, wgmma fed by bulk copies):
+     its path, two production seconds (PipelineConfig(rfi_mode=0,
+     dft_exact_input=True)); one against dft_detect_oracle on the card
+     (relative error, floor 1e-3, bar 2e-3), timed beside torch.fft.rfft +
+     |X|^2 of the same frames;
  12. stage B (ops/megakernel.chain_second_plain): its path, the same two
      seconds with the bandpass carried, against chain_second_plain_oracle
      (2-bit agreement >= 0.9999, bandpass within 1e-4 relative); then the
      JAX package's benchmarks/bench_megakernel_tpu.py: B against
-     chain_second_v2 at rfi_mode 0 from a fresh bandpass, both timed;
+     chain_second_v2 at rfi_mode 0 from a fresh bandpass (the same
+     tensor-core DFT on both sides), both timed;
  13. the roll+select dedispersion (ops/dedisperse_pallas.
      dedisperse_pallas_rollsel): phase 3's gulp against its plain version
      (bit-equal: the same adds in the same order) and against phase 3's
@@ -126,27 +131,77 @@ def bound(moved: int, ops: float, kind: str = "f32") -> dict:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
+def tc_dft_ops(cfg, frames: int) -> float:
+    """The bf16 products the tensor-core DFT (csrc/dft_tc.cuh) issues for
+    `frames` frames, padding included: stage 1 four W1 planes of (64 nwg)
+    x (32 npass) x (8 kb1), stage 2 twelve of (64 nwg) x 64 x (32 npass)."""
+    from vlite_fast_tpu_torch.ops import megakernel as mk
+    g = mk.tc_geometry(cfg.nfft)
+    rows, cols = 64 * g.nwg, 32 * g.npass
+    return frames * 2 * (4 * rows * cols * 8 * g.kb1 + 12 * rows * 64 * cols)
+
+
 def chain_bound(cfg, raw, outs) -> dict:
     """The chain's bound: the raw second in and the outputs out, and the
     f32 operations the function needs on this second: a real FFT of each
     frame (2.5 nfft log2 nfft), and ~8 operations per spectrum element
     for detect and EMA in each stream the rfi_mode computes.  In rfi_mode
     2 the kurtosis stream needs a transform of its own only in the frames
-    whose mask zeroed a window (weight < 1).  Besides the bound,
-    dft_as_written_ms: chain.cu's own direct two-stage DFT (stage 1 on
-    k1 <= n1/2 of real input, stage 2 on the nchan bins) for every
-    stream, at the f32 peak."""
+    whose mask zeroed a window (weight < 1)."""
+    frames = cfg.npol_in * cfg.seg_per_sec * cfg.ffts_per_seg
+    nstreams = 2 if cfg.rfi_mode == 2 else 1
+    w = outs[2]
+    masked = int((w < 1).sum()) if cfg.rfi_mode == 2 else 0
+    ops = (frames + masked) * 2.5 * cfg.nfft * math.log2(cfg.nfft) \
+        + nstreams * frames * 8 * cfg.nchan
+    return bound(nbytes(raw, *outs), ops)
+
+
+def dft_as_written_ms(cfg, outs, tc: bool) -> float:
+    """A chain kernel's own DFT at its type's peak, for the log only (a
+    count, not a measurement): with `tc` (chain_second_v2) the tensor-core
+    DFT's padded bf16 products on every frame and on the frames of the
+    blocks flagged in part (0 < weight < 1), else chain.cu's direct
+    two-stage f32 DFT (stage 1 on k1 <= n1/2 of real input, stage 2 on the
+    nchan bins) for every stream."""
     from vlite_fast_tpu_torch.ops import channelize as ch_ops
     n1, n2 = ch_ops._ct_split(cfg.nfft)
     frames = cfg.npol_in * cfg.seg_per_sec * cfg.ffts_per_seg
+    if tc:
+        w = outs[2]
+        partial = int(((w > 0) & (w < 1)).sum()) if cfg.rfi_mode else 0
+        return tc_dft_ops(cfg, frames + partial) / PEAK_OPS_PER_S["bf16"] \
+            * 1e3
     nstreams = 2 if cfg.rfi_mode == 2 else 1
-    masked = int((outs[2] < 1).sum()) if cfg.rfi_mode == 2 else 0
-    ops = (frames + masked) * 2.5 * cfg.nfft * math.log2(cfg.nfft) \
-        + nstreams * frames * 8 * cfg.nchan
-    written = nstreams * frames * (4 * (n1 // 2 + 1) * n2 * n1
-                                   + 8 * cfg.nchan * n2)
-    return {**bound(nbytes(raw, *outs), ops),
-            "dft_as_written_ms": written / PEAK_OPS_PER_S["f32"] * 1e3}
+    return nstreams * frames * (4 * (n1 // 2 + 1) * n2 * n1
+                                + 8 * cfg.nchan * n2) \
+        / PEAK_OPS_PER_S["f32"] * 1e3
+
+
+def kernel_times(fn) -> dict:
+    """Device milliseconds of each kernel one call of fn launches, from a
+    torch.profiler trace (after a warm call), by the kernel's name; empty
+    where the trace holds no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            us = getattr(e, "device_time_total", None)
+            us = e.cuda_time_total if us is None else us
+            out[e.key] = out.get(e.key, 0.0) + us / 1e3
+    return out
+
+
+def pick(times: dict, word: str) -> str:
+    """The summed device ms of the kernels whose name holds `word`."""
+    hit = [v for k, v in times.items() if word in k]
+    return f"{sum(hit):.2f} ms" if hit else "not measured"
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -255,16 +310,32 @@ def phase_chain(dev, raws) -> dict:
         wants.append(want)
     ms = cuda_ms(lambda: mk.chain_second_v2(raws[0], bp_k, cfg), 5)
     cb = chain_bound(cfg, raws[0], gots[0])
+    written = dft_as_written_ms(cfg, gots[0], tc=True)
+    kt = kernel_times(lambda: mk.chain_second_v2(raws[0], bp_k, cfg))
+    check(not any("dft_kernel" in k for k in kt),
+          f"chain_second_v2 launched chain.cu's f32 dft_kernel: {list(kt)}")
+    w = torch.cat([g[2] for g in gots], dim=1)
+    share = float(((w > 0) & (w < 1)).float().mean())
     log(f"[2] chain kernel vs plain, 2 full-geometry seconds: 2-bit "
         f"agreement >= {worst['agree']:.6f} (bar 0.9999), max level diff "
         f"{worst['dlev']}, weights equal, dag_frac diff {worst['dag']:.2e}, "
         f"bandpass rel diff {worst['bp_rel']:.2e}; kernel {ms:.2f} ms per "
-        f"data-second (CUDA events, 5 reps), bound {cb['bound_ms']:.3f} ms "
-        f"({cb['bound_by']}; chain.cu's direct DFT as written "
-        f"{cb['dft_as_written_ms']:.2f} ms at the f32 peak), plain "
-        f"{t_plain[0]:.0f} / {t_plain[1]:.0f} ms (wall)")
+        f"data-second (CUDA events, 5 reps): front_kernel "
+        f"{pick(kt, 'front_kernel')}, dft_tc_kernel (tensor cores) "
+        f"{pick(kt, 'dft_tc_kernel')}, bandpass_kernel "
+        f"{pick(kt, 'bandpass_kernel')}, ema_kernel {pick(kt, 'ema_kernel')}"
+        f" (profiler); kurtosis frames "
+        f"transformed: {100 * share:.2f}% of "
+        f"the second's frames (blocks flagged in part, 0 < weight < 1); "
+        f"bound {cb['bound_ms']:.3f} ms ({cb['bound_by']}; the tensor-core "
+        f"DFT's padded bf16 products {written:.2f} ms at "
+        f"the bf16 peak), plain {t_plain[0]:.0f} / {t_plain[1]:.0f} ms "
+        f"(wall)")
     return (_chain_row("chain_second_v2", "chain.cu", "1602", worst, ms,
-                       min(t_plain), library_ms=None, **cb), gots, wants)
+                       min(t_plain), library_ms=None, **cb,
+                       kurtosis_frames_share=share,
+                       kernel_ms={k[:60]: v for k, v in kt.items()}),
+            gots, wants)
 
 
 def phase_dedisperse(dev) -> dict:
@@ -387,12 +458,17 @@ def phase_ct_chains(dev, raws, v2_gots, wants, plain_ms) -> list:
         check(all(torch.equal(a, b) for sec in range(len(raws))
                   for a, b in zip(outs[b_modes[0]][sec], outs[name][sec])),
               f"{name} differs from {b_modes[0]}")
-    same_v2 = all(torch.equal(a, b) for sec in range(len(raws))
-                  for a, b in zip(outs[b_modes[0]][sec], v2_gots[sec]))
+    # against the v2 kernel (tensor-core split-plane DFT): the chain bar
+    wv = {"agree": 1.0, "dlev": 0, "bp_rel": 0.0, "dag": 0.0}
+    for sec in range(len(raws)):
+        levels_check(outs[b_modes[0]][sec], v2_gots[sec], wv,
+                     f"chain_second vs chain_second_v2 second {sec}")
     wb, wc = worst["chain_second"], worst["chain_second_v4"]
-    log(f"[9] chain_second kernel vs plain, phase 2's 2 seconds: the three "
-        f"pretranspose modes byte-identical (and bit-equal to "
-        f"chain_second_v2: {same_v2}); 2-bit agreement >= {wb['agree']:.6f}, "
+    log(f"[9] chain_second kernel (f32 DFT) vs plain, phase 2's 2 seconds: "
+        f"the three pretranspose modes byte-identical; against "
+        f"chain_second_v2 (tensor cores) 2-bit agreement >= "
+        f"{wv['agree']:.6f}, max level diff {wv['dlev']}, bandpass rel diff "
+        f"{wv['bp_rel']:.2e}; vs plain 2-bit agreement >= {wb['agree']:.6f}, "
         f"max level diff {wb['dlev']}, weights equal, dag_frac diff "
         f"{wb['dag']:.2e}, bandpass rel diff {wb['bp_rel']:.2e}; per "
         f"data-second with the relayout (CUDA events, 5 reps): "
@@ -405,6 +481,9 @@ def phase_ct_chains(dev, raws, v2_gots, wants, plain_ms) -> list:
         f"events, 5 reps): u8 {ms['chain_second_v4[u8]']:.2f} ms, bf16 "
         f"{ms['chain_second_v4[bf16]']:.2f} ms; plain {plain_ms:.0f} ms")
     cb = chain_bound(cfg, raws[0], wants[0])
+    log(f"[9] chain_second / chain_second_v4 bound {cb['bound_ms']:.3f} ms "
+        f"({cb['bound_by']}); their direct f32 DFT at the f32 peak "
+        f"{dft_as_written_ms(cfg, wants[0], tc=False):.2f} ms")
     return [_chain_row("chain_second", "chain.cu", "961", wb,
                        ms["chain_second[pallas]"], plain_ms,
                        library_ms=None, **cb,
@@ -679,30 +758,9 @@ def staged_inputs(dev):
     return cfg, raws
 
 
-def dft_kernel_ms(cfg, raw) -> str:
-    """chain.cu's dft_kernel (the f32 DFT of chain_second_v2) on the same
-    second at rfi_mode 0, from a profiler trace: device ms, or 'not
-    measured' where the trace holds no device time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    from vlite_fast_tpu_torch.ops import megakernel as mk
-    bp = torch.zeros((2, cfg.npol_in, cfg.nchan), device=raw.device)
-    mk.chain_second_v2(raw, bp, cfg)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        mk.chain_second_v2(raw, bp, cfg)
-        torch.cuda.synchronize()
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA and "dft_kernel" in e.key:
-            us = getattr(e, "device_time_total", None)
-            us = e.cuda_time_total if us is None else us
-            return f"{us / 1e3:.2f} ms"
-    return "not measured"
-
-
 def phase_stage_a(dev) -> dict:
     """Kernel A: its path (two seconds), then one second against the
-    oracle, timed beside torch.fft.rfft and chain.cu's dft_kernel."""
+    oracle, timed beside torch.fft.rfft."""
     from vlite_fast_tpu_torch.ops import channelize as ch_ops
     from vlite_fast_tpu_torch.ops import megakernel as mk
     from vlite_fast_tpu_torch.ops import unpack as unpack_ops
@@ -728,21 +786,20 @@ def phase_stage_a(dev) -> dict:
     x = unpack_ops.convert_uint8(raws[0]).reshape(-1, cfg.nfft)
     lib_ms = cuda_ms(lambda: torch.fft.rfft(x).abs().square(), 5)
     del x
-    dft_ms = dft_kernel_ms(cfg, raws[0])
-    log(f"[11] dft_detect_power kernel (tensor cores, split-plane bf16) vs "
+    padded_ms = tc_dft_ops(cfg, frames) / PEAK_OPS_PER_S["bf16"] * 1e3
+    log(f"[11] dft_detect_power kernel (wgmma, split-plane bf16) vs "
         f"dft_detect_oracle, one production second ({frames} frames of "
         f"{cfg.nfft}, uniform bytes): max relative error {err:.3e} (floor "
         f"1e-3, bar 2e-3); kernel {ms:.3f} ms (CUDA events, 5 reps), bound "
         f"{b['bound_ms']:.3f} ms ({b['bound_by']}), plain {plain_ms:.0f} ms "
-        f"(wall), torch.fft.rfft + |X|^2 {lib_ms:.3f} ms (CUDA events), "
-        f"chain.cu dft_kernel on the same second (f32, profiler) {dft_ms}; "
+        f"(wall), torch.fft.rfft + |X|^2 {lib_ms:.3f} ms (CUDA events); "
+        f"its padded products at the bf16 peak {padded_ms:.3f} ms; "
         f"{launches} launches on its path (2 seconds)")
     return {"name": "dft_detect_power", "route": "cuda",
             "source": "vlite_fast_tpu_torch/csrc/stage_ab.cu",
             "replaces": "vlite_fast_tpu/ops/megakernel.py:349",
             "launches": launches, "max_abs_err": abs_err, "max_rel_err": err,
-            "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, **b,
-            "dft_kernel_f32": dft_ms}
+            "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, **b}
 
 
 def phase_stage_b(dev) -> dict:
@@ -794,7 +851,8 @@ def phase_stage_b(dev) -> dict:
         f"{b['bound_ms']:.3f} ms ({b['bound_by']}), plain "
         f"{plain_ms[0]:.0f} / {plain_ms[1]:.0f} ms (wall); "
         f"bench_megakernel_tpu.py A/B from a fresh bandpass: agreement with "
-        f"chain_second_v2 (rfi_mode 0, f32 DFT) {ab_agree:.6f} (bar 0.9999, "
+        f"chain_second_v2 (rfi_mode 0, the same tensor-core DFT) "
+        f"{ab_agree:.6f} (bar 0.9999, "
         f"max level diff {ab_dlev}), stage B {ms:.2f} ms vs chain_second_v2 "
         f"{v2_ms:.2f} ms per data-second; {launches} launches on its path")
     return {"name": "chain_second_plain", "route": "cuda",

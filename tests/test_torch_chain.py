@@ -240,3 +240,46 @@ def test_twin_rejects_unsupported_on_cuda_only():
     assert not tdsp.chain_kernel_takes(_t(PipelineConfig.tiny()))
     assert tdsp.inject_window_seconds(cfg) == \
         jdsp.inject_window_seconds(jcfg)
+
+
+def test_kurtosis_stream_needs_its_own_power_only_in_partial_blocks(
+        monkeypatch):
+    """The rule that lets chain_second_v2's kernel transform the kurtosis
+    stream only in the blocks the front flagged in part: on the plain
+    chain, over a second with the burst (blocks with no window kept, some
+    and all), the kurtosis stream's power of a block of weight 1 equals
+    the plain stream's bit for bit, and the power of a block of weight 0
+    never reaches an output (garbage there changes nothing)."""
+    cfg = _t(_mk_cfg())
+    raw = torch.from_numpy(_noise(cfg.sample_rate, seed=5, burst_at=40000))
+    bp = torch.zeros((2, 2, cfg.nchan))
+    plain, kur = [], []
+    ema, ema_w = tdsp.norm_ops.normalize_ema, tdsp.norm_ops.normalize_ema_weighted
+
+    def spy_ema(power, *a, **k):
+        plain.append(power)
+        return ema(power, *a, **k)
+
+    def spy_weighted(power, weights, *a, **k):
+        kur.append((power, weights))
+        return ema_w(power, weights, *a, **k)
+
+    monkeypatch.setattr(tdsp.norm_ops, "normalize_ema", spy_ema)
+    monkeypatch.setattr(tdsp.norm_ops, "normalize_ema_weighted", spy_weighted)
+    want = tmk.chain_second_v2_plain(raw, bp, cfg)
+    w = torch.cat([wt for _, wt in kur], dim=1)
+    assert bool((w == 0).any() and ((w > 0) & (w < 1)).any()
+                and (w == 1).any())
+    for p_plain, (p_kur, wt) in zip(plain, kur):
+        full = wt == 1.0
+        assert torch.equal(p_kur[full], p_plain[full])
+
+    def garbage(power, weights, *a, **k):
+        zero = (weights == 0)[:, :, None]
+        return ema_w(torch.where(zero, torch.full_like(power, 3e4), power),
+                     weights, *a, **k)
+
+    monkeypatch.setattr(tdsp.norm_ops, "normalize_ema_weighted", garbage)
+    got = tmk.chain_second_v2_plain(raw, bp, cfg)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)

@@ -18,10 +18,13 @@ plain version sum in the same order); the RFI front kernel equal masked
 voltages, weights and flags, TS within 1e-5 absolute (cbrtf against a
 float64 cube root, then the cancellation Z22 - cbrt t); the
 pretranspose kernel byte-equal (u8) and value-equal (bf16) to its plain
-version; chain_second's three modes byte-identical to each other and to
-chain_second_v2 (one loader-agnostic sum order); the staged chain's
-stage A (dft_detect_power, tensor cores) within 2e-3 relative (floor
-1e-3) of dft_detect_oracle, the JAX package's bar for its stage A, and
+version; chain_second's three modes byte-identical to each other (one
+loader-agnostic sum order) and at the chain bar against chain_second_v2
+(an f32 DFT against the tensor cores' split-plane bf16 one); the EMA
+launch of chain_second_v2 alone bit-equal to a torch version of its
+sequential arithmetic; the tensor-core DFT (dft_detect_power) within 2e-3
+relative (floor 1e-3) of dft_detect_oracle, the JAX package's bar for
+its stage A, and
 stage B (chain_second_plain) to the 2-bit bar and a bandpass within 1e-4
 relative; the roll+select dedispersion bit-equal to its plain version
 (the same adds in the same order) and allclose(rtol=1e-5, atol=1e-4) to
@@ -32,12 +35,15 @@ import numpy as np
 import pytest
 import torch
 
+from vlite_fast_tpu_torch import _build, ema_probe
+from vlite_fast_tpu_torch import constants as C
 from vlite_fast_tpu_torch.config import PipelineConfig, SearchConfig
 from vlite_fast_tpu_torch.models import baseband_dsp as tdsp
 from vlite_fast_tpu_torch.models import search as tsearch
 from vlite_fast_tpu_torch.ops import dedisperse as tdd
 from vlite_fast_tpu_torch.ops import dedisperse_pallas as tddp
 from vlite_fast_tpu_torch.ops import megakernel as tmk
+from vlite_fast_tpu_torch.ops import normalize as tnorm
 from vlite_fast_tpu_torch.ops import pallas_kernels as tpk
 from vlite_fast_tpu_torch.ops import quantize as tq
 from vlite_fast_tpu_torch.ops import rfi_pallas as trfi
@@ -133,8 +139,8 @@ def test_pretranspose_kernel_matches_plain(cuda, npol):
 @pytest.mark.parametrize("rfi_mode", [0, 1, 2])
 def test_chain_second_kernel_matches_plain(cuda, rfi_mode, npol):
     """Kernel B in its three pretranspose modes: byte-identical to each
-    other and to the v2 kernel, and at the chain bar against plain, over
-    two seconds with the bandpass carried."""
+    other, and at the chain bar against plain and against the v2 kernel,
+    over two seconds with the bandpass carried."""
     cfg = _mk_cfg(rfi_mode=rfi_mode, npol_in=npol)
     raw = torch.from_numpy(np.ascontiguousarray(
         _noise(cfg.sample_rate, seed=7, burst_at=40000)[:npol])).to(cuda)
@@ -145,10 +151,17 @@ def test_chain_second_kernel_matches_plain(cuda, rfi_mode, npol):
         outs = [tmk.chain_second(raw, bp, cfg, pretranspose=m)
                 for m in tmk.PRETRANSPOSE]
         torch.cuda.synchronize()
-        for got in outs:
-            for g, r in zip(got, v2):
+        for got in outs[1:]:
+            for g, r in zip(got, outs[0]):
                 assert torch.equal(g, r)
         got = outs[0]
+        # against the v2 kernel (split-plane bf16 DFT): the chain bar
+        for g, r in zip(got[:2], v2[:2]):
+            _assert_levels(g, r)
+        assert torch.equal(got[2], v2[2])
+        np.testing.assert_allclose(got[3].cpu().numpy(), v2[3].cpu().numpy(),
+                                   atol=1e-6)
+        _assert_bp(got[4], v2[4])
         for g, w in zip(got[:2], want[:2]):
             _assert_levels(g, w)
         assert torch.equal(got[2], want[2])
@@ -180,6 +193,203 @@ def test_chain_second_v4_kernel_matches_plain(cuda, rfi_mode, npol,
                                    want[3].cpu().numpy(), atol=1e-6)
         _assert_bp(got[4], want[4])
         bp = got[4]
+
+
+@pytest.mark.parametrize("npol", [1, 2])
+def test_chain_kernel_matches_plain_n2_not_multiple_of_32(cuda, npol):
+    """chain_second_v2 at 10000 = 100 x 100: stage 2 walks 32 m2 columns
+    per pass, past n2, through W2's zero-padded depth."""
+    cfg = PipelineConfig(sample_rate=10000 * 16 * 2, seg_per_sec=2,
+                         nfft=10000, nkurto=500, chanmin=101, chanmax=612,
+                         nscrunch=8, rfi_mode=2, npol_in=npol)
+    raw = torch.from_numpy(np.ascontiguousarray(
+        _noise(cfg.sample_rate, seed=13, burst_at=90000)[:npol])).to(cuda)
+    bp = torch.zeros((2, npol, cfg.nchan), device=cuda)
+    want = tmk.chain_second_v2_plain(raw, bp, cfg)
+    got = tmk.chain_second_v2(raw, bp, cfg)
+    torch.cuda.synchronize()
+    for g, w in zip(got[:2], want[:2]):
+        _assert_levels(g, w)
+    assert torch.equal(got[2], want[2])
+    np.testing.assert_allclose(got[3].cpu().numpy(), want[3].cpu().numpy(),
+                               atol=1e-6)
+    _assert_bp(got[4], want[4])
+    assert float(got[2].mean()) < 1.0       # the gates fired
+
+
+@pytest.mark.parametrize("flagged", ["all", "none"])
+def test_chain_kernel_every_block_flagged_or_none(cuda, flagged):
+    """chain_second_v2 where the list of blocks flagged in part is empty:
+    a loud tone over the whole second (every window flagged, every weight
+    0) and a gate no window reaches (every weight 1, the kurtosis stream
+    on the plain power throughout)."""
+    cfg = _mk_cfg(rfi_mode=2, dag_thresh=1e30 if flagged == "none" else 3.0)
+    raw = _noise(cfg.sample_rate, seed=12)
+    if flagged == "all":
+        tone = (100 * np.sin(0.3 * np.arange(cfg.sample_rate)))
+        raw = np.clip(raw + tone.astype(np.int16), 0, 255).astype(np.uint8)
+    raw = torch.from_numpy(raw).to(cuda)
+    bp = torch.zeros((2, 2, cfg.nchan), device=cuda)
+    want = tmk.chain_second_v2_plain(raw, bp, cfg)
+    got = tmk.chain_second_v2(raw, bp, cfg)
+    torch.cuda.synchronize()
+    assert bool((got[2] == (0.0 if flagged == "all" else 1.0)).all())
+    for g, w in zip(got[:2], want[:2]):
+        _assert_levels(g, w)
+    assert torch.equal(got[2], want[2])
+    np.testing.assert_allclose(got[3].cpu().numpy(), want[3].cpu().numpy(),
+                               atol=1e-6)
+    _assert_bp(got[4], want[4])
+
+
+def _chain_ema_plain(power, power_kur, partial, weights, bp, cfg):
+    """The chain's EMA launch (csrc/chain.cuh) in torch, its sequential
+    arithmetic in its order, every channel at once: per segment the seed,
+    then per spectrum the EMA (plain stream; weighted stream with the
+    stale test and the clip), pscrunch, tscrunch, the 2-bit levels.
+    Stream 1 reads power_kur where `partial` flags the block (everywhere
+    without it).
+
+    power / power_kur f32 (npol, nblk, nchan); weights f32 (npol, nblk);
+    bp f32 (2, npol, nchan).  Returns (packed, packed_kur, bp_new) as the
+    chain kernels do (a stream the rfi_mode does not compute stays 0, its
+    bandpass unchanged)."""
+    npol, nblk, nchan = power.shape
+    # scalars: f32 values as Python floats (a tensor op rounds a Python
+    # scalar to the tensor's f32; a division by one goes through a full
+    # tensor, since on the card torch divides by a scalar as a multiply by
+    # its reciprocal), the per-spectrum weight sums in numpy f32
+    f32 = np.float32
+    r = lambda v: float(f32(v))
+    div = lambda a, v: a / torch.full_like(a, float(v))
+    s, oms = (r(v) for v in tnorm.ema_constants(cfg.bp_scale))
+    ffts, ns = cfg.ffts_per_seg, cfg.nscrunch
+    nout, nseg = ffts // ns, nblk // ffts
+    rffts, rns = r(tnorm.recip(ffts)), f32(tnorm.recip(ns))
+    isn, sqh = r(tnorm.inv_sqrt(ns)), r(tnorm._SQRT_HALF)
+    minw, clip = f32(cfg.min_weight), r(C.BP_CLIP_RATIO)
+    kur = power_kur if partial is None else torch.where(
+        partial.bool()[None, :, None], power_kur, power)
+    bp = bp.clone()
+    ts = torch.zeros((2, nseg * nout, nchan), dtype=torch.float32,
+                     device=power.device)
+    one = torch.ones_like(bp[0])
+    wn = weights.cpu().numpy()
+    for seg in range(nseg):
+        t0 = seg * ffts
+        if cfg.rfi_mode != 1:
+            b = bp[0]
+            acc = torch.zeros_like(b)
+            for t in range(ffts):
+                acc = acc + power[:, t0 + t]
+            seed = acc * rffts
+            seed = torch.where(seed == 0.0, one, seed)
+            b = torch.where(b == 0.0, seed, b)
+            for o in range(nout):
+                acc = torch.zeros_like(b[0])
+                for q in range(ns):
+                    v = power[:, t0 + o * ns + q]
+                    b = s * v + oms * b
+                    op = v / b - 1.0
+                    acc = acc + (sqh * (op[0] + op[1]) if npol == 2
+                                 else op[0])
+                ts[0, seg * nout + o] = acc * isn
+            bp[0] = b
+        if cfg.rfi_mode != 0:
+            b = bp[1]
+            acc = torch.zeros_like(b)
+            ngood = np.zeros(npol, np.int64)
+            for t in range(ffts):
+                for p in range(npol):
+                    w = float(wn[p, t0 + t])
+                    if w > 0:
+                        acc[p] = acc[p] + div(kur[p, t0 + t], w)
+                        ngood[p] += 1
+            for p in range(npol):
+                seed = div(acc[p], ngood[p]) if ngood[p] else one[p]
+                b0 = torch.where(b[p] == 0.0, seed, b[p])
+                stale = (seed > 5.0 * b0) | (seed < r(0.2) * b0)
+                b[p] = torch.where(stale, seed, b0) if ngood[p] else b0
+            for o in range(nout):
+                acc = torch.zeros_like(b[0])
+                wsum, cnt = f32(0.0), 0
+                for q in range(ns):
+                    t = t0 + o * ns + q
+                    op, wp = [], []
+                    for p in range(npol):
+                        w = f32(wn[p, t])
+                        if w > 0:
+                            x = div(kur[p, t], w)
+                            clipped = x > b[p] * clip
+                            b[p] = torch.where(clipped, b[p],
+                                               s * x + oms * b[p])
+                            op.append(torch.where(
+                                clipped, torch.full_like(x, C.BP_CLIP_VALUE),
+                                x / b[p] - 1.0))
+                        else:
+                            op.append(torch.zeros_like(b[p]))
+                        wp.append(w)
+                    if npol == 2:
+                        g0, g1 = wp[0] >= minw, wp[1] >= minw
+                        if g0 and g1:
+                            v = sqh * (op[0] + op[1])
+                            wt = f32(0.5) * (wp[0] + wp[1])
+                        else:
+                            v = op[0] * float(g0) + op[1] * float(g1)
+                            wt = wp[0] * f32(g0) + wp[1] * f32(g1)
+                    else:
+                        v, wt = op[0], wp[0]
+                    wg = wt if wt >= minw else f32(0.0)
+                    cnt += bool(wt >= minw)
+                    wsum = f32(wsum + wg)
+                    acc = acc + float(wg) * v
+                ok = wsum * rns >= minw
+                ts[1, seg * nout + o] = \
+                    div(acc, np.sqrt(f32(max(cnt, 1)))) if ok \
+                    else torch.zeros_like(acc)
+            bp[1] = b
+    packed = [tq.sel_and_dig(ts[i][None], cfg.chanmin, cfg.chanmax, 2)
+              for i in range(2)]
+    return packed[0], packed[1], bp
+
+
+@pytest.mark.parametrize("ffts", [16, 48])
+@pytest.mark.parametrize("npol", [1, 2])
+def test_chain_ema_matches_sequential_torch(cuda, npol, ffts):
+    """The EMA launch of chain_second_v2 alone (ema_probe.chain_ema: the
+    shipped build of csrc/chain.cu) on seeded power planes with
+    blocks of weight 0, between 0 and 1 (flagged in part: the kurtosis
+    plane) and 1 (the plain plane), bit-equal to _chain_ema_plain, the
+    same sequential arithmetic in torch.  The kurtosis plane is NaN
+    outside the blocks flagged in part, so a read of it there shows.
+    16 spectra per segment: the bandpass walk computes the seeds from its
+    registers; 48 (more than its chunk): seed_kernel computes them."""
+    cfg = PipelineConfig(sample_rate=2048 * ffts * 3, seg_per_sec=3,
+                         nfft=2048, nkurto=256, chanmin=101, chanmax=612,
+                         nscrunch=8, rfi_mode=2, npol_in=npol)
+    nblk = cfg.seg_per_sec * cfg.ffts_per_seg
+    rng = np.random.default_rng(npol)
+    plain = rng.chisquare(2, (npol, nblk, cfg.nchan)).astype(np.float32)
+    plain[:, 5] = 0.0                       # dead spectrum
+    plain[:, 20:36] *= 10.0                 # a step: the stale check fires
+    plain[0, 40] *= 400.0                   # clipped spectrum
+    kur = rng.chisquare(2, plain.shape).astype(np.float32) * 0.7
+    w = np.ones(nblk, np.float32)
+    w[[3, 17, 30]] = 0.0
+    w[[8, 9, 25, 40, 41]] = np.float32(5 / 8)
+    partial = ((w > 0) & (w < 1)).astype(np.uint8)
+    kur[:, partial == 0] = np.nan
+    bp = np.full((2, npol, cfg.nchan), 1.5, np.float32)
+    bp[:, :, ::3] = 0.0                     # cold channels seed
+    dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+    args = (dev(plain), dev(kur), dev(partial),
+            dev(np.tile(w, (npol, 1))), dev(bp), cfg)
+    got = ema_probe.chain_ema(_build.load("chain"), *args)
+    want = _chain_ema_plain(*args)
+    torch.cuda.synchronize()
+    for g, r in zip(got, want):
+        assert torch.equal(g, r)
+    assert tq.unpack_bits(got[1].cpu(), 2).float().std() > 0
 
 
 def test_chain_second_v4_chunks_agree(cuda, monkeypatch):
@@ -433,12 +643,22 @@ def _uniform(npol, nsamp, seed):
 STAGED = [(2048, 16, 3), (12500, 4, 2)]
 
 
-@pytest.mark.parametrize("nfft,ffts,nseg", STAGED)
+# besides: n1 = 20 (not a multiple of 16) with frames 4-byte aligned
+# (500 % 16 == 4), n2 = 100 (not a multiple of 32: stage 2 reads W2's
+# padded depth), and the split mode (124 x 124: two blocks per frame)
+@pytest.mark.parametrize("nfft,ffts,nseg",
+                         STAGED + [(500, 8, 2), (10000, 2, 2), (15376, 2, 2)])
 @pytest.mark.parametrize("npol", [1, 2])
 def test_dft_detect_power_kernel_matches_oracle(cuda, npol, nfft, ffts,
                                                 nseg):
     raw = torch.from_numpy(_uniform(npol, nfft * ffts * nseg, 3)).to(cuda)
     raw[0, :50] = 0                         # zero bytes convert to 0.0
+    if npol == 1:
+        # a buffer 4 bytes past a 16-byte boundary, ending mid-span
+        buf = torch.from_numpy(_uniform(1, nfft * ffts * nseg + 8, 4)).to(
+            cuda)
+        raw = buf[:, 4:4 + nfft * ffts * nseg]
+        assert raw.is_contiguous() and raw.data_ptr() % 16 == 4
     before = dict(tmk.LAUNCHES)
     got = tmk.dft_detect_power(raw, nfft, npol, nseg)
     want = tmk.dft_detect_oracle(raw, nfft, npol, nseg)

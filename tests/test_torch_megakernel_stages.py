@@ -184,58 +184,62 @@ def test_split_planes_match_jax_dft_planes(nfft):
         assert np.array_equal(got.numpy(), want)
 
 
-def _bf16(bits):
-    return torch.from_numpy(np.ascontiguousarray(bits, np.uint16).view(
-        np.int16)).view(torch.bfloat16).float().numpy()
-
-
-@pytest.mark.parametrize("nfft", [2048, 12500])
+@pytest.mark.parametrize("nfft", [500, 2048, 12500])
 def test_tc_planes_hold_the_split_planes_in_fragment_order(nfft):
-    """Reading tc_planes back through the mma.sync m16n8k16 fragment
-    layouts (A: rows g, g+8 and columns 2t, 2t+1, +8; B: rows 2t, 2t+1,
-    +8 and column g; the accumulator: rows g, g+8 and columns 2t, 2t+1,
-    lane = 4 g + t) gives the split planes, zero-padded."""
+    """Reading tc_planes' twiddle back through the accumulator layout of
+    wgmma m64nNk16 (per warp of 16 rows k1 and n8 chunk of columns m2:
+    rows g, g+8 and columns 2t, 2t+1, lane = 4 g + t) gives the split
+    planes' twiddle, zero-padded to the warpgroups' 64-row tiles and the
+    32-column passes; these fragments, twiddled and split, are stage 2's
+    A operand in registers."""
+    geo = tmk.tc_geometry(nfft)
     n1, n2 = tch._ct_split(nfft)
-    n2o = nfft // 2 // n1 + 1
-    mt, ks2, nt2 = -(-n1 // 16), -(-n2 // 16), -(-n2o // 8)
-    a1, tw, b2 = (t.numpy() for t in tmk.tc_planes(nfft, "cpu"))
-    a1, b2 = a1.view(np.uint32), b2.view(np.uint32)
+    _, tw, _ = tmk.tc_planes(nfft, "cpu")
+    tw = tw.numpy()
+    assert tw.shape == (2, 4 * geo.nwg, 4 * geo.npass, 32, 4)
     sp = tmk.split_planes(nfft, "cpu")
     lane = np.arange(32)
     g, t = lane // 4, lane % 4
-    lo, hi = lambda w: _bf16(w & 0xFFFF), lambda w: _bf16(w >> 16)
-    for p, plane in enumerate((sp.w1r_hi, sp.w1r_lo, sp.w1i_hi, sp.w1i_lo)):
-        w = np.zeros((16 * mt, 16 * mt), np.float32)
-        for i in range(mt):
-            for k in range(mt):
-                r, c, f = 16 * i + g, 16 * k + 2 * t, a1[p, i, k]
-                for reg, (dr, dc) in enumerate(((0, 0), (8, 0), (0, 8),
-                                                (8, 8))):
-                    w[r + dr, c + dc] = lo(f[:, reg])
-                    w[r + dr, c + dc + 1] = hi(f[:, reg])
-        want = np.zeros_like(w)
-        want[:n1, :n1] = plane.numpy()
-        assert np.array_equal(w, want)
     for p, plane in enumerate((sp.twr, sp.twi)):
-        w = np.zeros((16 * mt, 16 * ks2), np.float32)
-        for i in range(mt):
-            for j in range(2 * ks2):
+        w = np.zeros((64 * geo.nwg, 32 * geo.npass), np.float32)
+        for i in range(4 * geo.nwg):
+            for j in range(4 * geo.npass):
                 r, c, f = 16 * i + g, 8 * j + 2 * t, tw[p, i, j]
                 w[r, c], w[r, c + 1] = f[:, 0], f[:, 1]
                 w[r + 8, c], w[r + 8, c + 1] = f[:, 2], f[:, 3]
         want = np.zeros_like(w)
         want[:n1, :n2] = plane.numpy()
         assert np.array_equal(w, want)
+
+
+@pytest.mark.parametrize("nfft", [500, 2048, 10000, 12500])
+def test_tc_planes_hold_the_split_planes_in_core_matrices(nfft):
+    """tc_planes' W1 and W2 read back as wgmma's no-swizzle K-major core
+    matrices (element [group, block, row, e] is matrix entry [8 group +
+    row, 8 block + e]; W1 as [k1, m1], W2 stored as [k2, m2]) are the
+    split planes, zero-padded, and the shared memory the kernel needs
+    fits the block at the test and production splits.  W2 holds every
+    column m2 that stage 2's k-steps read (10000 = 100 x 100: n2 is not a
+    multiple of 32)."""
+    geo = tmk.tc_geometry(nfft)
+    assert tmk.tc_fits(nfft) and geo.smem <= tmk.TC_SMEM_MAX
+    assert 8 * geo.kb2 == 32 * geo.npass
+    n1, n2 = tch._ct_split(nfft)
+    n2o = nfft // 2 // n1 + 1
+    w1, _, w2 = (t.float().numpy() for t in tmk.tc_planes(nfft, "cpu"))
+    assert w1.shape == (4, geo.rg1, geo.kb1, 8, 8)
+    assert w2.shape == (4, 8, geo.kb2, 8, 8)
+    sp = tmk.split_planes(nfft, "cpu")
+    unfold = lambda c: c.transpose(0, 2, 1, 3).reshape(
+        8 * c.shape[0], 8 * c.shape[1])
+    for p, plane in enumerate((sp.w1r_hi, sp.w1r_lo, sp.w1i_hi, sp.w1i_lo)):
+        want = np.zeros((8 * geo.rg1, 8 * geo.kb1), np.float32)
+        want[:n1, :n1] = plane.numpy()
+        assert np.array_equal(unfold(w1[p]), want)
     for p, plane in enumerate((sp.w2r_hi, sp.w2r_lo, sp.w2i_hi, sp.w2i_lo)):
-        w = np.zeros((16 * ks2, 8 * nt2), np.float32)
-        for k in range(ks2):
-            for n in range(nt2):
-                r, c, f = 16 * k + 2 * t, 8 * n + g, b2[p, k, n]
-                w[r, c], w[r + 1, c] = lo(f[:, 0]), hi(f[:, 0])
-                w[r + 8, c], w[r + 9, c] = lo(f[:, 1]), hi(f[:, 1])
-        want = np.zeros_like(w)
-        want[:n2, :n2o] = plane.numpy()
-        assert np.array_equal(w, want)
+        want = np.zeros((64, 8 * geo.kb2), np.float32)
+        want[:n2o, :n2] = plane.numpy().T
+        assert np.array_equal(unfold(w2[p]), want)
 
 
 def test_staged_wrappers_refuse_other_devices():

@@ -192,3 +192,43 @@ def test_pipeline_megakernel3_matches_jax(tmp_path, monkeypatch):
                                rtol=1e-3)
     best = max(prod_t.candidates, key=lambda c: c.snr)
     assert abs(best.dm - 60.0) < 10.0
+
+
+def test_natural_gate_narrows_only_off_the_jax_chain():
+    """chain_kernel_takes('natural') follows the tensor-core DFT of
+    chain_second_v2 (megakernel.tc_fits: n1, n2 <= 128, n2_out <= 64,
+    within a block's shared memory) where it used to take any CT split
+    whose frame and two stage-1 planes fit 227 KB.  Over the grid's
+    configurations and every nfft up to that old limit, the ones whose
+    'auto' twin changes from the v2 kernel to the armed program are none
+    that the JAX package's megakernel_supported sends to the v2 chain;
+    the production (100 x 125) and test (32 x 64, 20 x 25) splits take
+    the kernel."""
+    old = lambda c: tdsp.ch_ops._ct_split(c.nfft) and \
+        3 * 4 * c.nfft <= 232448
+    changed = []
+    for nfft in range(64, 19372, 4):
+        try:
+            tdsp.ch_ops._ct_split(nfft)
+        except ValueError:
+            continue
+        cfg = PipelineConfig.tiny(nbit=2, nfft=nfft, nkurto=nfft,
+                                  sample_rate=4 * nfft, seg_per_sec=1,
+                                  chanmin=0, chanmax=3,
+                                  rfi_mode=0, twin_chain_impl="auto",
+                                  chain_impl="megakernel2")
+        takes = tdsp.chain_kernel_takes(_t(cfg))
+        if takes != old(cfg):
+            assert old(cfg) and not takes
+            changed.append(nfft)
+            assert not jdsp.megakernel_supported(cfg), nfft
+    assert changed                  # the gate did narrow
+    for nfft in (500, 2048, 12500):
+        assert tmk.tc_fits(nfft)
+        assert tdsp.chain_kernel_takes(_t(PipelineConfig.tiny(
+            nbit=2, nfft=nfft, nkurto=nfft, sample_rate=4 * nfft,
+            seg_per_sec=1)))
+    # the grid of test_resolution_matches_jax_over_config_grid resolves
+    # as before: its split (500 = 20 x 25) takes the kernel
+    cfg = _t(PipelineConfig.tiny(nbit=2, inject_frb=True))
+    assert tdsp.resolve_twin_impl(cfg) == "megakernel2"

@@ -22,7 +22,8 @@
 //                  for the kept bins and |X|^2, written in natural channel
 //                  order k = k1 + n1 * k2 (neighbouring threads, neighbouring
 //                  k1, neighbouring channels).
-//   ema_kernel     (chain.cuh) the EMAs, scrunches, thresholds, 2-bit pack.
+//   bandpass_kernel, ema_kernel (chain.cuh) the EMAs, scrunches,
+//                  thresholds, 2-bit pack.
 //
 // What bounds it: the same f32 FMA work as chain.cu's dft_kernel (~0.36
 // TFLOP per data-second on the CUDA cores), plus one write and one read
@@ -176,7 +177,7 @@ inline int block_threads(int rows, int nout) {
 template <class T>
 int run_v4(const ChainParams& P, const T* x, const void* w1, const void* tw,
            const void* w2, const void* bp_in, void* power, void* keep,
-           void* dagcnt, void* inter, int chunk, void* packed,
+           void* dagcnt, void* seeds, void* inter, int chunk, void* packed,
            void* packed_kur, void* weights, void* dag_frac, void* bp_out,
            cudaStream_t st) {
   cudaError_t e = launch_front(P, CtMajor<T>{x, P.npol, P.ffts, P.n2}, keep,
@@ -206,8 +207,8 @@ int run_v4(const ChainParams& P, const T* x, const void* w1, const void* tw,
                                           (const float2*)w2, (float*)power);
     if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   }
-  return (int)launch_ema(P, power, weights, bp_in, bp_out, packed,
-                         packed_kur, dagcnt, dag_frac, st);
+  return (int)launch_ema_streams(P, power, weights, seeds, bp_in, bp_out,
+                                 packed, packed_kur, dagcnt, dag_frac, st);
 }
 
 }  // namespace
@@ -216,14 +217,16 @@ int run_v4(const ChainParams& P, const T* x, const void* w1, const void* tw,
 //             2 CT-major bf16 tiles (nseg, npol * ffts * 128, 128)) and
 //             the chunk in segments
 // fp (f32):   chain_params' (chain.cuh)
-// Device pointers as vf_chain_second's (chain.cu), plus inter: complex
-// f32 scratch (nstreams, chunk * npol * ffts, n1, n2).
+// Device pointers as vf_chain_second's (chain.cu) without layout 0's
+// partial / list / nlist, plus inter: complex f32 scratch (nstreams,
+// chunk * npol * ffts, n1, n2).
 // Launches on `stream`; returns cudaGetLastError() after the launches.
 extern "C" int vf_chain_second_v4(const long long* ip, const float* fp,
                                   const void* in, const void* w1,
                                   const void* tw, const void* w2,
                                   const void* bp_in, void* power, void* keep,
-                                  void* dagcnt, void* inter, void* packed,
+                                  void* dagcnt, void* seeds, void* inter,
+                                  void* packed,
                                   void* packed_kur, void* weights,
                                   void* dag_frac, void* bp_out,
                                   void* stream) {
@@ -233,11 +236,11 @@ extern "C" int vf_chain_second_v4(const long long* ip, const float* fp,
   if (chunk < 1) return (int)cudaErrorInvalidValue;
   if (layout == 1)
     return run_v4(P, (const uint8_t*)in, w1, tw, w2, bp_in, power, keep,
-                  dagcnt, inter, chunk, packed, packed_kur, weights,
+                  dagcnt, seeds, inter, chunk, packed, packed_kur, weights,
                   dag_frac, bp_out, st);
   if (layout == 2)
     return run_v4(P, (const __nv_bfloat16*)in, w1, tw, w2, bp_in, power,
-                  keep, dagcnt, inter, chunk, packed, packed_kur, weights,
-                  dag_frac, bp_out, st);
+                  keep, dagcnt, seeds, inter, chunk, packed, packed_kur,
+                  weights, dag_frac, bp_out, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,6 +1,8 @@
-// The Cooley-Tukey DFT and detect of one frame on the tensor cores, in the
-// TPU kernels' split-plane bf16 arithmetic.  Used by stage_ab.cu (the
-// staged chain: dft_detect_power and chain_second_plain).
+// The Cooley-Tukey DFT and detect of one frame on Hopper's warpgroup
+// tensor cores (wgmma), in the TPU kernels' split-plane bf16 arithmetic,
+// fed by bulk copies (cp.async.bulk, the 1-D TMA).  Used by stage_ab.cu
+// (the staged chain: dft_detect_power and chain_second_plain) and by
+// chain.cu's natural layout (chain_second_v2, both streams).
 //
 // Same function as the JAX package's _dft_detect_body
 // (vlite_fast_tpu/ops/megakernel.py:290-325) and the port's
@@ -15,34 +17,62 @@
 //   pi        = sum_m2 (...)(w2i, B.re) + (...)(w2r, B.im)   lo * lo dropped
 //   P[k]      = pr^2 + pi^2
 //
-// with every product of two bf16 values exact in f32 and the sums in f32
-// (mma.sync m16n8k16, bf16 in, f32 accumulate).  The order of the f32 sums
-// is the tensor cores', not XLA's; the bar is a relative error, not bits.
-// Each mma starts from a zero accumulator and its 16-deep sum is added to
-// the running f32 sum rounded to nearest: the tensor cores do not round
-// their accumulation to nearest, and chained over a whole dot that error
-// grows with the number of steps.  Stage 1's sums then come out as an f32
-// matrix product's would (most of them exact), so the hi/lo split of B
-// sees the same values as the plain version's; stage 2 adds each k-step's
-// six terms small ones first.
+// Every product of two bf16 values is exact in f32; the sums are f32 in
+// the tensor cores' order.  The tensor cores do not round their
+// accumulation to nearest, and chained over a whole dot that error grew
+// to 2.3e-3 relative on near-zero bins, so each stage-1 k16 product
+// starts from zero (scale-d = 0) and is added to the running sum with
+// __fadd_rn (its sums then come out as an f32 matrix product's, most of
+// them exact, and the hi/lo split of B sees the plain version's values);
+// stage 2 chains each k-step's six terms, the small ones first, from zero
+// and adds them rounded to nearest.
 //
-// Layout of the work.  One block per SM walks frames (grid-stride); warp
-// w owns the 16 output rows k1 = 16w .. 16w+15 (ceil(n1 / 16) warps).
-// Stage 1 is C1 = W1[k1, m1] . X[m1, m2]: W1 is the A operand (constant,
-// held in shared memory already in fragment order), the frame X the B
-// operand (bf16 in shared memory, stored [m2][m1] so that a fragment is
-// two 32-bit loads, conflict-free).  Its f32 accumulator fragments, after
-// the twiddle and the hi/lo split, ARE the A fragments of stage 2
-// (D[k1, k2] = B[k1, m2] . W2[m2, k2]): the intermediate never leaves the
-// registers.  Stage 2's W2 planes (B operand) sit in shared memory in
-// fragment order; -w2i is w2i with the sign bits flipped, which is exact.
-// Stage 1 runs over m2 in passes of 32 (4 n-tiles = 2 stage-2 k-steps) so
-// that its accumulators (hi and lo passes apart, 64 registers) and stage
-// 2's (64) fit together.
+// What bounds it: operations.  At the production split (12500 = 100 x
+// 125) a frame is ~40 MFLOP of padded bf16 products (stage 1: 4 planes of
+// 128 x 128 x 112; stage 2: 12 of 128 x 64 x 128), so 20,480 frames per
+// data-second take >= 0.83 ms at 989 TFLOP/s; their bytes (256 MB in,
+// 512 MB of power out) 0.23 ms.  Design:
+//   - one persistent block per SM walks a list of jobs (frames); the W1
+//     and W2 hi/lo planes sit in shared memory for the whole launch, in
+//     wgmma's no-swizzle core-matrix layout (ops/megakernel.tc_planes);
+//   - one thread keeps kSlots raw frames in flight: one bulk copy of the
+//     16-byte-aligned span that covers the frame (frames start only
+//     4-byte aligned) into a ring slot, completion on an mbarrier; the
+//     span is clamped to the buffer and the bytes outside it are read
+//     from device memory by the converter, so nothing is read out of
+//     bounds.  (A producer warp of its own made ptxas size the registers
+//     for three warpgroups: 168 a thread, and the consumers spilled);
+//   - ceil(n1 / 64) consumer warpgroups each own 64 rows k1.  Stage 1
+//     runs in passes of 32 m2 columns: wgmma m64n32k16, A = a W1 plane,
+//     B = the bf16 frame tile (both from shared memory).  The pass's f32
+//     accumulators, after the twiddle and the hi/lo split, ARE the A
+//     fragments of stage 2's wgmma m64n64k16 (A from registers, B = the
+//     W2 planes; the FlashAttention-3 pattern), so the intermediate never
+//     leaves the registers;
+//   - the frame tile is one buffer cut in slices of 32 m2 rows: once both
+//     warpgroups have read slice h of frame f (stage 1, pass h), the
+//     consumers convert slice h of the next frame from its ring slot
+//     while their stage-2 products of pass h run on the tensor cores.
+// Shared memory at the production split: W1 93 KB, W2 64 KB, the tile 28
+// KB, three 12.5 KB slots: 225 of 227 KB.  To fit, W1 stores only its rows
+// up to n1 rounded up to 8 (the rows past them that the second
+// warpgroup's 64-row operand reaches read the next plane's finite values
+// and give rows k1 >= n1, which are never written).  W2 stores its whole
+// depth, the 32 npass columns m2 that stage 2's k-steps walk (zero past
+// n2), so no descriptor reads past its plane.  A second frame tile does
+// not fit beside three slots; the slice-wise overlap takes its place.  A
+// 2-CTA cluster sharing the planes is no option: wgmma reads only its own
+// block's shared memory.
+// The twiddle (128 KB at production) stays in device memory, read in
+// accumulator order (L2-resident).  Splits up to n1 = 128 whose W1 planes
+// do not fit beside the rest (some with n1 >= 105 and n2 >= 113; not the
+// production 100 x 125) run split: two blocks transform each frame, one
+// warpgroup and its 64 rows of W1 each.
 //
-// Padding: n1 rounds up to 16 (rows and the m1 depth), n2 to 16 (the m2
-// depth), n2_out to 8.  The padded entries of every constant plane are
-// zero and the frame's padding cells are zeroed once, so they add nothing.
+// Padding: n1 rounds up to 16 in the stage-1 depth and to 64 in rows,
+// n2 to 32 (passes), n2_out to 64.  The padded entries of every constant
+// plane are zero and the converter writes zeros in the frame's padding,
+// so they add nothing.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -53,72 +83,175 @@
 
 namespace dft_tc {
 
-constexpr int kPass = 2;      // stage-2 k-steps per pass of stage 1
-constexpr int kNt2Max = 8;    // stage-2 n-tiles (n2_out <= 64)
-constexpr int kWordsMax = 16; // frame words (4 bytes) each thread prefetches
+constexpr int kSlots = 3;                    // raw frames in flight
+constexpr int kMaxWg = 2;                    // warpgroups (n1 <= 128)
+constexpr int kThreads = 128 * kMaxWg;
+constexpr int kSmemMax = 232448;             // bytes a block may use
 
 struct Geom {
-  int n1, n2, n2_out, nchan;
-  int mt;    // warps: ceil(n1 / 16) row tiles of k1
-  int ks1;   // stage-1 k-steps: ceil(n1 / 16)
-  int ks2;   // stage-2 k-steps: ceil(n2 / 16); stage-1 n-tiles = 2 * ks2
-  int nt2;   // stage-2 n-tiles: ceil(n2_out / 8)
-  int xs;    // row stride (bf16) of the frame in shared memory: 16 ks1 + 8
+  int nfft, n1, n2, n2_out, nchan;
+  int nwg;    // consumer warpgroups: ceil(n1 / 64)
+  int kb1;    // stage-1 depth in 8-wide core blocks: 2 ceil(n1 / 16)
+  int rg1;    // W1 rows stored, in 8-row groups: ceil(n1 / 8)
+  int npass;  // stage-1 passes of 32 m2 columns: ceil(n2 / 32)
+  int kb2;    // W2 depth (m2) stored, in 8-wide core blocks: 4 npass
+  int slot;   // bytes of one raw-frame slot
+  int split;  // 1: two blocks per frame, one warpgroup's 64 rows each
+  // shared memory: byte sizes and offsets
+  int w1_plane, w2_plane, tile, ring, bars, smem;
 };
 
 inline Geom make_geom(int nfft, int n1, int n2) {
   Geom g;
+  g.nfft = nfft;
   g.n1 = n1;
   g.n2 = n2;
   g.n2_out = nfft / 2 / n1 + 1;
   g.nchan = nfft / 2 + 1;
-  g.mt = (n1 + 15) / 16;
-  g.ks1 = g.mt;
-  g.ks2 = (n2 + 15) / 16;
-  g.nt2 = (g.n2_out + 7) / 8;
-  g.xs = 16 * g.ks1 + 8;
+  g.nwg = (n1 + 63) / 64;
+  g.kb1 = 2 * ((n1 + 15) / 16);
+  g.rg1 = (n1 + 7) / 8;
+  g.npass = (n2 + 31) / 32;
+  g.kb2 = 4 * g.npass;
+  g.slot = (nfft + 15) / 16 * 16 + 16;
+  g.w2_plane = 8 * g.kb2 * 128;             // 64 k2 rows x 8 kb2 m2
+  for (g.split = 0; g.split < 2; ++g.split) {
+    g.w1_plane = (g.split ? 8 : g.rg1) * g.kb1 * 128;
+    g.tile = 4 * g.w1_plane + 4 * g.w2_plane;
+    g.ring = g.tile + 4 * g.npass * g.kb1 * 128;
+    g.bars = g.ring + kSlots * g.slot;
+    g.smem = g.bars + kSlots * 8;
+    if (g.smem <= kSmemMax || g.nwg < 2) break;
+  }
   return g;
 }
 
-// 32-bit words of the fragment-ordered constants (ops/megakernel.tc_planes)
-__host__ __device__ inline long long a1_words(const Geom& g) {
-  return 4LL * g.mt * g.ks1 * 32 * 4;
-}
-__host__ __device__ inline long long b2_words(const Geom& g) {
-  return 4LL * g.ks2 * g.nt2 * 32 * 2;
-}
-inline size_t smem_bytes(const Geom& g) {
-  return (size_t)(a1_words(g) + b2_words(g)) * 4 +
-         (size_t)32 * g.ks2 * g.xs * 2;
-}
-// the shapes the kernel takes (checked by the host before a launch)
-inline bool fits(const Geom& g, int nfft) {
-  return g.mt <= 8 && g.nt2 <= kNt2Max && nfft % 4 == 0 &&
-         nfft / 4 <= kWordsMax * 32 * g.mt;
+// the splits the kernel takes (checked by the host before a launch; the
+// port's ops/megakernel.tc_fits is the same test)
+inline bool fits(const Geom& g) {
+  return g.n1 >= 2 && g.n1 <= 64 * kMaxWg && g.n2 <= 128 &&
+         g.n2_out <= 64 && g.smem <= kSmemMax;
 }
 
-__device__ __forceinline__ void mma(float* c, const uint4& a, uint32_t b0,
-                                    uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "r"(b0), "r"(b1));
+// ---------------------------------------------------------------- PTX ----
+
+__device__ __forceinline__ uint32_t saddr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
 }
 
-// c = A B, from a zero accumulator
-__device__ __forceinline__ void mma0(float* c, const uint4& a, uint32_t b0,
-                                     uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%10,%10,%10,%10};\n"
-      : "=f"(c[0]), "=f"(c[1]), "=f"(c[2]), "=f"(c[3])
-      : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "r"(b0), "r"(b1),
-        "f"(0.0f));
+__device__ __forceinline__ void mbar_init(uint64_t* b, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(saddr(b)),
+               "r"(count)
+               : "memory");
 }
 
-// acc += c, rounded to nearest
-__device__ __forceinline__ void add4(float* acc, const float* c) {
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* b, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   saddr(b)),
+               "r"(bytes)
+               : "memory");
+}
+
+// wait until the phase of parity `parity` has completed; a phase that
+// never completes (a lost copy) traps after 2^24 polls, an error instead
+// of a hung card
+__device__ __forceinline__ void mbar_wait(uint64_t* b, uint32_t parity) {
+  uint32_t done = 0;
+  for (uint32_t n = 0; !done; ++n) {
+    if (n == (1u << 24)) __trap();
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(saddr(b)), "r"(parity)
+        : "memory");
+  }
+}
+
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(saddr(dst)),
+      "l"(src), "r"(bytes), "r"(saddr(bar))
+      : "memory");
+}
+
+// generic-proxy writes to shared memory -> visible to wgmma / TMA
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+__device__ __forceinline__ void named_sync(int id, int nthreads) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(nthreads) : "memory");
+}
+
+// wgmma shared-memory descriptor, no swizzle (core matrices of 8 rows x
+// 16 bytes, rows contiguous): lbo = bytes between core matrices along K,
+// sbo = bytes between 8-row groups along M / N
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
+                                         uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         ((uint64_t)(lbo >> 4) << 16) | ((uint64_t)(sbo >> 4) << 32);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+
+// ties registers to the point of the call, so that no read or write of
+// an accumulator moves across a wgmma issue or wait
+template <int N>
+__device__ __forceinline__ void reg_fence(float (&d)[N]) {
 #pragma unroll
-  for (int r = 0; r < 4; ++r) acc[r] = __fadd_rn(acc[r], c[r]);
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d = A B (+ d when kAcc), A and B from shared memory: m64n32k16, bf16
+// in, f32 out
+template <int kAcc>
+__device__ __forceinline__ void wgmma_n32_ss(float (&d)[16], uint64_t a,
+                                             uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "l"(a), "l"(b), "n"(kAcc));
+}
+
+// d = A B (+ d when kAcc), A from registers (4 x bf16 pairs), B from
+// shared memory: m64n64k16
+template <int kAcc>
+__device__ __forceinline__ void wgmma_n64_rs(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "n"(kAcc));
 }
 
 __device__ __forceinline__ uint32_t pack(__nv_bfloat16 lo, __nv_bfloat16 hi) {
@@ -126,8 +259,7 @@ __device__ __forceinline__ uint32_t pack(__nv_bfloat16 lo, __nv_bfloat16 hi) {
          ((uint32_t)__bfloat16_as_ushort(hi) << 16);
 }
 
-// v = hi + lo as the TPU kernel splits it; returns packed (hi, lo) of a
-// pair of values
+// v = hi + lo as the TPU kernel splits it; packed (hi, lo) of a pair
 __device__ __forceinline__ void split2(float v0, float v1, uint32_t& hi,
                                        uint32_t& lo) {
   const __nv_bfloat16 h0 = __float2bfloat16_rn(v0);
@@ -139,232 +271,379 @@ __device__ __forceinline__ void split2(float v0, float v1, uint32_t& hi,
 
 constexpr uint32_t kNeg = 0x80008000u;   // sign bits of a bf16 pair
 
-// The kernel.  Frames f = p * nblk + j (pol p, FFT block j of the launch,
-// j = s * ffts + t); `row_of` maps a frame to its row of `power` (nchan
-// f32 each).  a1: uint4 [4 planes w1r_hi, w1r_lo, w1i_hi, w1i_lo][mt][ks1]
-// [32 lanes]; tw: float4 [2 (re, im)][mt][2 ks2][32]; b2: uint2 [4 planes
-// w2r_hi, w2r_lo, w2i_hi, w2i_lo][ks2][nt2][32].
-template <class RowOf>
-__global__ void __launch_bounds__(256, 1)
-    dft_detect_kernel(Geom G, NaturalU8 ld, int npol, long long nblk,
-                      RowOf row_of, const uint4* __restrict__ a1,
-                      const float4* __restrict__ tw,
-                      const uint2* __restrict__ b2, float* __restrict__ power) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  uint4* sa1 = (uint4*)smem;
-  uint2* sb2 = (uint2*)(smem + a1_words(G) * 4);
-  __nv_bfloat16* xs =
-      (__nv_bfloat16*)(smem + (a1_words(G) + b2_words(G)) * 4);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+// conv_u8 (front.cuh) on the FP32 pipe: (2^23 + u) - (2^23 + 128) is u -
+// 128 exactly, times 2^-7 exactly; 0 for u == 0
+__device__ __forceinline__ float volt_u8(uint8_t u) {
+  const float x = __fmul_rn(
+      __fsub_rn(__uint_as_float(0x4B000000u | u), 8388736.0f), 0.0078125f);
+  return u ? x : 0.0f;
+}
+
+// ---------------------------------------------------------------- jobs ---
+
+// The frames a launch transforms.  Job i < npol * nblk is frame (p, j) =
+// (i / nblk, i % nblk) of the raw second, unmasked, written to `power`
+// row i (pol-major: the chain's (npol, nblk, nchan) plane) or, with ffts
+// > 0, row (s * npol + p) * ffts + t for j = s * ffts + t (stage A's
+// (nseg, npol * ffts, nchan)).  With a list, job npol * nblk + b * npol +
+// p is frame (p, list[b]) masked by that block's keep flags (window w of
+// the frame zero where keep[w] == 0), written to `power_kur` at the
+// frame's pol-major row: the kurtosis stream of the blocks the front
+// flagged in part.
+struct Jobs {
+  NaturalU8 ld;
+  int npol;
+  long long nblk;
+  int ffts;
+  const int* nlist;   // number of listed blocks (device), or nullptr
+  const int* list;    // the listed blocks (device)
+  const uint8_t* keep;
+  int wpf, nkurto;
+  float* power;
+  float* power_kur;
+};
+
+struct Job {
+  long long src;          // offset of the frame's first byte in raw
+  const uint8_t* keep;    // its keep flags, nullptr when unmasked
+  float* out;             // its power row
+};
+
+__device__ __forceinline__ Job job_of(const Jobs& J, long long i,
+                                      int nchan) {
+  const long long nplain = (long long)J.npol * J.nblk;
+  Job o;
+  long long p, j;
+  if (i < nplain) {
+    p = i / J.nblk;
+    j = i - p * J.nblk;
+    long long row = i;
+    if (J.ffts > 0) {
+      const long long s = j / J.ffts, t = j - s * J.ffts;
+      row = (s * J.npol + p) * J.ffts + t;
+    }
+    o.keep = nullptr;
+    o.out = J.power + row * nchan;
+  } else {
+    const long long q = i - nplain, b = q / J.npol;
+    p = q - b * J.npol;
+    j = J.list[b];
+    o.keep = J.keep + j * J.wpf;
+    o.out = J.power_kur + (p * J.nblk + j) * nchan;
+  }
+  o.src = p * J.ld.nsamp + j * (long long)J.ld.nfft;
+  return o;
+}
+
+// [lo, hi): the bytes of the frame at `src` that one bulk copy brings, the
+// 16-byte-aligned span around it clamped to the buffer (hi == lo: none)
+__device__ __forceinline__ void span(const Jobs& J, long long src,
+                                     long long& lo, long long& hi) {
+  const unsigned long long base = (unsigned long long)J.ld.raw;
+  const unsigned long long end =
+      (base + (unsigned long long)J.npol * J.ld.nsamp) & ~15ull;
+  const unsigned long long a = base + src;
+  unsigned long long l = a & ~15ull;
+  if (l < base) l += 16;
+  unsigned long long h = (a + J.ld.nfft + 15) & ~15ull;
+  if (h > end) h = end;
+  lo = (long long)(l - base);
+  hi = h > l ? (long long)(h - base) : lo;
+}
+
+// ---------------------------------------------------------------- kernel -
+
+__global__ void __launch_bounds__(kThreads, 1)
+    dft_tc_kernel(Geom G, Jobs J, const uint4* __restrict__ w1,
+                  const float4* __restrict__ tw, const uint4* __restrict__ w2) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* full = (uint64_t*)(smem + G.bars);
+  unsigned char* ring = smem + G.ring;
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  // this block's frames (jobs j0, j0 + jstep, ...) and its first row k1
+  const long long j0 = G.split ? blockIdx.x >> 1 : blockIdx.x;
+  const long long jstep = G.split ? gridDim.x >> 1 : gridDim.x;
+  const int half = G.split ? blockIdx.x & 1 : 0;
+  {
+    // the W1 row groups this block holds (split: its half's 8, zero past
+    // rg1), then the W2 planes
+    const int per_plane = G.w1_plane / 16, per_group = G.kb1 * 8;
+    for (int i = tid; i < G.tile / 16; i += nthr) {
+      uint4 v;
+      if (i < 4 * per_plane) {
+        const int q = i / per_plane, r = i - q * per_plane;
+        const int grp = 8 * half + r / per_group;
+        v = grp < G.rg1 ? w1[((long long)q * G.rg1 + grp) * per_group +
+                             r % per_group]
+                        : make_uint4(0, 0, 0, 0);
+      } else {
+        v = w2[i - 4 * per_plane];
+      }
+      ((uint4*)smem)[i] = v;
+    }
+  }
+  fence_async_smem();
+  if (tid == 0) {
+    for (int s = 0; s < kSlots; ++s) mbar_init(&full[s], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  const long long njobs = (long long)J.npol * J.nblk +
+                          (J.nlist ? (long long)J.npol * *J.nlist : 0);
+  // thread 0 brings the raw frame of local job k into slot k % kSlots
+  // (kSlots jobs ahead; a slot is refilled once every thread has passed
+  // the barrier after converting it)
+  auto fetch = [&](int k) {
+    const long long i = j0 + k * jstep;
+    if (i >= njobs) return;
+    long long lo, hi;
+    span(J, job_of(J, i, G.nchan).src, lo, hi);
+    const int s = k % kSlots;
+    fence_async_smem();
+    mbar_expect_tx(&full[s], (uint32_t)(hi - lo));
+    if (hi > lo)
+      bulk_copy(ring + s * G.slot, J.ld.raw + lo, (uint32_t)(hi - lo),
+                &full[s]);
+  };
+  if (tid == 0)
+    for (int k = 0; k < kSlots; ++k) fetch(k);
+
+  const int wg = tid >> 7, wl = (tid >> 5) & 3, lane = tid & 31;
   const int g = lane >> 2, t4 = lane & 3;
-  const int nthr = blockDim.x;
-  const long long nframes = (long long)npol * nblk;
-  const int nfft = G.n1 * G.n2;
-  const int nwords = nfft / 4;
-  const int xrows = 16 * G.ks2;
+  const int row0 = 64 * (G.split ? half : wg);   // this warpgroup's rows
+  const uint32_t s_w1 = saddr(smem), s_w2 = s_w1 + 4 * G.w1_plane;
+  const uint32_t s_tile = s_w1 + G.tile;
+  const uint32_t sbo1 = G.kb1 * 128, sbo2 = G.kb2 * 128;
+  const uint32_t a_base = s_w1 + (G.split ? 0 : wg * 8 * sbo1);
+  const long long twplane = (long long)4 * G.nwg * 4 * G.npass * 32;
+  const int nks = G.kb1 / 2;
 
-  for (long long i = threadIdx.x; i < a1_words(G) / 4; i += nthr) sa1[i] = a1[i];
-  for (long long i = threadIdx.x; i < b2_words(G) / 2; i += nthr) sb2[i] = b2[i];
-  // zero the whole frame once: its padding cells are never written again
-  for (int i = threadIdx.x; i < xrows * G.xs; i += nthr)
-    xs[i] = __float2bfloat16_rn(0.0f);
-
-  // prefetch of the next frame's bytes, 4 at a time, in registers
-  uint32_t pre[kWordsMax];
-  auto fetch = [&](long long f) {
-    const long long p = f / nblk, j = f - p * nblk;
-    const uint32_t* src =
-        (const uint32_t*)(ld.raw + p * ld.nsamp + j * (long long)nfft);
+  // slice h (m2 rows [32h, 32h + 32)) of a job's frame from its slot into
+  // the bf16 tile, core-matrix order; padding cells become 0.  An item is
+  // one core-matrix row: m2 (neighbouring lanes, neighbouring bytes) x 8
+  // m1 of core block c, one 16-byte store.  The common case, a full core
+  // block held by the slot, takes 8 shared-memory byte loads and no
+  // per-sample test (a masked frame steps its window index instead of
+  // dividing); the edges (padding, a frame at an unaligned end of the
+  // buffer, whose bytes outside the slot's span come from device memory)
+  // take the sample-by-sample path.
+  auto convert = [&](const Job& jb, int slot, long long lo, long long hi,
+                     int h) {
+    const unsigned char* sl = ring + slot * G.slot;
+    const bool whole = jb.src >= lo && jb.src + G.nfft <= hi;
+    const uint32_t fr = saddr(sl) + (uint32_t)(whole ? jb.src - lo : 0);
+    for (int it = tid; it < 32 * G.kb1; it += nthr) {
+      const int m2 = 32 * h + (it & 31), c = it >> 5;
+      const int n0 = 8 * c * G.n2 + m2;
+      float v[8] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+      if (m2 < G.n2 && whole && 8 * c + 8 <= G.n1) {
+        uint32_t b[8];
 #pragma unroll
-    for (int k = 0; k < kWordsMax; ++k) {
-      const int w = threadIdx.x + k * nthr;
-      if (w < nwords) pre[k] = __ldg(src + w);
+        for (int e = 0; e < 8; ++e)
+          asm volatile("ld.shared.u8 %0, [%1];"
+                       : "=r"(b[e])
+                       : "r"(fr + n0 + e * G.n2));
+#pragma unroll
+        for (int e = 0; e < 8; ++e) v[e] = volt_u8((uint8_t)b[e]);
+        if (jb.keep) {
+          int w = n0 / J.nkurto, r = n0 - w * J.nkurto;
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            if (!__ldg(jb.keep + w)) v[e] = 0.0f;
+            for (r += G.n2; r >= J.nkurto; r -= J.nkurto) ++w;
+          }
+        }
+      } else if (m2 < G.n2) {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const int n = n0 + e * G.n2;
+          if (8 * c + e < G.n1) {
+            const long long o = jb.src + n;
+            v[e] = volt_u8((o >= lo && o < hi) ? sl[o - lo]
+                                               : __ldg(J.ld.raw + o));
+            if (jb.keep && !__ldg(jb.keep + n / J.nkurto)) v[e] = 0.0f;
+          }
+        }
+      }
+      // both voltages of a pair are exact in bf16: their top halves
+      uint32_t word[4];
+#pragma unroll
+      for (int e = 0; e < 8; e += 2)
+        word[e >> 1] = __byte_perm(__float_as_uint(v[e]),
+                                   __float_as_uint(v[e + 1]), 0x7632);
+      *(uint4*)(smem + G.tile + (m2 >> 3) * sbo1 + c * 128 + (m2 & 7) * 16) =
+          make_uint4(word[0], word[1], word[2], word[3]);
     }
   };
-  long long f = blockIdx.x;
-  if (f < nframes) fetch(f);
-  for (; f < nframes; f += gridDim.x) {
-    __syncthreads();   // the previous frame's readers are done with xs
-#pragma unroll
-    for (int k = 0; k < kWordsMax; ++k) {
-      const int w = threadIdx.x + k * nthr;
-      if (w < nwords) {
-#pragma unroll
-        for (int b = 0; b < 4; ++b) {
-          const int n = 4 * w + b;
-          const int m1 = n / G.n2, m2 = n - m1 * G.n2;
-          xs[m2 * G.xs + m1] =
-              __float2bfloat16_rn(conv_u8((uint8_t)(pre[k] >> (8 * b))));
-        }
-      }
-    }
-    __syncthreads();
-    if (f + gridDim.x < nframes) fetch(f + gridDim.x);
 
-    float pr[kNt2Max][4], pi[kNt2Max][4];
-#pragma unroll
-    for (int j = 0; j < kNt2Max; ++j)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) pr[j][r] = pi[j][r] = 0.0f;
-
-    for (int h = 0; h * kPass < G.ks2; ++h) {
-      // ---- stage 1 on m2 n-tiles [2 kPass h, 2 kPass (h + 1)): the hi
-      // and lo passes in accumulators of their own, added once, as the
-      // TPU kernel's two dots are ----
-      float arh[2 * kPass][4], arl[2 * kPass][4], aih[2 * kPass][4],
-          ail[2 * kPass][4];
-#pragma unroll
-      for (int j = 0; j < 2 * kPass; ++j)
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-          arh[j][r] = arl[j][r] = aih[j][r] = ail[j][r] = 0.0f;
-      for (int ks = 0; ks < G.ks1; ++ks) {
-        const uint4* ap = sa1 + ((long long)warp * G.ks1 + ks) * 32 + lane;
-        const long long plane = (long long)G.mt * G.ks1 * 32;
-        const uint4 wrh = ap[0], wrl = ap[plane], wih = ap[2 * plane],
-                    wil = ap[3 * plane];
-#pragma unroll
-        for (int j = 0; j < 2 * kPass; ++j) {
-          const int nt = 2 * kPass * h + j;
-          if (nt < 2 * G.ks2) {
-            const __nv_bfloat16* xp = xs + (8 * nt + g) * G.xs + 16 * ks + 2 * t4;
-            const uint32_t b0 = *(const uint32_t*)xp;
-            const uint32_t b1 = *(const uint32_t*)(xp + 8);
-            float c[4];
-            mma0(c, wrh, b0, b1);
-            add4(arh[j], c);
-            mma0(c, wrl, b0, b1);
-            add4(arl[j], c);
-            mma0(c, wih, b0, b1);
-            add4(aih[j], c);
-            mma0(c, wil, b0, b1);
-            add4(ail[j], c);
-          }
-        }
-      }
-      // ---- twiddle, split, stage 2 over this half's k-steps ----
-#pragma unroll
-      for (int q = 0; q < kPass; ++q) {
-        const int ks2 = kPass * h + q;
-        if (ks2 < G.ks2) {
-          uint32_t prh[4], prl[4], pih[4], pil[4];
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {        // n-tile 2 ks2 + e
-            const int j = 2 * q + e;
-            const long long ti =
-                ((long long)warp * 2 * G.ks2 + 2 * ks2 + e) * 32 + lane;
-            const float4 twr = __ldg(tw + ti);
-            const float4 twi =
-                __ldg(tw + ti + (long long)G.mt * 2 * G.ks2 * 32);
-            const float tr[4] = {twr.x, twr.y, twr.z, twr.w};
-            const float tim[4] = {twi.x, twi.y, twi.z, twi.w};
-            float br[4], bi[4];
-#pragma unroll
-            for (int r = 0; r < 4; ++r) {
-              const float ar = __fadd_rn(arh[j][r], arl[j][r]);
-              const float ai = __fadd_rn(aih[j][r], ail[j][r]);
-              br[r] = __fsub_rn(__fmul_rn(ar, tr[r]), __fmul_rn(ai, tim[r]));
-              bi[r] = __fadd_rn(__fmul_rn(ar, tim[r]), __fmul_rn(ai, tr[r]));
-            }
-            // C regs (c0, c1) -> A reg 2e, (c2, c3) -> A reg 2e + 1
-            split2(br[0], br[1], prh[2 * e], prl[2 * e]);
-            split2(br[2], br[3], prh[2 * e + 1], prl[2 * e + 1]);
-            split2(bi[0], bi[1], pih[2 * e], pil[2 * e]);
-            split2(bi[2], bi[3], pih[2 * e + 1], pil[2 * e + 1]);
-          }
-          const uint4 rh = make_uint4(prh[0], prh[1], prh[2], prh[3]);
-          const uint4 rl = make_uint4(prl[0], prl[1], prl[2], prl[3]);
-          const uint4 ih = make_uint4(pih[0], pih[1], pih[2], pih[3]);
-          const uint4 il = make_uint4(pil[0], pil[1], pil[2], pil[3]);
-#pragma unroll
-          for (int n = 0; n < kNt2Max; ++n) {
-            if (n < G.nt2) {
-              const uint2* bp = sb2 + ((long long)ks2 * G.nt2 + n) * 32 + lane;
-              const long long plane = (long long)G.ks2 * G.nt2 * 32;
-              const uint2 w2rh = bp[0], w2rl = bp[plane], w2ih = bp[2 * plane],
-                          w2il = bp[3 * plane];
-              // this k-step's terms from zero, the small hi-lo ones first,
-              // then added to the running sums rounded to nearest
-              float c[4];
-              // pr = sum w2r br - w2i bi
-              mma0(c, rl, w2rh.x, w2rh.y);
-              mma(c, rh, w2rl.x, w2rl.y);
-              mma(c, il, w2ih.x ^ kNeg, w2ih.y ^ kNeg);
-              mma(c, ih, w2il.x ^ kNeg, w2il.y ^ kNeg);
-              mma(c, rh, w2rh.x, w2rh.y);
-              mma(c, ih, w2ih.x ^ kNeg, w2ih.y ^ kNeg);
-              add4(pr[n], c);
-              // pi = sum w2i br + w2r bi
-              mma0(c, rl, w2ih.x, w2ih.y);
-              mma(c, rh, w2il.x, w2il.y);
-              mma(c, il, w2rh.x, w2rh.y);
-              mma(c, ih, w2rl.x, w2rl.y);
-              mma(c, rh, w2ih.x, w2ih.y);
-              mma(c, ih, w2rh.x, w2rh.y);
-              add4(pi[n], c);
-            }
-          }
-        }
-      }
+  long long i = j0;
+  if (i >= njobs) return;
+  Job cur = job_of(J, i, G.nchan);
+  {
+    long long lo, hi;
+    span(J, cur.src, lo, hi);
+    mbar_wait(&full[0], 0);
+    for (int h = 0; h < G.npass; ++h) convert(cur, 0, lo, hi, h);
+    fence_async_smem();
+  }
+  for (int k = 0; i < njobs; i += jstep, ++k) {
+    const bool more = i + jstep < njobs;
+    const int nslot = (k + 1) % kSlots;
+    Job nxt = cur;
+    long long nlo = 0, nhi = 0;
+    if (more) {
+      nxt = job_of(J, i + jstep, G.nchan);
+      span(J, nxt.src, nlo, nhi);
+      mbar_wait(&full[nslot], (uint32_t)((k + 1) / kSlots) & 1);
     }
-    // ---- detect and write linear channels ----
-    float* out = power + row_of(f) * (long long)G.nchan;
+    float pr[32], pi[32];
 #pragma unroll
-    for (int n = 0; n < kNt2Max; ++n) {
-      if (n < G.nt2) {
+    for (int e = 0; e < 32; ++e) pr[e] = pi[e] = 0.0f;
+
+    for (int h = 0; h < G.npass; ++h) {
+      named_sync(1, nthr);    // slice h holds this frame
+      // job k was converted before this barrier: its slot takes job k + 3
+      if (h == 0 && tid == 0) fetch(k + kSlots);
+      // ---- stage 1, pass h: the four W1 planes against m2 [32h, 32h+32),
+      // every k16 product from zero, added rounded to nearest
+      float acc[4][16], c0[16], c1[16], c2[16], c3[16];
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+#pragma unroll
+        for (int e = 0; e < 16; ++e) acc[q][e] = 0.0f;
+      const uint32_t b_base = s_tile + 4 * h * sbo1;
+      for (int ks = 0; ks < nks; ++ks) {
+        const uint32_t a0 = a_base + ks * 256;
+        const uint64_t b = desc(b_base + ks * 256, 128, sbo1);
+        wg_fence();
+        wgmma_n32_ss<0>(c0, desc(a0, 128, sbo1), b);
+        wgmma_n32_ss<0>(c1, desc(a0 + G.w1_plane, 128, sbo1), b);
+        wgmma_n32_ss<0>(c2, desc(a0 + 2 * G.w1_plane, 128, sbo1), b);
+        wgmma_n32_ss<0>(c3, desc(a0 + 3 * G.w1_plane, 128, sbo1), b);
+        wg_commit();
+        wg_wait<0>();
+        reg_fence(c0);
+        reg_fence(c1);
+        reg_fence(c2);
+        reg_fence(c3);
+#pragma unroll
+        for (int e = 0; e < 16; ++e) {
+          acc[0][e] = __fadd_rn(acc[0][e], c0[e]);
+          acc[1][e] = __fadd_rn(acc[1][e], c1[e]);
+          acc[2][e] = __fadd_rn(acc[2][e], c2[e]);
+          acc[3][e] = __fadd_rn(acc[3][e], c3[e]);
+        }
+      }
+      named_sync(2, nthr);    // every thread is done reading slice h
+
+      // ---- twiddle and split: the A fragments of stage-2 k-steps 2h,
+      // 2h + 1 (accumulator n8 chunk j = 2e + cj -> A regs 2cj, 2cj + 1)
+      uint32_t rh[2][4], rl[2][4], ih[2][4], il[2][4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const long long ti =
+            ((long long)(row0 / 16 + wl) * 4 * G.npass + 4 * h + j) * 32 +
+            lane;
+        const float4 twr = __ldg(tw + ti), twi = __ldg(tw + ti + twplane);
+        const float tr[4] = {twr.x, twr.y, twr.z, twr.w};
+        const float tim[4] = {twi.x, twi.y, twi.z, twi.w};
+        float br[4], bi[4];
 #pragma unroll
         for (int r = 0; r < 4; ++r) {
-          const int k1 = 16 * warp + g + 8 * (r >> 1);
-          const int k2 = 8 * n + 2 * t4 + (r & 1);
-          const int k = k1 + G.n1 * k2;
-          if (k1 < G.n1 && k2 < G.n2_out && k < G.nchan)
-            out[k] = __fadd_rn(__fmul_rn(pr[n][r], pr[n][r]),
-                               __fmul_rn(pi[n][r], pi[n][r]));
+          const float ar = __fadd_rn(acc[0][4 * j + r], acc[1][4 * j + r]);
+          const float ai = __fadd_rn(acc[2][4 * j + r], acc[3][4 * j + r]);
+          br[r] = __fsub_rn(__fmul_rn(ar, tr[r]), __fmul_rn(ai, tim[r]));
+          bi[r] = __fadd_rn(__fmul_rn(ar, tim[r]), __fmul_rn(ai, tr[r]));
         }
+        const int e = j >> 1, cj = j & 1;
+        split2(br[0], br[1], rh[e][2 * cj], rl[e][2 * cj]);
+        split2(br[2], br[3], rh[e][2 * cj + 1], rl[e][2 * cj + 1]);
+        split2(bi[0], bi[1], ih[e][2 * cj], il[e][2 * cj]);
+        split2(bi[2], bi[3], ih[e][2 * cj + 1], il[e][2 * cj + 1]);
+      }
+
+      // ---- stage 2, k-steps 2h and 2h + 1: pr's six terms and pi's in
+      // two groups, pr added while pi's run; the next frame's slice h is
+      // converted while the first k-step's products run
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const uint32_t kb = s_w2 + (2 * h + e) * 256;
+        const uint64_t wrh = desc(kb, 128, sbo2);
+        const uint64_t wrl = desc(kb + G.w2_plane, 128, sbo2);
+        const uint64_t wih = desc(kb + 2 * G.w2_plane, 128, sbo2);
+        const uint64_t wil = desc(kb + 3 * G.w2_plane, 128, sbo2);
+        const uint32_t nih[4] = {ih[e][0] ^ kNeg, ih[e][1] ^ kNeg,
+                                 ih[e][2] ^ kNeg, ih[e][3] ^ kNeg};
+        const uint32_t nil[4] = {il[e][0] ^ kNeg, il[e][1] ^ kNeg,
+                                 il[e][2] ^ kNeg, il[e][3] ^ kNeg};
+        float cr[32], ci[32];
+        wg_fence();
+        // pr = sum w2r br - w2i bi; pi = sum w2i br + w2r bi
+        wgmma_n64_rs<0>(cr, rl[e], wrh);
+        wgmma_n64_rs<1>(cr, rh[e], wrl);
+        wgmma_n64_rs<1>(cr, nil, wih);
+        wgmma_n64_rs<1>(cr, nih, wil);
+        wgmma_n64_rs<1>(cr, rh[e], wrh);
+        wgmma_n64_rs<1>(cr, nih, wih);
+        wg_commit();
+        wgmma_n64_rs<0>(ci, rl[e], wih);
+        wgmma_n64_rs<1>(ci, rh[e], wil);
+        wgmma_n64_rs<1>(ci, il[e], wrh);
+        wgmma_n64_rs<1>(ci, ih[e], wrl);
+        wgmma_n64_rs<1>(ci, rh[e], wih);
+        wgmma_n64_rs<1>(ci, ih[e], wrh);
+        wg_commit();
+        if (e == 0 && more) convert(nxt, nslot, nlo, nhi, h);
+        wg_wait<1>();
+        reg_fence(cr);
+#pragma unroll
+        for (int q = 0; q < 32; ++q) pr[q] = __fadd_rn(pr[q], cr[q]);
+        wg_wait<0>();
+        reg_fence(ci);
+#pragma unroll
+        for (int q = 0; q < 32; ++q) pi[q] = __fadd_rn(pi[q], ci[q]);
+      }
+      if (more) fence_async_smem();
+    }
+
+    // ---- detect, linear channels ----
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int k1 = row0 + wl * 16 + g + 8 * (r >> 1);
+        const int k2 = 8 * j + 2 * t4 + (r & 1);
+        const int kk = k1 + G.n1 * k2;
+        const float a = pr[4 * j + r], b = pi[4 * j + r];
+        if (k1 < G.n1 && k2 < G.n2_out && kk < G.nchan)
+          cur.out[kk] = __fadd_rn(__fmul_rn(a, a), __fmul_rn(b, b));
       }
     }
+    cur = nxt;
   }
 }
 
-// frame f = p * nblk + j -> row (s * npol + p) * ffts + t: stage A's
-// (nseg, npol * ffts, nchan)
-struct SegMajor {
-  int npol, ffts;
-  long long nblk;
-  __device__ __forceinline__ long long operator()(long long f) const {
-    const long long p = f / nblk, j = f - p * nblk;
-    const long long s = j / ffts, t = j - s * ffts;
-    return (s * npol + p) * ffts + t;
-  }
-};
-
-// frame f -> row f: the chain's (npol, nblk, nchan) power planes
-struct PolMajor {
-  __device__ __forceinline__ long long operator()(long long f) const {
-    return f;
-  }
-};
-
-template <class RowOf>
-cudaError_t launch(const Geom& G, const NaturalU8& ld, int npol,
-                   long long nblk, const RowOf& row_of, const void* a1,
-                   const void* tw, const void* b2, void* power,
-                   cudaStream_t st) {
-  const size_t smem = smem_bytes(G);
+// Launch over `max_jobs` jobs at most (the grid: one block per SM, fewer
+// for fewer jobs; split, an even number, two per job); the kernel reads
+// the listed count itself.
+inline cudaError_t launch(const Geom& G, const Jobs& J, long long max_jobs,
+                          const void* w1, const void* tw, const void* w2,
+                          cudaStream_t st) {
+  if (!fits(G)) return cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(
-      dft_detect_kernel<RowOf>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      dft_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, G.smem);
   if (e != cudaSuccess) return e;
   int dev = 0, nsm = 0;
   if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
   if ((e = cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount,
                                   dev)) != cudaSuccess)
     return e;
-  const long long nframes = (long long)npol * nblk;
-  const int grid = (int)(nframes < nsm ? nframes : nsm);
-  dft_detect_kernel<RowOf><<<grid, 32 * G.mt, smem, st>>>(
-      G, ld, npol, nblk, row_of, (const uint4*)a1, (const float4*)tw,
-      (const uint2*)b2, (float*)power);
+  const long long want = G.split ? 2 * max_jobs : max_jobs;
+  int grid = (int)(want < nsm ? want : nsm);
+  if (G.split) grid -= grid % 2;
+  if (grid < 1) return cudaSuccess;
+  dft_tc_kernel<<<grid, G.split ? 128 : 128 * G.nwg, G.smem, st>>>(
+      G, J, (const uint4*)w1, (const float4*)tw, (const uint4*)w2);
   return cudaGetLastError();
 }
 

@@ -15,11 +15,12 @@
 // (nseg, npol * ffts, nchan) f32, stage B's sel_and_dig rows (chanmin % 4
 // realigned) and the (npol, nchan) bandpass.
 //
-//   A: dft_tc::dft_detect_kernel (dft_tc.cuh), one block per SM walking
-//      frames: the bf16 products on the tensor cores (mma.sync m16n8k16,
-//      f32 accumulate), the intermediate in registers.
+//   A: dft_tc_kernel (dft_tc.cuh), one persistent block per SM walking
+//      frames: the bf16 products on the tensor cores (wgmma, f32
+//      accumulate), the intermediate in registers, raw frames brought in
+//      by bulk copies ahead of the products.
 //   B: the same kernel writing the chain's (npol, nblk, nchan) power
-//      planes, then chain.cuh's ema_kernel in rfi_mode 0, whose plain
+//      plane, then chain.cuh's EMA launch in rfi_mode 0, whose plain
 //      stream is stage B's back end: the seed sum * (1/ffts) where bp == 0
 //      (a mean of 0 seeds 1), b' = s p + (1 - s) b, p / b' - 1, pscrunch
 //      sqrt(1/2) (v0 + v1) (npol 1: none), tscrunch sum * 1/sqrt(nscrunch),
@@ -28,17 +29,11 @@
 // What bounds it: operations.  Per data-second (20480 frames of 12500
 // samples) the split-plane DFT is ~0.59 TFLOP of bf16 products as the TPU
 // defines it (stage 1: 4 real products of 125 x 100 x 100 per frame;
-// stage 2: 6 of 126 x 125 x 100), 0.6 ms at the card's 989 TFLOP/s; its
-// bytes (256 MB in, 512 MB of power out) take 0.23 ms at 3.35 TB/s.  The
-// same products on the CUDA cores could not beat ~8.8 ms (67 TFLOP/s), so
-// the design puts them on the tensor cores: W1 and W2 ride in shared
-// memory in fragment order, a frame is one bf16 tile in shared memory,
-// stage 1's accumulator fragments become stage 2's operand fragments in
-// registers, and the next frame's bytes are fetched into registers while
-// the current one computes.  mma.sync, not wgmma; no TMA, no pipelining
-// beyond that prefetch: later work.  B adds the EMA's sequential walk over
-// 10240 spectra (latency-bound, one thread per channel) and a round trip
-// of the 512 MB power planes through device memory.
+// stage 2: 6 of 126 x 125 x 100), 0.6 ms at the card's 989 TFLOP/s (0.82
+// TFLOP as the tensor cores pad it); its bytes (256 MB in, 512 MB of
+// power out) take 0.23 ms at 3.35 TB/s.  dft_tc.cuh has the design.  B
+// adds the EMA's walk over 10240 spectra and a round trip of the 512 MB
+// power plane through device memory.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -47,9 +42,9 @@
 #include "dft_tc.cuh"
 
 // ip (int64): npol, nsamp, nfft, n1, n2, seg_per_sec.  raw u8 (npol,
-// nsamp); a1 / tw / b2 the fragment-ordered planes of
-// ops/megakernel.tc_planes; power f32 (nseg, npol * ffts, nchan).
-// Returns cudaGetLastError() after the launch.
+// nsamp); a1 / tw / b2 the constants of ops/megakernel.tc_planes; power
+// f32 (nseg, npol * ffts, nchan).  Returns cudaGetLastError() after the
+// launch.
 extern "C" int vf_dft_detect_power(const long long* ip, const void* raw,
                                    const void* a1, const void* tw,
                                    const void* b2, void* power,
@@ -57,36 +52,40 @@ extern "C" int vf_dft_detect_power(const long long* ip, const void* raw,
   const int npol = (int)ip[0], nfft = (int)ip[2], nseg = (int)ip[5];
   const long long nsamp = ip[1];
   const dft_tc::Geom G = dft_tc::make_geom(nfft, (int)ip[3], (int)ip[4]);
-  if (!dft_tc::fits(G, nfft) || nsamp % 4) return (int)cudaErrorInvalidValue;
+  if (!dft_tc::fits(G)) return (int)cudaErrorInvalidValue;
   const int ffts = (int)(nsamp / nseg / nfft);
   const long long nblk = (long long)nseg * ffts;
-  return (int)dft_tc::launch(
-      G, NaturalU8{(const uint8_t*)raw, nsamp, nfft}, npol, nblk,
-      dft_tc::SegMajor{npol, ffts, nblk}, a1, tw, b2, power,
-      (cudaStream_t)stream);
+  const dft_tc::Jobs J{NaturalU8{(const uint8_t*)raw, nsamp, nfft},
+                       npol, nblk, ffts, nullptr, nullptr, nullptr, 0, 1,
+                       (float*)power, nullptr};
+  return (int)dft_tc::launch(G, J, npol * nblk, a1, tw, b2,
+                             (cudaStream_t)stream);
 }
 
 // ip (int64) and fp (f32): chain.cuh's chain_params with rfi_mode 0.
 // raw u8 (npol, nsamp); a1 / tw / b2 as above; bp_in / bp_out f32 (npol,
-// nchan); power f32 scratch (npol, nblk, nchan); dagcnt i32 (nseg) zeroed
-// and dag_frac f32 (nseg) scratch of the EMA launch; packed u8 (nseg *
-// nout, nbytes).  Returns cudaGetLastError() after the launches.
+// nchan); power f32 scratch (npol, nblk, nchan); dagcnt i32 (nseg)
+// zeroed, seeds f32 (2 npol nseg nchan + npol nseg) and dag_frac f32
+// (nseg) scratch of the EMA launch; packed u8 (nseg * nout, nbytes).
+// Returns cudaGetLastError() after the launches.
 extern "C" int vf_chain_second_plain(const long long* ip, const float* fp,
                                      const void* raw, const void* a1,
                                      const void* tw, const void* b2,
                                      const void* bp_in, void* power,
-                                     void* dagcnt, void* dag_frac,
+                                     void* dagcnt, void* seeds,
+                                     void* dag_frac,
                                      void* packed, void* bp_out,
                                      void* stream) {
   const ChainParams P = chain_params(ip, fp);
   const dft_tc::Geom G = dft_tc::make_geom(P.nfft, P.n1, P.n2);
-  if (P.rfi_mode != 0 || !dft_tc::fits(G, P.nfft) || P.nsamp % 4)
-    return (int)cudaErrorInvalidValue;
+  if (P.rfi_mode != 0 || !dft_tc::fits(G)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t e = dft_tc::launch(
-      G, NaturalU8{(const uint8_t*)raw, P.nsamp, P.nfft}, P.npol, P.nblk,
-      dft_tc::PolMajor{}, a1, tw, b2, power, st);
+  const dft_tc::Jobs J{NaturalU8{(const uint8_t*)raw, P.nsamp, P.nfft},
+                       P.npol, P.nblk, 0, nullptr, nullptr, nullptr, 0, 1,
+                       (float*)power, nullptr};
+  cudaError_t e = dft_tc::launch(G, J, (long long)P.npol * P.nblk, a1, tw,
+                                 b2, st);
   if (e != cudaSuccess) return (int)e;
-  return (int)launch_ema(P, power, nullptr, bp_in, bp_out, packed, nullptr,
-                         dagcnt, dag_frac, st);
+  return (int)launch_ema(P, power, nullptr, nullptr, nullptr, seeds, bp_in,
+                         bp_out, packed, nullptr, dagcnt, dag_frac, st);
 }

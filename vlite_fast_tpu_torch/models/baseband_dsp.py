@@ -31,7 +31,9 @@ kernel wherever it takes the geometry, so the CPU tests go through its
 entry point too.  Knobs that only pick a TPU implementation inside a
 program (ema_impl, rfi_impl, front_layout, batch_streams,
 dft_exact_input, dft_stage2, dft_precision) are ignored: every ema_impl
-and rfi_impl gives the sequential EMA's results, and the DFT is f32.
+and rfi_impl gives the sequential EMA's results; the DFT is f32, except
+in the v2 chain kernel, which runs the TPU kernels' split-plane bf16 DFT
+on the tensor cores (held to the f32 plain version at the chain bar).
 """
 
 from __future__ import annotations
@@ -122,10 +124,14 @@ _PRETRANSPOSE = {"megakernel": "xla", "megakernel3": "pallas",
 
 def chain_kernel_takes(cfg: PipelineConfig, layout: str = "natural") -> bool:
     """Configs the port's chain kernels (ops/megakernel) accept: the
-    injection-free, 2-bit, single-output-pol chain with the CT DFT, one
-    frame and its two stage-1 planes in one block's shared memory (227 KB
-    on Hopper); the CT-major layout ('ct') also needs both CT factors
-    within its 128 x 128 tile."""
+    injection-free, 2-bit, single-output-pol chain with the CT DFT.  The
+    natural layout ('natural', chain_second_v2) runs it on the tensor-core
+    DFT, which takes CT splits with n1 <= 128, n2 <= 128, n2_out <= 64
+    whose constant planes, frame tile and ring fit a block's shared memory
+    (ops/megakernel.tc_fits); the CT-major layout ('ct') needs both CT
+    factors within its 128 x 128 tile and one frame and its two stage-1
+    planes in one block's shared memory (227 KB on Hopper)."""
+    from vlite_fast_tpu_torch.ops import megakernel as mk
     if cfg.inject_frb or cfg.channelizer != "matmul" or cfg.nbit != 2:
         return False
     if cfg.npol_out != 1 or cfg.npol_in not in (1, 2) or cfg.do_histo:
@@ -134,9 +140,9 @@ def chain_kernel_takes(cfg: PipelineConfig, layout: str = "natural") -> bool:
         n1, n2 = ch_ops._ct_split(cfg.nfft)
     except ValueError:
         return False
-    if layout == "ct" and (n1 > 128 or n2 > 128):
-        return False
-    return 3 * 4 * cfg.nfft <= 232448
+    if layout == "natural":
+        return mk.tc_fits(cfg.nfft)
+    return n1 <= 128 and n2 <= 128 and 3 * 4 * cfg.nfft <= 232448
 
 
 def megakernel_supported(cfg: PipelineConfig) -> bool:

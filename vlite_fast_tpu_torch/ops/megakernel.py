@@ -4,7 +4,8 @@ Replaces six TPU kernels of vlite_fast_tpu/ops/megakernel.py.  Four are
 on the injection-free twin:
 
   chain_second_v2      (body _full_kernel_v2) on the raw second:
-                       csrc/chain.cu, layout 0;
+                       csrc/chain.cu, layout 0, on the tensor-core DFT of
+                       csrc/dft_tc.cuh;
   pallas_pretranspose  (body _pretranspose_kernel) the Cooley-Tukey-major
                        relayout, u8 bytes or bf16 converted voltages:
                        csrc/pretranspose.cu;
@@ -26,14 +27,17 @@ them; no configuration does):
                        EMA launch in rfi_mode 0.
 
 The three chains compute one function (a front, a Cooley-Tukey DFT, an
-EMA/back-end launch on the current stream).  On the card they are bound
-by the DFT's f32 FMA work (~0.36 TFLOP per data-second, on CUDA cores)
-and by the EMA's walk through 10240 spectra in order; chain.cu keeps
-each frame and its stage-1 planes in shared memory, chain_v4.cu passes a
-complex intermediate between two batched passes.  The staged chain
-keeps the TPU kernels' arithmetic (bf16 hi/lo operand planes, f32 sums)
-and is bound by its bf16 products, which run on the tensor cores.  The
-source headers have the details.
+EMA/back-end launch on the current stream).  chain_second_v2 runs its DFT
+on the tensor cores in the TPU kernels' split-plane bf16 arithmetic
+(wgmma, csrc/dft_tc.cuh, the same kernel as the staged chain's), the
+kurtosis stream's own transform only in the blocks the front flagged in
+part; chain_second and chain_second_v4 keep f32 DFTs on the CUDA cores
+(~0.36 TFLOP of FMA per data-second): chain.cu keeps each frame and its
+stage-1 planes in shared memory, chain_v4.cu passes a complex
+intermediate between two batched passes.  All three end in the same
+back end: a parallel pass for the EMA's per-segment seeds, then one
+thread per (stream, pol, channel) walking the spectra.  The source
+headers have the details.
 
 They work in the natural layout: raw (npol, nsamp) u8 in, linear
 channels out.  The chains take the bandpass (2, npol, nchan) [plain;
@@ -207,26 +211,59 @@ def _check_chain_args(name: str, raw: torch.Tensor, bp: torch.Tensor,
                          f"{cfg.nchan}) on {raw.device}")
 
 
+def _chain_params(cfg: PipelineConfig, layout: int) -> tuple:
+    """chain.cuh's chain_params (int64 and f32 arrays) for cfg, then the
+    input layout."""
+    n1, n2 = ch_ops._ct_split(cfg.nfft)
+    s, oms = norm_ops.ema_constants(cfg.bp_scale)
+    ivals = [cfg.npol_in, cfg.sample_rate, cfg.nfft, n1, n2, cfg.nkurto,
+             cfg.seg_per_sec, cfg.nscrunch, cfg.rfi_mode, cfg.chanmin,
+             cfg.chanmax, layout]
+    fvals = [s, oms, cfg.dag_thresh, cfg.dag_fb_thresh, C.DAG_INF,
+             C.BP_CLIP_RATIO, C.BP_CLIP_VALUE, cfg.min_weight,
+             norm_ops._SQRT_HALF, norm_ops.inv_sqrt(cfg.nscrunch),
+             *C.QUANT2_THRESH, *kur_ops.dag_consts(cfg.nkurto),
+             *kur_ops.dag_consts(cfg.nfft)]
+    return ivals, fvals
+
+
+def _ptr(t) -> ctypes.c_void_p:
+    return ctypes.c_void_p(None if t is None else t.data_ptr())
+
+
+def _ema_seeds(npol: int, nseg: int, nchan: int, device) -> torch.Tensor:
+    """Scratch of the chain's EMA launch (chain.cuh's launch_ema): f32
+    (2, npol, nseg, nchan), the per-segment seeds and then the bandpass
+    each segment starts from, then the weighted stream's counts of
+    spectra of weight > 0 (npol, nseg) as i32."""
+    return torch.empty((2 * npol * nseg * nchan + npol * nseg,),
+                       dtype=torch.float32, device=device)
+
+
 def _launch_chain(lib_name: str, fn_name: str, inp: torch.Tensor,
                   layout: int, bp: torch.Tensor, cfg: PipelineConfig,
                   chunk: int = 0):
     """Allocate the outputs and scratch and launch csrc/<lib_name>.cu's
-    `fn_name` on `inp` in input layout `layout` (0 natural u8, 1 CT-major
-    u8, 2 CT-major bf16); chunk > 0 adds chain_v4's intermediate for
-    `chunk` segments per pass."""
+    `fn_name` on `inp` in input layout `layout` (0 natural u8 on the
+    tensor-core DFT, 1 CT-major u8, 2 CT-major bf16); chunk > 0 adds
+    chain_v4's intermediate for `chunk` segments per pass."""
     lib = _build.load(lib_name)
     fn = getattr(lib, fn_name)
-    fn.argtypes = [ctypes.c_void_p] * (17 if chunk else 16)
-    fn.restype = ctypes.c_int
     dev = bp.device
     npol = cfg.npol_in
     n1, n2 = ch_ops._ct_split(cfg.nfft)
-    w1, tw, w2 = _tables(cfg.nfft, dev)
     nrows = cfg.seg_per_sec * cfg.out_samps_per_seg
     nbytes = cfg.nchanout // 4
     nblk = cfg.seg_per_sec * cfg.ffts_per_seg
-    nstreams = 2 if cfg.rfi_mode == 2 else 1
-    power = torch.empty((nstreams, npol, nblk, cfg.nchan),
+    if layout == 0:
+        # the plain plane, and with the front the kurtosis plane of the
+        # blocks flagged in part
+        tables = tc_planes(cfg.nfft, dev)
+        nplanes = 1 if cfg.rfi_mode == 0 else 2
+    else:
+        tables = _tables(cfg.nfft, dev)
+        nplanes = 2 if cfg.rfi_mode == 2 else 1
+    power = torch.empty((nplanes, npol, nblk, cfg.nchan),
                         dtype=torch.float32, device=dev)
     keep = torch.empty((max(1, nblk * cfg.windows_per_fft),),
                        dtype=torch.uint8, device=dev)
@@ -238,26 +275,25 @@ def _launch_chain(lib_name: str, fn_name: str, inp: torch.Tensor,
     dag_frac = torch.empty((cfg.seg_per_sec,), dtype=torch.float32,
                            device=dev)
     bp_out = bp.clone()
-    s, oms = norm_ops.ema_constants(cfg.bp_scale)
-    ivals = [npol, cfg.sample_rate, cfg.nfft, n1, n2, cfg.nkurto,
-             cfg.seg_per_sec, cfg.nscrunch, cfg.rfi_mode, cfg.chanmin,
-             cfg.chanmax, layout]
-    scratch = []
+    ivals, fvals = _chain_params(cfg, layout)
     if chunk:
         ivals.append(chunk)
-        scratch.append(torch.empty(
-            (nstreams, chunk * npol * cfg.ffts_per_seg, n1, n2, 2),
-            dtype=torch.float32, device=dev))
+        scratch = [torch.empty(
+            (nplanes, chunk * npol * cfg.ffts_per_seg, n1, n2, 2),
+            dtype=torch.float32, device=dev)]
+    else:
+        # the front's list of blocks flagged in part: flags, ids, count
+        scratch = [torch.empty((nblk,), dtype=torch.uint8, device=dev),
+                   torch.empty((nblk,), dtype=torch.int32, device=dev),
+                   torch.zeros((1,), dtype=torch.int32, device=dev)]
     ip = (ctypes.c_longlong * len(ivals))(*ivals)
-    fvals = [s, oms, cfg.dag_thresh, cfg.dag_fb_thresh, C.DAG_INF,
-             C.BP_CLIP_RATIO, C.BP_CLIP_VALUE, cfg.min_weight,
-             norm_ops._SQRT_HALF, norm_ops.inv_sqrt(cfg.nscrunch),
-             *C.QUANT2_THRESH, *kur_ops.dag_consts(cfg.nkurto),
-             *kur_ops.dag_consts(cfg.nfft)]
     fp = (ctypes.c_float * len(fvals))(*fvals)
-    ptrs = [ctypes.c_void_p(t.data_ptr()) for t in
-            (inp, w1, tw, w2, bp, power, keep, dagcnt, *scratch, packed,
-             packed_kur, weights, dag_frac, bp_out)]
+    seeds = _ema_seeds(npol, cfg.seg_per_sec, cfg.nchan, dev)
+    ptrs = [_ptr(t) for t in (inp, *tables, bp, power, keep, dagcnt, seeds,
+                              *scratch, packed, packed_kur, weights,
+                              dag_frac, bp_out)]
+    fn.argtypes = [ctypes.c_void_p] * (len(ptrs) + 3)
+    fn.restype = ctypes.c_int
     rc = fn(ctypes.cast(ip, ctypes.c_void_p), ctypes.cast(fp, ctypes.c_void_p),
             *ptrs, ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     _build.check(rc, fn_name, lib)
@@ -434,55 +470,93 @@ def dft_detect_oracle(raw: torch.Tensor, nfft: int, npol: int,
     return out
 
 
+class TcGeometry(NamedTuple):
+    """The tensor-core DFT's shapes for nfft = n1 * n2 (csrc/dft_tc.cuh's
+    Geom): consumer warpgroups (64 rows k1 each), the stage-1 depth in
+    8-wide core blocks, the W1 rows stored in 8-row groups, the stage-1
+    passes of 32 m2 columns, the W2 depth stored in 8-wide core blocks
+    (all 32 npass columns that stage 2 walks),
+    whether two blocks share each frame (one warpgroup's 64 rows of W1
+    each, where all of W1 does not fit) and the block's shared memory in
+    bytes."""
+
+    n1: int
+    n2: int
+    n2_out: int
+    nwg: int
+    kb1: int
+    rg1: int
+    npass: int
+    kb2: int
+    split: bool
+    smem: int
+
+
+TC_SMEM_MAX = 232448     # shared memory a block may use on Hopper
+TC_SLOTS = 3             # raw frames in flight (dft_tc.cuh's kSlots)
+
+
+def tc_geometry(nfft: int) -> TcGeometry:
+    n1, n2 = ch_ops._ct_split(nfft)
+    kb1, rg1, npass = 2 * -(-n1 // 16), -(-n1 // 8), -(-n2 // 32)
+    kb2, nwg = 4 * npass, -(-n1 // 64)
+    slot = -(-nfft // 16) * 16 + 16
+    for split in (False, True):
+        smem = (4 * (8 if split else rg1) * kb1 + 4 * 8 * kb2
+                + 4 * npass * kb1) * 128 + TC_SLOTS * slot + 2 * TC_SLOTS * 8
+        if smem <= TC_SMEM_MAX or nwg < 2:
+            break
+    return TcGeometry(n1, n2, nfft // 2 // n1 + 1, nwg, kb1, rg1, npass, kb2,
+                      split, smem)
+
+
+def tc_fits(nfft: int) -> bool:
+    """Whether the tensor-core DFT takes nfft's CT split: n1 <= 128 (two
+    warpgroups), n2 <= 128, n2_out <= 64 (one m64n64 stage-2 product) and
+    its planes, frame tile and ring within a block's shared memory."""
+    g = tc_geometry(nfft)
+    return 2 <= g.n1 <= 128 and g.n2 <= 128 and g.n2_out <= 64 \
+        and g.smem <= TC_SMEM_MAX
+
+
 def tc_planes(nfft: int, device) -> tuple:
-    """The split planes in the tensor-core fragment order csrc/dft_tc.cuh
-    reads (mma.sync m16n8k16; lane = 4 g + t): a1 int32 (4, mt, ks1, 32,
-    4) of W1 as the A operand, tw f32 (2, mt, 2 ks2, 32, 4) in stage 1's
-    accumulator order, b2 int32 (4, ks2, nt2, 32, 2) of W2 as the B
-    operand, every padded entry 0."""
+    """The split planes in the layouts csrc/dft_tc.cuh reads: w1 bf16 (4,
+    rg1, kb1, 8, 8) and w2 bf16 (4, 8, kb2, 8, 8) as wgmma's
+    no-swizzle core matrices (K-major: [8-row group, 8-wide K block, row,
+    element]; W1 [k1, m1] as stage 1's A operand, W2 as stage 2's B
+    operand stored [k2, m2]; planes hi_r, lo_r, hi_i, lo_i), and tw f32
+    (2, 4 nwg, 4 npass, 32, 4) in the accumulator order of wgmma
+    m64nNk16 (per warp of 16 rows and n8 chunk: rows g, g + 8, columns
+    2t, 2t + 1, lane = 4 g + t), every padded entry 0."""
     key = ("tc", nfft, str(device))
     if key in _SPLIT:
         return _SPLIT[key]
-    n1, n2 = ch_ops._ct_split(nfft)
-    n2o = nfft // 2 // n1 + 1
-    mt, ks2, nt2 = -(-n1 // 16), -(-n2 // 16), -(-n2o // 8)
+    geo = tc_geometry(nfft)
+    n1, n2 = geo.n1, geo.n2
     sp = split_planes(nfft, "cpu")
 
-    def bits(m, rows, cols):
-        """bf16 bit patterns of m zero-padded to (rows, cols), uint32."""
-        out = np.zeros((rows, cols), np.uint32)
-        b = m.to(torch.bfloat16).view(torch.int16).numpy().view(np.uint16)
-        out[:m.shape[0], :m.shape[1]] = b
-        return out
+    def cores(m, ngrp, nblk):
+        out = torch.zeros((8 * ngrp, 8 * nblk), dtype=torch.bfloat16)
+        out[:m.shape[0], :m.shape[1]] = m.to(torch.bfloat16)
+        return out.reshape(ngrp, 8, nblk, 8).permute(0, 2, 1, 3)
 
-    g = (np.arange(32) // 4)[None, None, :]
-    t = (np.arange(32) % 4)[None, None, :]
-    i = np.arange(mt)[:, None, None]
-    k = np.arange(mt)[None, :, None]
-    a1 = np.empty((4, mt, mt, 32, 4), np.uint32)
-    for pi, m in enumerate((sp.w1r_hi, sp.w1r_lo, sp.w1i_hi, sp.w1i_lo)):
-        w = bits(m, 16 * mt, 16 * mt)
-        r0, c0 = 16 * i + g, 16 * k + 2 * t
-        pair = lambda r, c: w[r, c] | (w[r, c + 1] << 16)
-        a1[pi] = np.stack([pair(r0, c0), pair(r0 + 8, c0), pair(r0, c0 + 8),
-                           pair(r0 + 8, c0 + 8)], axis=-1)
-    twp = np.zeros((2, 16 * mt, 16 * ks2), np.float32)
+    w1 = torch.stack([cores(m, geo.rg1, geo.kb1) for m in
+                      (sp.w1r_hi, sp.w1r_lo, sp.w1i_hi, sp.w1i_lo)])
+    w2 = torch.stack([cores(m.T, 8, geo.kb2) for m in
+                      (sp.w2r_hi, sp.w2r_lo, sp.w2i_hi, sp.w2i_lo)])
+    twp = np.zeros((2, 64 * geo.nwg, 32 * geo.npass), np.float32)
     twp[0, :n1, :n2] = sp.twr.numpy()
     twp[1, :n1, :n2] = sp.twi.numpy()
-    j = np.arange(2 * ks2)[None, :, None]
+    i = np.arange(4 * geo.nwg)[:, None, None]
+    j = np.arange(4 * geo.npass)[None, :, None]
+    g = (np.arange(32) // 4)[None, None, :]
+    t = (np.arange(32) % 4)[None, None, :]
     r0, c0 = 16 * i + g, 8 * j + 2 * t
     tw = np.stack([twp[:, r0, c0], twp[:, r0, c0 + 1], twp[:, r0 + 8, c0],
                    twp[:, r0 + 8, c0 + 1]], axis=-1)
-    b2 = np.empty((4, ks2, nt2, 32, 2), np.uint32)
-    ks = np.arange(ks2)[:, None, None]
-    n = np.arange(nt2)[None, :, None]
-    for pi, m in enumerate((sp.w2r_hi, sp.w2r_lo, sp.w2i_hi, sp.w2i_lo)):
-        w = bits(m, 16 * ks2, 8 * nt2)
-        r, c = 16 * ks + 2 * t, 8 * n + g
-        pair = lambda r, c: w[r, c] | (w[r + 1, c] << 16)
-        b2[pi] = np.stack([pair(r, c), pair(r + 8, c)], axis=-1)
-    planes = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
-                   for a in (a1.view(np.int32), tw, b2.view(np.int32)))
+    planes = (w1.contiguous().to(device),
+              torch.from_numpy(np.ascontiguousarray(tw)).to(device),
+              w2.contiguous().to(device))
     _SPLIT[key] = planes
     return planes
 
@@ -491,18 +565,16 @@ def _check_stage_args(name: str, raw: torch.Tensor, nfft: int, npol: int,
                       seg_per_sec: int) -> None:
     if raw.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {raw.device}")
-    n1, n2 = ch_ops._ct_split(nfft)
-    if n1 > 128 or nfft // 2 // n1 + 1 > 64 or nfft % 4 \
-            or nfft // 4 > 16 * 32 * -(-n1 // 16):
-        raise ValueError(f"{name}: the CUDA kernel takes CT splits n1 <= 128 "
-                         f"with n2_out <= 64 and nfft % 4 == 0; got nfft "
-                         f"{nfft} = {n1} x {n2}")
+    if not tc_fits(nfft):
+        raise ValueError(f"{name}: the CUDA kernel takes CT splits n1 <= 128, "
+                         f"n2 <= 128, n2_out <= 64 within a block's shared "
+                         f"memory (tc_fits); got nfft {nfft} = "
+                         f"{' x '.join(map(str, ch_ops._ct_split(nfft)))}")
     nsamp = raw.shape[-1]
     if raw.dtype != torch.uint8 or raw.dim() != 2 or raw.shape[0] != npol \
-            or nsamp % (seg_per_sec * nfft) or nsamp % 4 \
-            or not raw.is_contiguous() or raw.data_ptr() % 16:
-        raise ValueError(f"{name}: raw must be contiguous, 16-byte aligned "
-                         f"uint8 ({npol}, k * {seg_per_sec * nfft})")
+            or nsamp % (seg_per_sec * nfft) or not raw.is_contiguous():
+        raise ValueError(f"{name}: raw must be contiguous uint8 ({npol}, k * "
+                         f"{seg_per_sec * nfft})")
 
 
 def dft_detect_power(raw: torch.Tensor, nfft: int, npol: int,
@@ -625,11 +697,13 @@ def chain_second_plain(raw: torch.Tensor, bp: torch.Tensor, nfft: int,
     fp = (ctypes.c_float * len(fvals))(*fvals)
     lib = _build.load("stage_ab")
     fn = lib.vf_chain_second_plain
-    fn.argtypes = [ctypes.c_void_p] * 13
+    fn.argtypes = [ctypes.c_void_p] * 14
     fn.restype = ctypes.c_int
+    seeds = _ema_seeds(npol, seg_per_sec, nchan, dev)
     rc = fn(ctypes.cast(ip, ctypes.c_void_p), ctypes.cast(fp, ctypes.c_void_p),
             *(ctypes.c_void_p(t.data_ptr()) for t in
-              (raw, a1, tw, b2, bp, power, dagcnt, dag_frac, packed, bp_out)),
+              (raw, a1, tw, b2, bp, power, dagcnt, seeds, dag_frac, packed,
+               bp_out)),
             ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     _build.check(rc, "vf_chain_second_plain", lib)
     LAUNCHES["chain_second_plain"] += 1
