@@ -13,18 +13,27 @@ Phases, each printing a line:
      rfi_mode 2) of Gaussian 8-bit noise with a sinusoidal burst in one
      pol; its launches' device times from a profiler trace and the share
      of kurtosis frames it transformed;
-  3. the dedispersion kernel (ops/dedisperse_pallas.dedisperse_pallas)
-     against its plain version on one production gulp with the
-     tolerance-grid plan;
+  3. the dedispersion kernel (csrc/dedisperse.cu) against its plain
+     version on one production gulp with the tolerance-grid plan, through
+     both entries: ops/dedisperse_pallas.dedisperse_pallas on an f32
+     filterbank and dedisperse_pallas_packed on packed 2-bit rows (against
+     dequantize, then the plain version);
   4. the main path: StationPipeline over 40 s of one antenna
-     (PipelineConfig(inject_frb=True), SearchConfig()), the injected FRB
-     recovered, every twin second through the chain kernel, every armed
-     second through the RFI front and both EMA kernels, and every gulp
-     through the dedispersion kernel (launch counts); peak device memory;
+     (PipelineConfig(inject_frb=True), SearchConfig()), prewarmed, the
+     injected FRB recovered, every twin second through the chain kernel,
+     every armed second through the RFI front and both EMA kernels, and
+     every gulp through the dedispersion kernel's packed entry (launch
+     counts); the first armed second within 2x of the second, the 'auto'
+     twin's median span per second (CUDA events) within 1.3x of phase 2's
+     device time per data-second; peak device memory; then one gulp's
+     device time by pass (profiler), and the armed program (not armed)
+     against the twin on 10 seconds of the smoke's noise, one seed each,
+     both carrying their bandpass: 2-bit agreement >= 0.9999 each;
   5. the RFI front kernel (ops/rfi_pallas.rfi_front) against its plain
      version on one full-geometry second with the burst;
   6. both EMA kernels (ops/pallas_kernels) against their plain versions
-     on a full second's (2, 10240, 6251) power block, time_tile 32;
+     on a full second's (2, 10240, 6251) power block, time_tile 32 (the
+     weighted one bit-equal);
   7. one armed full-geometry second and the next (PipelineConfig(
      inject_frb=True), armed at the first) through process_second, the
      three kernels, against process_second_plain on torch ops;
@@ -59,11 +68,17 @@ Phases, each printing a line:
      kernel (allclose on every output); then its path, the JAX package's
      benchmarks/bench_ddp_fold_tpu.py A/B on the linear 1024-trial grid,
      both kernels timed;
+ 14. the tile-transpose microbenchmark (benchmarks/transpose_prims:
+     csrc/tile_bench.cu, the JAX package's
+     benchmarks/bench_transpose_prims_tpu.py): its path, the script's
+     three modes at its shapes (320 steps x 128 tiles), each equal to its
+     plain version and timed;
 then the run's wall time, one JSON line of per-kernel results (each with
 its time, its plain version's, its bound from this run's shapes, the
 library call's time where one PyTorch call computes the function, and
-its launches on its path: [4] and [10] for kernels 1-8, [11]-[13] for
-the staged chain and the roll+select engine), the card's name and power
+its launches on its path: [4] and [10] for kernels 1-8, [11]-[14] for
+the staged chain, the roll+select engine and tile_bench), the card's name
+and power
 limit, and last
 {"ok": true, "device": {...}}.  Any failure exits non-zero before that.
 Imports nothing of jax or of the JAX package (checked at the end).  Data
@@ -343,37 +358,65 @@ def phase_dedisperse(dev) -> dict:
     from vlite_fast_tpu_torch.models import search
     from vlite_fast_tpu_torch.ops import dedisperse as dd
     from vlite_fast_tpu_torch.ops import dedisperse_pallas as ddp
+    from vlite_fast_tpu_torch.ops import quantize as q
     cfg, scfg = PipelineConfig(), SearchConfig()
     eng = search.SinglePulseSearch(scfg, cfg.tsamp, cfg.freqs_mhz(),
                                    nsub=128, nbatch=128, device=dev)
     plan = eng.plan
     full = scfg.gulp_samps + eng.overlap
     ntime_out = full - plan.max_delay
+    nchan = cfg.nchanout
     rng = np.random.default_rng(11)
     fb = torch.from_numpy(rng.standard_normal(
-        (full, cfg.nchanout)).astype(np.float32)).to(dev)
+        (full, nchan)).astype(np.float32)).to(dev)
     got = ddp.dedisperse_pallas(fb, plan, ntime_out)
     want, plain_ms = timed_wall(lambda: dd.dedisperse(fb, plan, ntime_out))
     err = float((got - want).abs().max())
     check(torch.allclose(got, want, rtol=1e-5, atol=1e-3),
-          f"dedispersion kernel differs from plain: max abs {err}")
+          f"dedispersion kernel (f32 entry) differs from plain: max abs {err}")
+    del got, want
+    # the gulp's own input: packed 2-bit rows, as the chain writes them
+    packed = torch.from_numpy(rng.integers(
+        0, 256, (full, nchan // 4), dtype=np.uint8)).to(dev)
+    got = ddp.dedisperse_pallas_packed(packed, 2, nchan, plan, ntime_out)
+    want, plain_packed_ms = timed_wall(
+        lambda: ddp.dedisperse_packed_plain(packed, 2, nchan, plan,
+                                            ntime_out))
+    err_packed = float((got - want).abs().max())
+    check(torch.allclose(got, want, rtol=1e-5, atol=1e-3),
+          f"dedispersion kernel (packed entry) differs from dequantize + "
+          f"plain: max abs {err_packed}")
+    del got, want
     ms = cuda_ms(lambda: ddp.dedisperse_pallas(fb, plan, ntime_out), 3)
+    ms_packed = cuda_ms(lambda: ddp.dedisperse_pallas_packed(
+        packed, 2, nchan, plan, ntime_out), 3)
+    kt = kernel_times(lambda: ddp.dedisperse_pallas_packed(
+        packed, 2, nchan, plan, ntime_out))
+    b = dedisp_bound(packed, plan, ntime_out)
+    b_f32 = dedisp_bound(fb, plan, ntime_out)
     ndm = len(plan.dms)
     log(f"[3] dedispersion kernel vs plain, production gulp ({full} x "
-        f"{cfg.nchanout}, {ndm} tol-grid trials, nsub {plan.nsub}, "
-        f"per_batch {ndm // plan.rel_delays.shape[0]}): max abs diff "
-        f"{err:.3e} (allclose rtol 1e-5 atol 1e-3); kernel {ms:.2f} ms "
-        f"(CUDA events, 3 reps), plain {plain_ms:.0f} ms (wall)")
+        f"{nchan}, {ndm} tol-grid trials, nsub {plan.nsub}, per_batch "
+        f"{ndm // plan.rel_delays.shape[0]}, sub_spread {plan.sub_spread}): "
+        f"max abs diff f32 entry {err:.3e}, packed entry {err_packed:.3e} "
+        f"(allclose rtol 1e-5 atol 1e-3); kernel {ms_packed:.2f} ms packed "
+        f"(stage1_kernel {pick(kt, 'stage1_kernel')}, stage2_kernel "
+        f"{pick(kt, 'stage2_kernel')}, profiler), {ms:.2f} ms f32 (CUDA "
+        f"events, 3 reps); bound {b['bound_ms']:.3f} ms ({b['bound_by']}); "
+        f"plain {plain_packed_ms:.0f} / {plain_ms:.0f} ms (wall)")
     return {"name": "dedisperse_pallas", "route": "cuda",
             "source": "vlite_fast_tpu_torch/csrc/dedisperse.cu",
             "replaces": "vlite_fast_tpu/ops/dedisperse_pallas.py:333",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "library_ms": None, **dedisp_bound(fb, plan, ntime_out)}
+            "max_abs_err": max(err, err_packed), "ms": ms_packed,
+            "plain_ms": plain_packed_ms, "library_ms": None, **b,
+            "ms_f32_entry": ms, "plain_ms_f32_entry": plain_ms,
+            "bound_ms_f32_entry": b_f32["bound_ms"],
+            "kernel_ms": {k[:60]: v for k, v in kt.items()}}
 
 
 def dedisp_bound(fb, plan, ntime_out) -> dict:
-    """The two-stage shift-and-sum's bound: the filterbank, the plan's
-    tables and the DM-time plane once each; one add per stage-1 term
+    """The two-stage shift-and-sum's bound: the input (an f32 filterbank or
+    packed rows), the plan's tables and the DM-time plane once each; one add per stage-1 term
     (nbatch x nchan x (ntime_out + max_sub_delay)) and per stage-2 term
     (ndm x nsub x ntime_out)."""
     nbatch, nchan = plan.rel_delays.shape
@@ -496,21 +539,26 @@ def phase_ct_chains(dev, raws, v2_gots, wants, plain_ms) -> list:
 
 
 def _counts() -> dict:
+    from vlite_fast_tpu_torch.benchmarks import transpose_prims as tp
     from vlite_fast_tpu_torch.ops import dedisperse_pallas as ddp
     from vlite_fast_tpu_torch.ops import megakernel as mk
     from vlite_fast_tpu_torch.ops import pallas_kernels as pk
     from vlite_fast_tpu_torch.ops import rfi_pallas
     return {**mk.LAUNCHES, "dedisperse_pallas": ddp.LAUNCHES,
+            "dedisperse_pallas_packed": ddp.PACKED_LAUNCHES,
             "dedisperse_pallas_rollsel": ddp.ROLLSEL_LAUNCHES,
-            "rfi_front": rfi_pallas.LAUNCHES, **pk.LAUNCHES}
+            "rfi_front": rfi_pallas.LAUNCHES, **pk.LAUNCHES,
+            "tile_bench": tp.LAUNCHES}
 
 
 def _zero_counts() -> None:
+    from vlite_fast_tpu_torch.benchmarks import transpose_prims as tp
     from vlite_fast_tpu_torch.ops import dedisperse_pallas as ddp
     from vlite_fast_tpu_torch.ops import megakernel as mk
     from vlite_fast_tpu_torch.ops import pallas_kernels as pk
     from vlite_fast_tpu_torch.ops import rfi_pallas
-    ddp.LAUNCHES = ddp.ROLLSEL_LAUNCHES = rfi_pallas.LAUNCHES = 0
+    ddp.LAUNCHES = ddp.PACKED_LAUNCHES = ddp.ROLLSEL_LAUNCHES = 0
+    rfi_pallas.LAUNCHES = tp.LAUNCHES = 0
     for counts in (mk.LAUNCHES, pk.LAUNCHES):
         counts.update(dict.fromkeys(counts, 0))
 
@@ -528,7 +576,9 @@ TWIN_KERNELS = {"auto": ("chain_second_v2",),
 
 
 def phase_main_path(dev, twin: str = "auto", tag: str = "[4]",
-                    n_sec: int = 40) -> dict:
+                    n_sec: int = 40, twin_device_ms: float = None) -> dict:
+    """The main path (twin_device_ms: the twin program's device ms per
+    data-second, from phase 2, to hold the twin's spans against)."""
     from vlite_fast_tpu_torch import PipelineConfig, SearchConfig
     from vlite_fast_tpu_torch.models import baseband_dsp as dsp
     from vlite_fast_tpu_torch.runtime.pipeline import (ObservationDocument,
@@ -545,6 +595,9 @@ def phase_main_path(dev, twin: str = "auto", tag: str = "[4]",
         pipe = StationPipeline(1, cfg, scfg, out_dir=out_dir,
                                keep_ring=False, write_cands=False,
                                device=dev)
+        t_pre = time.perf_counter()
+        pipe.prewarm()                      # set-up: its launches not counted
+        t_pre = time.perf_counter() - t_pre
         od = ObservationDocument(name="SMOKE", start_time=1.7e9)
         torch.cuda.reset_peak_memory_stats(dev)
         _zero_counts()
@@ -583,8 +636,17 @@ def phase_main_path(dev, twin: str = "auto", tag: str = "[4]",
         f"chain kernel launches {launches} vs {len(twin_s)} twin seconds")
     check(all(launches[k] == len(armed) for k in ARMED_KERNELS),
           f"armed kernel launches {launches} vs {len(armed)} armed seconds")
-    check(gulps >= 1 and launches["dedisperse_pallas"] == gulps,
-          f"dedispersion launches {launches} vs {gulps} gulps")
+    check(gulps >= 1 and launches["dedisperse_pallas"] == gulps
+          and launches["dedisperse_pallas_packed"] == gulps,
+          f"dedispersion launches {launches} vs {gulps} gulps (each through "
+          f"the packed entry)")
+    twin_med = 1e3 * float(np.median(twin_s))
+    if twin_device_ms is not None:
+        check(armed[0] <= 2.0 * armed[1], f"{tag} first armed second "
+              f"{1e3 * armed[0]:.1f} ms > 2x the second {1e3 * armed[1]:.1f}")
+        check(twin_med <= 1.3 * twin_device_ms,
+              f"{tag} twin median span {twin_med:.2f} ms per second > 1.3x "
+              f"its device time {twin_device_ms:.2f} ms")
     near = [c for c in prod.candidates
             if abs(c.dm - cfg.inject_dm) <= 0.1 * cfg.inject_dm]
     best = max(near, key=lambda c: c.snr) if near else None
@@ -592,21 +654,100 @@ def phase_main_path(dev, twin: str = "auto", tag: str = "[4]",
         if prod.candidates else None
     check(best is not None and best.snr >= 10.0,
           f"injected FRB not recovered: best near DM 80 {best}, top {top}")
+    vs = f" ({twin_med / twin_device_ms:.3f}x phase 2's " \
+        f"{twin_device_ms:.2f} ms)" if twin_device_ms else ""
     log(f"{tag} main path, twin_chain_impl={twin!r}: {prod.seconds} s of "
-        f"one antenna in {wall:.1f} s wall, real-time factor "
-        f"{n_sec / wall:.3f}; per data-second armed "
+        f"one antenna in {wall:.1f} s wall ({1e3 * wall / n_sec:.1f} ms per "
+        f"second; prewarm {t_pre:.2f} s before it), real-time factor "
+        f"{n_sec / wall:.3f}, {wall / (sum(armed) + sum(twin_s)):.3f}x the "
+        f"seconds' summed spans; span per data-second (CUDA events) armed "
         f"{', '.join(f'{1e3 * a:.1f}' for a in armed)} ms, twin "
-        f"{1e3 * np.mean(twin_s):.1f} ms x{len(twin_s)} (median "
-        f"{1e3 * np.median(twin_s):.1f}); {gulps} gulps; FRB at DM "
+        f"{1e3 * np.mean(twin_s):.2f} ms x{len(twin_s)} (median "
+        f"{twin_med:.2f}{vs}); {gulps} gulps; FRB at DM "
         f"{best.dm:.2f} S/N {best.snr:.2f} (top candidate DM {top.dm:.2f} "
         f"S/N {top.snr:.2f}, {len(prod.candidates)} candidates); peak "
         f"device memory {peak:.2f} GiB; launches {launches} (each armed "
         f"second: rfi_front and both EMA kernels once; each twin second: "
-        f"{' and '.join(twin_kernels)} once)")
+        f"{' and '.join(twin_kernels)} once; each gulp: the dedispersion "
+        f"kernel's packed entry once)")
     for c in sorted(prod.candidates, key=lambda c: -c.snr)[:5]:
         log(f"{tag}   candidate DM {c.dm:.2f} S/N {c.snr:.2f} at "
             f"{c.peak_time:.3f} s, width 2^{c.tfilt}, {c.ngiant} crossings")
     return launches
+
+
+def phase_gulp_passes(dev) -> None:
+    """One production gulp search from packed rows on the device (seeded
+    2-bit rows): its device time by pass, each pass timed alone with CUDA
+    events on the gulp's own intermediates, and the whole search's wall."""
+    from vlite_fast_tpu_torch import PipelineConfig, SearchConfig
+    from vlite_fast_tpu_torch.models import search
+    from vlite_fast_tpu_torch.ops import dedisperse as dd
+    from vlite_fast_tpu_torch.ops import dedisperse_pallas as ddp
+    cfg, scfg = PipelineConfig(), SearchConfig()
+    eng = search.SinglePulseSearch(scfg, cfg.tsamp, cfg.freqs_mhz(),
+                                   device=dev)
+    plan, full = eng.plan, scfg.gulp_samps + eng.overlap
+    ntime_out = full - plan.max_delay
+    rng = np.random.default_rng(12)
+    packed = torch.from_numpy(rng.integers(
+        0, 256, (full, cfg.nchanout // 4), dtype=np.uint8)).to(dev)
+    nchan, k = cfg.nchanout, scfg.topk or min(16 * scfg.max_candidates,
+                                                 20000)
+    gulp = lambda: search._device_gulp(
+        packed, plan, widths=eng.widths, k=k, nbit=cfg.nbit, nchan=nchan,
+        nbands=eng.nbands, thresh=float(scfg.snr_thresh))
+    torch.cuda.reset_peak_memory_stats(dev)
+    total = cuda_ms(gulp, 3)
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    _, wall = timed_wall(lambda: eng.search_gulp_device(
+        packed, cfg.nbit, 0, scfg.gulp_samps))
+    dmt = ddp.dedisperse_pallas_packed(packed, cfg.nbit, nchan, plan,
+                                       ntime_out)
+    snr = dd.boxcar_snr(dmt, plan.nchan_eff, eng.widths)
+    by = {"dedispersion": cuda_ms(lambda: ddp.dedisperse_pallas_packed(
+              packed, cfg.nbit, nchan, plan, ntime_out), 3),
+          "boxcar S/N": cuda_ms(lambda: dd.boxcar_snr(
+              dmt, plan.nchan_eff, eng.widths), 3),
+          "banded top-k": cuda_ms(lambda: search.pack_topk_banded(
+              snr, k, eng.nbands, float(scfg.snr_thresh)), 3)}
+    del dmt, snr
+    log(f"[4] one production gulp ({full} packed rows): device "
+        f"{total:.2f} ms (CUDA events, 3 reps): "
+        + ", ".join(f"{n} {v:.2f} ms" for n, v in by.items())
+        + f" (each alone); search_gulp_device wall {wall:.1f} ms; peak "
+        f"device memory {peak:.2f} GiB")
+
+
+def phase_twin_agreement(dev, nseeds: int = 10) -> None:
+    """bench.py's A/B of the host gating: the armed program (never armed)
+    against the twin on the same seconds, one second of the smoke's noise
+    (made on the card) per seed, each program carrying its own bandpass;
+    the 2-bit agreement of both streams per second."""
+    from vlite_fast_tpu_torch import PipelineConfig
+    from vlite_fast_tpu_torch.models import baseband_dsp as dsp
+    cfg = PipelineConfig(inject_frb=True)
+    twin, twin_cfg = dsp.twin_program(cfg), dsp.twin_config(cfg)
+    st_a = st_t = dsp.init_state(cfg, dev)
+    agree, dlev = [], 0
+    for seed in range(nseeds):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        raw = (torch.randn((cfg.npol_in, cfg.sample_rate), generator=gen,
+                           device=dev) / 0.05914 + 128.5).clamp(0, 255) \
+            .to(torch.uint8)
+        out_a, st_a = dsp.process_second(cfg, raw, st_a, False)
+        out_t, st_t = twin(twin_cfg, raw, st_t, False)
+        res = [agreement(getattr(out_a, f), getattr(out_t, f))
+               for f in ("packed", "packed_kur")]
+        agree.append(min(r[0] for r in res))
+        dlev = max(dlev, *(r[1] for r in res))
+        del raw, out_a, out_t
+    worst = min(agree)
+    check(worst >= 0.9999, f"twin agreement over seeds {agree} (bar 0.9999)")
+    log(f"[4] twin agreement, armed program (not armed) vs the "
+        f"{twin_cfg.chain_impl!r} twin over {nseeds} seeds, bandpass "
+        f"carried: min {worst:.6f}, spread {max(agree) - worst:.2e} (max "
+        f"{max(agree):.6f}; bar 0.9999), max level diff {dlev}")
 
 
 def phase_rfi_front(dev, raw) -> dict:
@@ -686,10 +827,13 @@ def phase_ema(dev) -> list:
             check(torch.allclose(g, w, rtol=2e-6, atol=2e-6),
                   f"{name}: differs from plain by {err}")
         del got, want
+        if name == "normalize_ema_weighted_pallas":
+            check(bitwise, f"{name}: not bit-equal to its plain version")
         ms = cuda_ms(kernel, 5)
         log(f"[6] {name} kernel vs plain, {shape} f32, time_tile {tt}: max "
             f"abs diff {err:.2e} (allclose rtol 2e-6 atol 2e-6), bit-equal "
-            f"{bitwise}; kernel {ms:.2f} ms (CUDA events, 5 reps), plain "
+            f"{bitwise}; kernel {ms:.2f} ms (CUDA events, 5 reps), bound "
+            f"{eb['bound_ms']:.3f} ms ({eb['bound_by']}), plain "
             f"{plain_ms:.0f} ms (wall)")
         rows.append({"name": name, "route": "cuda",
                      "source": "vlite_fast_tpu_torch/csrc/ema.cu",
@@ -941,6 +1085,39 @@ def phase_rollsel(dev) -> dict:
             "linear_1024_fold_ms": ms_f}
 
 
+def phase_tile_bench(dev) -> dict:
+    """Its path: the benchmark entry's tile_bench for each mode (the
+    script's input order from default_rng(7)); then each sum against its
+    plain version on the card."""
+    from vlite_fast_tpu_torch.benchmarks import transpose_prims as tp
+    rng = np.random.default_rng(7)
+    _zero_counts()
+    runs = {impl: tp.tile_bench(impl, dev, 10, rng) for impl in tp.IMPLS}
+    torch.cuda.synchronize()
+    launches = tp.LAUNCHES
+    plain_ms = {}
+    for impl, (x, y, _) in runs.items():
+        want, plain_ms[impl] = timed_wall(lambda: tp.tile_sum_plain(x, impl))
+        check(torch.equal(y, want), f"tile_bench[{impl}]: differs from plain")
+    x, y, _ = runs["xlu"]
+    b = bound(nbytes(x, y), tp.REPS * tp.NB * tp.LANE * tp.LANE)
+    ms = {impl: r[2] for impl, r in runs.items()}
+    log(f"[14] tile_bench kernel (csrc/tile_bench.cu) vs plain, the script's "
+        f"shapes ({tp.REPS} steps x {tp.NB} tiles of 128 x 128 f32): all "
+        f"three modes equal; "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in ms.items())
+        + f" (CUDA events, 10 reps), bound {b['bound_ms']:.4f} ms "
+        f"({b['bound_by']}), plain "
+        + " / ".join(f"{v:.0f}" for v in plain_ms.values())
+        + f" ms (wall); {launches} launches on its path")
+    return {"name": "tile_bench", "route": "cuda",
+            "source": "vlite_fast_tpu_torch/csrc/tile_bench.cu",
+            "replaces": "benchmarks/bench_transpose_prims_tpu.py:87",
+            "launches": launches, "max_abs_err": 0.0, "ms": ms["xlu"],
+            "plain_ms": plain_ms["xlu"], "library_ms": None, **b,
+            "ms_by_impl": ms}
+
+
 def main() -> None:
     t_start = time.perf_counter()
     smi = phase_device()
@@ -955,7 +1132,11 @@ def main() -> None:
     k_chain, v2_gots, wants = phase_chain(dev, raws)
     k_dedisp = phase_dedisperse(dev)
     torch.cuda.empty_cache()
-    launches = phase_main_path(dev)
+    launches = phase_main_path(dev, twin_device_ms=k_chain["ms"])
+    torch.cuda.empty_cache()
+    phase_gulp_passes(dev)
+    phase_twin_agreement(dev)
+    torch.cuda.empty_cache()
     k_rfi = phase_rfi_front(dev, raws[0])
     k_ema = phase_ema(dev)
     torch.cuda.empty_cache()
@@ -979,6 +1160,8 @@ def main() -> None:
     staged.append(phase_stage_b(dev))
     torch.cuda.empty_cache()
     staged.append(phase_rollsel(dev))
+    torch.cuda.empty_cache()
+    staged.append(phase_tile_bench(dev))
     kernels = [k_chain, k_dedisp, k_rfi, *k_ema, k_pre, *k_ct, *staged]
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} never launched on its path")

@@ -31,12 +31,19 @@ relative; the roll+select dedispersion bit-equal to its plain version
 the fold kernel.
 """
 
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+
 import numpy as np
 import pytest
 import torch
 
 from vlite_fast_tpu_torch import _build, ema_probe
 from vlite_fast_tpu_torch import constants as C
+from vlite_fast_tpu_torch.benchmarks import transpose_prims as ttp
 from vlite_fast_tpu_torch.config import PipelineConfig, SearchConfig
 from vlite_fast_tpu_torch.models import baseband_dsp as tdsp
 from vlite_fast_tpu_torch.models import search as tsearch
@@ -576,6 +583,7 @@ def test_pipeline_off_megakernel_config_matches_cpu(cuda, tmp_path):
         pipe = StationPipeline(1, cfg, scfg, out_dir=str(tmp_path),
                                write_cands=False, device=dev)
         assert pipe._twin is tdsp.process_second
+        pipe.prewarm()                      # its launches are set-up
         before = (trfi.LAUNCHES, dict(tpk.LAUNCHES))
         results.append(pipe.run_observation(
             ((1.6e9 + s, b) for s, b in enumerate(secs)),
@@ -614,6 +622,7 @@ def test_pipeline_megakernel4_matches_cpu(cuda, tmp_path):
                                write_cands=False, device=dev)
         assert pipe._twin is tdsp.twin_second
         assert pipe._cfg_noinject.chain_impl == "megakernel4"
+        pipe.prewarm()                      # its launches are set-up
         before = dict(tmk.LAUNCHES)
         results.append(pipe.run_observation(
             ((1.6e9 + s, b) for s, b in enumerate(secs)),
@@ -715,3 +724,156 @@ def test_rollsel_kernel_matches_plain(cuda, mode, nsub, sub_chunk):
     assert torch.equal(got, want)
     np.testing.assert_allclose(got.cpu().numpy(), fold.cpu().numpy(),
                                rtol=1e-5, atol=1e-4)
+
+
+def _dd_plan(cuda, nsub):
+    freqs = np.linspace(400.0, 350.0, 256)
+    scfg = SearchConfig(dm_min=0.0, dm_max=100.0, ndm=64, dm_grid_mode="tol")
+    dms = tsearch.make_dm_grid(scfg, 2e-3, freqs)
+    return tdd.make_plan(dms, freqs, 2e-3, nsub=nsub, nbatch=16,
+                         zap_ranges=((0, 10), (100, 120)), device=cuda)
+
+
+@pytest.mark.parametrize("row", [64, 66])
+@pytest.mark.parametrize("nsub", [8, 64, 128])
+def test_dedisperse_packed_kernel_matches_plain(cuda, nsub, row):
+    """The packed entry (two zapped ranges; rows of 64 bytes, or of 66
+    holding more channels than nchan and not 8-byte aligned) against its
+    plain version, and the f32 entry on the same values; several stage-1
+    and stage-2 tiles.  nsub 8 is 32 channels a subband, the production
+    width (8-byte rows: one load per row and subband)."""
+    plan = _dd_plan(cuda, nsub)
+    rng = np.random.default_rng(nsub)
+    ntime_out = 700
+    packed = torch.from_numpy(rng.integers(
+        0, 256, (ntime_out + plan.max_delay, row), dtype=np.uint8)).to(cuda)
+    before = (tddp.LAUNCHES, tddp.PACKED_LAUNCHES)
+    got = tddp.dedisperse_pallas_packed(packed, 2, 256, plan, ntime_out)
+    want = tddp.dedisperse_packed_plain(packed, 2, 256, plan, ntime_out)
+    fb = tq.dequantize(packed, 2).reshape(packed.shape[0], -1)[:, :256]
+    f32 = tddp.dedisperse_pallas(fb.contiguous(), plan, ntime_out)
+    torch.cuda.synchronize()
+    assert (tddp.LAUNCHES, tddp.PACKED_LAUNCHES) == (before[0] + 2,
+                                                     before[1] + 1)
+    for g in (got, f32):
+        np.testing.assert_allclose(g.cpu().numpy(), want.cpu().numpy(),
+                                   rtol=1e-5, atol=1e-4)
+
+
+def test_dedisperse_packed_kernel_other_nbit(cuda):
+    """4-bit rows are dequantized and go through the f32 entry."""
+    plan = _dd_plan(cuda, 64)
+    rng = np.random.default_rng(4)
+    packed = torch.from_numpy(rng.integers(
+        0, 256, (300 + plan.max_delay, 128), dtype=np.uint8)).to(cuda)
+    before = (tddp.LAUNCHES, tddp.PACKED_LAUNCHES)
+    got = tddp.dedisperse_pallas_packed(packed, 4, 256, plan, 300)
+    want = tddp.dedisperse_packed_plain(packed, 4, 256, plan, 300)
+    torch.cuda.synchronize()
+    assert (tddp.LAUNCHES, tddp.PACKED_LAUNCHES) == (before[0] + 1,
+                                                     before[1])
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=1e-5, atol=1e-4)
+
+
+def test_dedisperse_kernel_clamps_at_the_last_sample(cuda):
+    """A plan whose last batch reads past the filterbank's end (its
+    in-subband delays raised by 80): both entries take the plain
+    version's clamp at ntime - 1."""
+    plan = _dd_plan(cuda, 8)
+    rel = plan.rel_delays.clone()
+    rel[-1] += 80
+    plan = dataclasses.replace(plan, rel_delays=rel,
+                               rel_delays_max=int(rel.max()))
+    ntime_out = 600
+    ntime = ntime_out + plan.max_delay
+    assert ntime_out + plan.max_sub_delay + plan.rel_delays_max > ntime
+    rng = np.random.default_rng(9)
+    packed = torch.from_numpy(rng.integers(
+        0, 256, (ntime, 64), dtype=np.uint8)).to(cuda)
+    fb = tq.dequantize(packed, 2).reshape(ntime, -1)
+    want = tdd.dedisperse(fb, plan, ntime_out)
+    for got in (tddp.dedisperse_pallas(fb, plan, ntime_out),
+                tddp.dedisperse_pallas_packed(packed, 2, 256, plan,
+                                              ntime_out)):
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                   rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("time_tile", [1, 32, 0])
+def test_ema_weighted_kernel_bit_equal(cuda, time_tile):
+    """The weighted EMA (three phases) bit-equal to its plain version:
+    time tiles of 1, 32 and the whole block (0; longer than the walk's
+    chunk, so the seed pass runs), with a tile of all-zero weights, a
+    weight of 0.5, clipped spectra, a tile ten times up (the stale
+    reseed) and cold channels."""
+    rng = np.random.default_rng(11)
+    p = rng.chisquare(2, (2, 128, 300)).astype(np.float32)
+    p[:, 64:96] *= 10.0
+    p[0, 40] *= 400.0
+    p[1, 100, ::7] *= 400.0
+    w = np.ones((2, 128), np.float32)
+    w[:, 32:64] = 0.0
+    w[1, 5:9] = 0.5
+    w[0, 100] = 0.0
+    bp = np.full((2, 300), 1.5, np.float32)
+    bp[:, ::3] = 0.0
+    p, w, bp = (torch.from_numpy(a).to(cuda) for a in (p, w, bp))
+    got = tpk.normalize_ema_weighted_pallas(p, w, bp, 0.05,
+                                            time_tile=time_tile)
+    want = tdsp.norm_ops.normalize_ema_weighted(p, w, bp, 0.05,
+                                                time_tile=time_tile)
+    torch.cuda.synchronize()
+    for g, r in zip(got, want):
+        assert torch.equal(g, r)
+    assert (got[0][:, 32:64] == 0.0).all()
+    # a tile of one spectrum reseeds at a spike instead of clipping it
+    assert bool((got[0] == C.BP_CLIP_VALUE).any()) == (time_tile != 1)
+
+
+@pytest.mark.parametrize("impl", ttp.IMPLS)
+def test_tile_bench_kernel_matches_plain(cuda, impl):
+    x = torch.from_numpy(np.random.default_rng(7).standard_normal(
+        (4 * ttp.LANE, ttp.LANE)).astype(np.float32)).to(cuda)
+    before = ttp.LAUNCHES
+    got = ttp.tile_sum(x, impl, reps=3)
+    want = ttp.tile_sum_plain(x, impl)
+    torch.cuda.synchronize()
+    assert ttp.LAUNCHES == before + 1
+    assert torch.equal(got, want)
+
+
+FIRST_ARMED = r"""
+import json, numpy as np, torch
+from vlite_fast_tpu_torch import PipelineConfig, SearchConfig
+from vlite_fast_tpu_torch.runtime.pipeline import (ObservationDocument,
+                                                   StationPipeline)
+dev = torch.device("cuda")
+cfg = PipelineConfig(inject_frb=True)
+gen = torch.Generator(device=dev).manual_seed(3)
+secs = [(torch.randn((cfg.npol_in, cfg.sample_rate), generator=gen,
+                     device=dev) / 0.05914 + 128.5).clamp(0, 255)
+        .to(torch.uint8) for _ in range(3)]
+pipe = StationPipeline(1, cfg, SearchConfig(), write_cands=False, device=dev)
+pipe.run_observation(((1.7e9 + s, b) for s, b in enumerate(secs)),
+                     ObservationDocument(name="COLD"), write_fil=False)
+print(json.dumps(pipe.feed_seconds))
+"""
+
+
+def test_first_armed_second_is_not_cold(cuda):
+    """In a fresh process at the production geometry, the first armed
+    second (second 0) takes at most twice the second armed one: the
+    pipeline's prewarm paid every first-use cost before it."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+    res = subprocess.run([sys.executable, "-c", FIRST_ARMED], cwd=root,
+                         env=env, capture_output=True, text=True,
+                         timeout=600)
+    assert res.returncode == 0, res.stderr[-3000:]
+    times = json.loads(res.stdout.strip().splitlines()[-1])
+    armed = times["armed"]
+    assert len(armed) == tdsp.inject_window_seconds(
+        PipelineConfig(inject_frb=True)) and len(armed) >= 2
+    assert armed[0] <= 2.0 * armed[1], armed

@@ -128,6 +128,24 @@ def test_cold_start_candidates_match_jax(tmp_path, seg_per_sec):
         assert bool(early) == (seg_per_sec == 100), r.candidates
 
 
+def test_feed_seconds_one_entry_per_second_per_program(tmp_path):
+    """feed_seconds holds one positive time per fed second, under the
+    program that ran it (on a card they come from CUDA events, read once
+    they have completed; end_observation reads the rest)."""
+    cfg = tconfig.PipelineConfig.tiny(inject_frb=True, nbit=2)
+    pipe = TPipe(1, cfg, tconfig.SearchConfig.tiny(), out_dir=str(tmp_path),
+                 write_cands=False, device="cpu")
+    secs = _seconds(cfg, 4)
+    prod = pipe.run_observation(
+        ((1.6e9 + s, buf) for s, buf in enumerate(secs)),
+        TDoc(name="TIMES", start_time=1.6e9), write_fil=False)
+    window = tdsp.inject_window_seconds(cfg)
+    assert prod.seconds == 4 and 1 <= window < 4
+    assert len(pipe.feed_seconds["armed"]) == window
+    assert len(pipe.feed_seconds["twin"]) == 4 - window
+    assert all(t > 0 for ts in pipe.feed_seconds.values() for t in ts)
+
+
 def test_keep_ring_not_ported():
     with pytest.raises(NotImplementedError, match="ring"):
         TPipe(1, _t(PipelineConfig.tiny()), _t(SearchConfig.tiny()),

@@ -18,11 +18,13 @@ from vlite_fast_tpu.config import SearchConfig
 from vlite_fast_tpu.models import search as jsearch
 from vlite_fast_tpu.ops import dedisperse as jdd
 from vlite_fast_tpu.ops import dedisperse_pallas as jddp
+from vlite_fast_tpu.ops import quantize as jq
 from vlite_fast_tpu_torch import config as tconfig
 from vlite_fast_tpu_torch import interop
 from vlite_fast_tpu_torch.models import search as tsearch
 from vlite_fast_tpu_torch.ops import dedisperse as tdd
 from vlite_fast_tpu_torch.ops import dedisperse_pallas as tddp
+from vlite_fast_tpu_torch.ops import quantize as tq
 
 torch.set_num_threads(1)
 
@@ -77,6 +79,53 @@ def test_dedisperse_matches_jax_engines(mode, nsub):
     assert got.shape == (len(pt.dms), ntime_out)
     np.testing.assert_allclose(got, want_gather, rtol=1e-5, atol=1e-4)
     np.testing.assert_allclose(got, want_pallas, rtol=1e-5, atol=1e-4)
+
+
+def test_plan_batch_spread_and_min():
+    """sub_spread (the stage-2 kernel's staged span) and rel_delays_min
+    from the tables, equal through plan_from_jax."""
+    pt, pj = _plans("tol", 64)
+    pi = interop.plan_from_jax(pj, device="cpu")
+    nbatch = pt.rel_delays.shape[0]
+    sd = pt.sub_delays.numpy().reshape(nbatch, -1, pt.nsub)
+    assert pt.sub_spread == int((sd.max(1) - sd.min(1)).max()) > 0
+    assert pt.rel_delays_min == int(pt.rel_delays.min()) >= 0
+    assert (pi.sub_spread, pi.rel_delays_min) == (pt.sub_spread,
+                                                  pt.rel_delays_min)
+    odd = tdd.batch_sub_spread(pt.sub_delays.numpy(),
+                               pt.batch_of_dm.numpy()[::-1], nbatch)
+    assert odd == -1                        # batches not d // per_batch
+
+
+@pytest.mark.parametrize("nbit", [2, 4])
+def test_packed_dedisperse_matches_jax_gulp_path(nbit):
+    """The packed entry's plain route (dequantize, first nchan channels,
+    the gather engine) against the JAX _device_gulp's dequantize and
+    dd.dedisperse, on seeded rows holding more channels than nchan."""
+    pt, pj = _plans("tol", 64)
+    rng = np.random.default_rng(20 + nbit)
+    ntime_out = 300
+    packed = rng.integers(0, 256, (ntime_out + pt.max_delay,
+                                   NCHAN * nbit // 8 + 2), dtype=np.uint8)
+    got = tddp.dedisperse_pallas_packed(torch.from_numpy(packed), nbit,
+                                        NCHAN, pt, ntime_out)
+    assert tddp.PACKED_LAUNCHES == tddp.LAUNCHES == 0   # CPU: plain
+    fb = jq.dequantize(jnp.asarray(packed), nbit)
+    fb = fb.reshape(fb.shape[0], -1)[:, :NCHAN].astype(jnp.float32)
+    want = np.asarray(jdd.dedisperse(fb, pj, ntime_out))
+    assert got.shape == (len(pt.dms), ntime_out)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-4)
+
+
+def test_packed_entry_plain_route_equals_f32_route():
+    pt, _ = _plans("linear", 128)
+    rng = np.random.default_rng(31)
+    ntime_out = 200
+    packed = torch.from_numpy(rng.integers(
+        0, 256, (ntime_out + pt.max_delay, NCHAN // 4), dtype=np.uint8))
+    fb = tq.dequantize(packed, 2).reshape(packed.shape[0], -1)
+    got = tddp.dedisperse_pallas_packed(packed, 2, NCHAN, pt, ntime_out)
+    assert torch.equal(got, tddp.dedisperse_pallas(fb, pt, ntime_out))
 
 
 def test_boxcar_snr_even_ntime():

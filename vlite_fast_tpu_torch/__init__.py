@@ -13,11 +13,13 @@ Layout mirrors the JAX package (same sub-package and module names):
               chain_second_v4, pallas_pretranspose, and the staged
               dft_detect_power and chain_second_plain;
               ops/rfi_pallas.rfi_front, ops/pallas_kernels' two EMAs,
-              ops/dedisperse_pallas: dedisperse_pallas and
-              dedisperse_pallas_rollsel)
+              ops/dedisperse_pallas: dedisperse_pallas, its packed entry
+              dedisperse_pallas_packed, and dedisperse_pallas_rollsel)
   models/   — the composed DSP chain (the twin and the armed program)
               and the gulp search
   runtime/  — StationPipeline
+  benchmarks/ — the JAX package's benchmark scripts on the card
+              (transpose_prims: the relayout kernel and tile_bench)
   csrc/     — CUDA C++ sources, built by _build.py with nvcc on first use
   constants.py, config.py, utils/ — the port's own copies of the JAX
               package's jax-free host modules

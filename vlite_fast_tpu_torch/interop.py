@@ -13,7 +13,7 @@ import torch
 from vlite_fast_tpu_torch import devices
 from vlite_fast_tpu_torch.models.baseband_dsp import DSPState
 from vlite_fast_tpu_torch.ops import channelize as ch_ops
-from vlite_fast_tpu_torch.ops.dedisperse import DedispPlan
+from vlite_fast_tpu_torch.ops.dedisperse import DedispPlan, batch_sub_spread
 
 
 def state_from_jax(bp, bp_kur, segs_since_inject, tail, wtail,
@@ -41,15 +41,19 @@ def plan_from_jax(plan, device="cuda") -> DedispPlan:
     device = devices.resolve(device)
     t = lambda a, dt: torch.from_numpy(
         np.array(a, dtype=dt, copy=True)).to(device)
+    sub_d = np.asarray(plan.sub_delays, np.int32)
     return DedispPlan(
         rel_delays=t(plan.rel_delays, np.int32),
-        sub_delays=t(plan.sub_delays, np.int32),
+        sub_delays=t(sub_d, np.int32),
         batch_of_dm=t(plan.batch_of_dm, np.int32),
         chan_weights=t(plan.chan_weights, np.float32),
         dms=tuple(float(d) for d in plan.dms),
         max_delay=int(plan.max_delay), max_sub_delay=int(plan.max_sub_delay),
         nsub=int(plan.nsub), nchan_eff=float(plan.nchan_eff),
-        rel_delays_max=int(plan.rel_delays_max))
+        rel_delays_max=int(plan.rel_delays_max),
+        rel_delays_min=int(np.asarray(plan.rel_delays).min()),
+        sub_spread=batch_sub_spread(sub_d, np.asarray(plan.batch_of_dm),
+                                    np.asarray(plan.rel_delays).shape[0]))
 
 
 def bp_from_factored(bp_fact, nfft: int, nchan: int) -> np.ndarray:

@@ -1,9 +1,9 @@
 """Gulp-based single-pulse search engine (the heimdall_stream role).
 
 Port of vlite_fast_tpu/models/search.py.  One gulp on the device:
-[dequantize ->] dedisperse (ops/dedisperse_pallas: the CUDA kernel on a
-CUDA tensor, the gather engine on a CPU one) -> boxcar S/N -> top-k per
-DM band; only the packed crossings come back to the host, which clusters
+dedisperse the packed rows (ops/dedisperse_pallas.dedisperse_pallas_packed:
+the CUDA kernel on a CUDA tensor, dequantize and the gather engine on a
+CPU one) -> boxcar S/N -> top-k per DM band; only the packed crossings come back to the host, which clusters
 them into candidates.
 """
 
@@ -97,12 +97,11 @@ def decode_crossings(packed: np.ndarray, nw: int, ndm: int, ntime: int,
 def _device_gulp(packed: torch.Tensor, plan: dd.DedispPlan, *,
                  widths: tuple, k: int, nbit: int, nchan: int, nbands: int,
                  thresh: float) -> torch.Tensor:
-    """One gulp on the packed rows' device: dequantize -> dedisperse ->
-    boxcar S/N -> banded top-k crossings."""
-    fb = q_ops.dequantize(packed, nbit)
-    fb = fb.reshape(fb.shape[0], -1)[:, :nchan]
-    ntime_out = fb.shape[0] - plan.max_delay
-    dmt = ddp.dedisperse_pallas(fb, plan, ntime_out)
+    """One gulp on the packed rows' device: dedisperse the packed rows
+    (the kernel dequantizes and zaps as it stages them) -> boxcar S/N ->
+    banded top-k crossings."""
+    ntime_out = packed.shape[0] - plan.max_delay
+    dmt = ddp.dedisperse_pallas_packed(packed, nbit, nchan, plan, ntime_out)
     snr = dd.boxcar_snr(dmt, plan.nchan_eff, widths)
     return pack_topk_banded(snr, k, nbands, thresh)
 

@@ -77,6 +77,21 @@ class DedispPlan:
     nsub: int
     nchan_eff: float
     rel_delays_max: int = 0
+    rel_delays_min: int = 0
+    # the largest spread of one subband's delays over the trials of one
+    # batch (-1: the batches are not d // (ndm // nbatch))
+    sub_spread: int = -1
+
+
+def batch_sub_spread(sub_delays: np.ndarray, batch_of_dm: np.ndarray,
+                     nbatch: int) -> int:
+    """DedispPlan.sub_spread from the plan's numpy tables."""
+    ndm, nsub = sub_delays.shape
+    if ndm % nbatch or not np.array_equal(
+            batch_of_dm, np.arange(ndm) // (ndm // nbatch)):
+        return -1
+    sd = sub_delays.reshape(nbatch, ndm // nbatch, nsub)
+    return int((sd.max(axis=1) - sd.min(axis=1)).max())
 
 
 def make_plan(dms: np.ndarray, freqs_mhz: np.ndarray, tsamp: float,
@@ -113,7 +128,9 @@ def make_plan(dms: np.ndarray, freqs_mhz: np.ndarray, tsamp: float,
         dms=tuple(float(d) for d in dms), max_delay=int(full.max()),
         max_sub_delay=int(sub_delays.max()), nsub=nsub,
         nchan_eff=float(mask.sum()),
-        rel_delays_max=int(rel.max()) if rel.size else 0)
+        rel_delays_max=int(rel.max()) if rel.size else 0,
+        rel_delays_min=int(rel.min()) if rel.size else 0,
+        sub_spread=batch_sub_spread(sub_delays, batch_of_dm, nbatch))
 
 
 def dedisperse(fb: torch.Tensor, plan: DedispPlan, ntime_out: int,

@@ -42,9 +42,11 @@ def _f32(name: str, t: torch.Tensor, shape: tuple, dev) -> None:
 
 def _launch(fn_name: str, power: torch.Tensor, bp: torch.Tensor,
             scale: float, time_tile: int, tensors: list,
-            clip: tuple = (0.0, 0.0)):
+            clip: tuple = (0.0, 0.0), seeds: bool = False):
     """Check the shared arguments, allocate the outputs and launch
-    csrc/ema.cu's `fn_name` on the current stream."""
+    csrc/ema.cu's `fn_name` on the current stream; `seeds`: pass a
+    scratch of npol x tiles x nchan f32 and npol x tiles i32 after the
+    outputs."""
     if power.device.type != "cuda":
         raise ValueError(f"{fn_name}: unsupported device {power.device}")
     npol, ntime, nchan = power.shape
@@ -56,14 +58,17 @@ def _launch(fn_name: str, power: torch.Tensor, bp: torch.Tensor,
     s, oms = norm_ops.ema_constants(scale)
     out = torch.empty_like(power)
     bp_out = torch.empty_like(bp)
+    scratch = [torch.empty(npol * (ntime // tt) * (nchan + 1),
+                           dtype=torch.float32, device=power.device)
+               ] if seeds else []
     lib = _build.load("ema")
     fn = getattr(lib, fn_name)
-    fn.argtypes = [ctypes.c_void_p] * (7 + len(tensors))
+    fn.argtypes = [ctypes.c_void_p] * (7 + len(tensors) + len(scratch))
     fn.restype = ctypes.c_int
     ip = (ctypes.c_longlong * 4)(npol, ntime, nchan, tt)
     fp = (ctypes.c_float * 5)(s, oms, norm_ops.recip(tt), *clip)
     ptrs = [ctypes.c_void_p(t.data_ptr()) for t in
-            (power, *tensors, bp, out, bp_out)]
+            (power, *tensors, bp, out, bp_out, *scratch)]
     rc = fn(ctypes.cast(ip, ctypes.c_void_p), ctypes.cast(fp, ctypes.c_void_p),
             *ptrs,
             ctypes.c_void_p(torch.cuda.current_stream(power.device)
@@ -103,6 +108,6 @@ def normalize_ema_weighted_pallas(power: torch.Tensor,
                                                time_tile)
     _f32("weights", weights, tuple(power.shape[:2]), power.device)
     out = _launch("vf_ema_weighted", power, bp, scale, time_tile, [weights],
-                  clip=(clip_ratio, clip_value))
+                  clip=(clip_ratio, clip_value), seeds=True)
     LAUNCHES["normalize_ema_weighted_pallas"] += 1
     return out

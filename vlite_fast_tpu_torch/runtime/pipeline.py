@@ -199,7 +199,15 @@ class StationPipeline:
         self._fb_dev = DeviceGulpStream()
         self._searched_to = 0
         self._pending = None
-        # wall seconds per fed second, by program ('armed' / 'twin')
+        self._prewarmed = False
+        self._staging = []      # pinned host copies of fed seconds
+        self._times = []        # (program, start event, end event) unread
+        # seconds per fed second, by program ('armed' / 'twin'): on a
+        # card, the span on the device's timeline from the start to the
+        # end of the work feed_second enqueued for that second (its device
+        # time, plus any time the device waited on the host inside it),
+        # read from CUDA events once they have completed; on the CPU, the
+        # host's wall time of feed_second
         self.feed_seconds = {"armed": [], "twin": []}
 
     def _fil_header(self, od: ObservationDocument,
@@ -231,6 +239,7 @@ class StationPipeline:
         self._fb, self._searched_to = GulpStream(), 0
         self._fb_dev = DeviceGulpStream()
         self._pending = None
+        self._times = []
         self._od = od
         self._write_fil = write_fil
         self._search_live = search_live
@@ -243,19 +252,76 @@ class StationPipeline:
         self._t0_unix = None
         self._inject_until = -1
         self.feed_seconds = {"armed": [], "twin": []}
-        self._prewarm()
+        self.prewarm()
 
-    def _prewarm(self) -> None:
-        """Build the CUDA kernels before the first second is fed, so no
-        build stalls the stream mid-observation (a no-op once loaded)."""
-        if self.device.type == "cuda":
-            _build.load_all()
+    def prewarm(self) -> None:
+        """Before the first second is fed (once per pipeline;
+        begin_observation calls it, a caller may call it before): build the
+        CUDA kernels, then run each program the observation dispatches
+        (the armed one if the configuration injects, and the twin) on a
+        zero second from a fresh state, and one near-zero gulp through
+        the search, discarding what they return.  The stream's first
+        seconds then pay no first-use cost (cuBLAS handles, the caching
+        allocator's first blocks, the kernels' attributes); the JAX
+        package's _prewarm compiles both programs the same way."""
+        if self.device.type != "cuda" or self._prewarmed:
+            return
+        _build.load_all()
+        cfg = self.cfg
+        zero = torch.zeros((cfg.npol_in, cfg.sample_rate), dtype=torch.uint8,
+                           device=self.device)
+        if cfg.inject_frb:
+            dsp.process_second(cfg, zero, dsp.init_state(cfg, self.device),
+                               False)
+        out, _ = self._twin(self._cfg_noinject, zero,
+                            dsp.init_state(cfg, self.device), False)
+        row = (out.packed_kur if cfg.rfi_mode else out.packed).shape[1]
+        gulp = self.scfg.gulp_samps
+        self.search.search_gulp_device(
+            torch.full((gulp + self.search.overlap, row),
+                       q_ops.NEAR_ZERO_FILL[cfg.nbit], dtype=torch.uint8,
+                       device=self.device), cfg.nbit, 0, gulp)
+        torch.cuda.synchronize(self.device)
+        self._prewarmed = True
+
+    def _to_device(self, buf) -> torch.Tensor:
+        """The fed second on the device.  A host array goes through one of
+        two pinned buffers by an asynchronous copy; a buffer is refilled
+        only once the copy out of it two seconds ago has completed."""
+        if isinstance(buf, torch.Tensor) and buf.device == self.device:
+            return buf
+        if self.device.type != "cuda":
+            return torch.as_tensor(buf).to(self.device)
+        host = torch.as_tensor(buf)
+        slot = self._staging.pop(0) if len(self._staging) == 2 else None
+        if slot is None or slot[0].shape != host.shape \
+                or slot[0].dtype != host.dtype:
+            slot = [torch.empty(host.shape, dtype=host.dtype,
+                                pin_memory=True), torch.cuda.Event()]
+        pinned, done = slot
+        done.synchronize()
+        pinned.copy_(host)
+        raw = pinned.to(self.device, non_blocking=True)
+        done.record()
+        self._staging.append(slot)
+        return raw
+
+    def _read_times(self, wait: bool = False) -> None:
+        """Move the spans of seconds whose end event has completed (every
+        one with wait, after a synchronize) into feed_seconds, in order."""
+        while self._times and (wait or self._times[0][2].query()):
+            kind, start, end = self._times.pop(0)
+            self.feed_seconds[kind].append(start.elapsed_time(end) / 1e3)
 
     def feed_second(self, sec: float, buf) -> List[dd.Candidate]:
         """Run one second; returns candidates that became final while it
         was processed."""
         cfg = self.cfg
         t_start = time.perf_counter()
+        on_card = self.device.type == "cuda"
+        if on_card:
+            start = torch.cuda.Event(enable_timing=True)
+            start.record()
         if self._t0_unix is None:
             self._t0_unix = float(sec)
             if self._write_fil:
@@ -272,7 +338,7 @@ class StationPipeline:
                     self._fil_plain = sigproc.FilterbankWriter(
                         self._fil_path.replace(".fil", "_plain.fil"),
                         self._fil_header(self._od, self._t0_unix))
-        raw = torch.as_tensor(buf).to(self.device)
+        raw = self._to_device(buf)
         arm = bool(cfg.inject_frb and self._nsec % C.INJECT_PERIOD_S == 0)
         if arm:
             self._inject_until = self._nsec + dsp.inject_window_seconds(cfg)
@@ -297,11 +363,14 @@ class StationPipeline:
         deficit = self._rt.add(1.0)
         if deficit is not None:
             self.log.warning("falling behind real time by %.2f s", deficit)
-        if self.device.type == "cuda":
-            # so feed_seconds times the device work of this second
-            torch.cuda.synchronize(self.device)
-        self.feed_seconds["armed" if armed else "twin"].append(
-            time.perf_counter() - t_start)
+        kind = "armed" if armed else "twin"
+        if on_card:
+            end = torch.cuda.Event(enable_timing=True)
+            end.record()
+            self._times.append((kind, start, end))
+            self._read_times()
+        else:
+            self.feed_seconds[kind].append(time.perf_counter() - t_start)
         return self._cands[before:]
 
     def end_observation(self) -> ObservationProducts:
@@ -314,6 +383,9 @@ class StationPipeline:
             self._fil.close()
         if self._fil_plain is not None:
             self._fil_plain.close()
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+            self._read_times(wait=True)
         cands, fil_path = self._cands, self._fil_path
         self.metrics.set("vfast_rt_factor", self._rt.realtime_factor)
         self.metrics.set("vfast_candidates", len(cands))

@@ -5,8 +5,11 @@
                                           megakernel3f|megakernel4]
 
 At the production geometry (PipelineConfig(inject_frb=True,
-twin_chain_impl=TWIN), SearchConfig()) it traces, one window each after
-a warm-up call:
+twin_chain_impl=TWIN), SearchConfig()) it first traces, in the fresh
+process with the kernels built and loaded, the first call of the armed
+second and of the gulp ("cold": every first-use cost of the process falls
+there; the host's operations by their own CPU time are listed too), then
+one window each after a warm-up call:
   twin   one injection-free second through the twin program that TWIN
          resolves to (baseband_dsp.twin_program; 'auto', the default,
          is the v2 chain kernel);
@@ -32,6 +35,7 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
+from vlite_fast_tpu_torch import _build
 from vlite_fast_tpu_torch.config import PipelineConfig, SearchConfig
 from vlite_fast_tpu_torch.models import baseband_dsp as dsp
 from vlite_fast_tpu_torch.models import search as search_mod
@@ -44,8 +48,12 @@ def _device_us(evt) -> float:
     return float(evt.cuda_time_total)
 
 
-def traced(name: str, fn, top: int = 8) -> None:
-    fn()                                   # warm-up (allocator, cuBLAS)
+def traced(name: str, fn, top: int = 8, warm: bool = True) -> None:
+    """Print fn's wall, device time and busy share, and its kernels by
+    device time; warm=False: trace the first call, and list the host's
+    operations by their own CPU time besides."""
+    if warm:
+        fn()                               # warm-up (allocator, cuBLAS)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -62,6 +70,12 @@ def traced(name: str, fn, top: int = 8) -> None:
           f"busy {100 * dev / wall:.1f}%", flush=True)
     for key, us, n in sorted(rows, key=lambda r: -r[1])[:top]:
         print(f"[{name}]   {us / 1e3:9.2f} ms  x{n:<6d} {key[:90]}")
+    if not warm:
+        host = [(e.key, e.self_cpu_time_total, e.count)
+                for e in prof.key_averages()
+                if e.device_type == DeviceType.CPU]
+        for key, us, n in sorted(host, key=lambda r: -r[1])[:top]:
+            print(f"[{name}]   host {us / 1e3:9.2f} ms  x{n:<6d} {key[:80]}")
 
 
 def main() -> None:
@@ -81,21 +95,29 @@ def main() -> None:
     twin, twin_cfg = dsp.twin_program(cfg), dsp.twin_config(cfg)
     print(f"twin_chain_impl {args.twin!r}: {twin.__name__} with chain_impl "
           f"{twin_cfg.chain_impl!r}", flush=True)
+    _build.load_all()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        torch.cuda.synchronize()           # the profiler's own first use
     state = dsp.init_state(cfg, dev)
-    out, state = twin(twin_cfg, raw, state)
-
-    traced("twin", lambda: twin(twin_cfg, raw, state))
-    torch.cuda.reset_peak_memory_stats(dev)
-    traced("armed", lambda: dsp.process_second(cfg, raw, state, True))
-    armed_peak = torch.cuda.max_memory_allocated(dev) / 2**30
-
     eng = search_mod.SinglePulseSearch(scfg, cfg.tsamp, cfg.freqs_mhz(),
                                        device=dev)
     full = scfg.gulp_samps + eng.overlap
+    gulp = lambda: eng.search_gulp_device(packed, cfg.nbit, 0,
+                                          scfg.gulp_samps)
+    traced("armed, cold", lambda: dsp.process_second(cfg, raw, state, True),
+           warm=False)
+    out, state = twin(twin_cfg, raw, state)
     packed = out.packed_kur.repeat(full // out.packed_kur.shape[0] + 1,
                                    1)[:full].contiguous()
-    traced("gulp", lambda: eng.search_gulp_device(packed, cfg.nbit, 0,
-                                                  scfg.gulp_samps))
+    traced("gulp, cold", gulp, warm=False)
+
+    traced("twin", lambda: twin(twin_cfg, raw, state))
+    torch.cuda.reset_peak_memory_stats(dev)
+    traced("armed", lambda: dsp.process_second(cfg, raw, state, True),
+           top=16)
+    armed_peak = torch.cuda.max_memory_allocated(dev) / 2**30
+
+    traced("gulp", gulp)
     print(f"peak device memory: armed second {armed_peak:.2f} GiB, run "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
 
