@@ -12,11 +12,13 @@ bar of
 tests/test_torch_chain.py (>= 0.9999 of 2-bit levels, none off by more
 than one, weights equal, dag_frac within 1e-6, bandpass within 1e-4
 relative); the dedispersion kernel allclose(rtol=1e-5, atol=1e-4) (the
-same f32 terms summed in another order); the EMA kernels allclose(rtol=
-2e-6, atol=2e-6) (the JAX package's bar for its Pallas EMAs; kernel and
-plain version sum in the same order); the RFI front kernel equal masked
-voltages, weights and flags, TS within 1e-5 absolute (cbrtf against a
-float64 cube root, then the cancellation Z22 - cbrt t); the
+same f32 terms summed in another order); the EMA kernels bit-equal to
+their plain versions (the same arithmetic in the same order;
+test_ema_weighted_kernel_matches_plain keeps the JAX package's bar for
+its Pallas EMAs, allclose(rtol=2e-6, atol=2e-6)); the RFI front kernel
+equal masked voltages, weights and flags, TS within 1e-5 absolute (cbrtf
+against a float64 cube root, then the cancellation Z22 - cbrt t) and
+bit-equal to the kernel's first design (stored digests); the
 pretranspose kernel byte-equal (u8) and value-equal (bf16) to its plain
 version; chain_second's three modes byte-identical to each other (one
 loader-agnostic sum order) and at the chain bar against chain_second_v2
@@ -32,6 +34,7 @@ the fold kernel.
 """
 
 import dataclasses
+import hashlib
 import json
 import os
 import subprocess
@@ -479,23 +482,63 @@ def test_launch_counters_count_kernel_launches(cuda):
     assert tpk.LAUNCHES == {k: v + 1 for k, v in before.items()}
 
 
+# sha-256 of the fine TS (f32 bytes) that the first design of
+# csrc/rfi_front.cu (one byte per lane from device memory, the gates on one
+# thread) gave on an H100 for _rfi_input(nkurto, nfft, npol): the redesign
+# keeps every sum's order, so its TS are these bits
+RFI_TS_SHA256 = {
+    (30, 600, 1):
+        "8e50c33b7f90c2c8650700d242c58ed8fb247993fc8f65dfe3c0100b3d62b7d3",
+    (30, 600, 2):
+        "c47eba58b77aed24e6610e1036312d78ea2658a2275c76c9ab5958d788b4cc68",
+    (45, 630, 1):
+        "12559231ed0d83790095000c1464e285af2f4c9b70c78848e982358402f5ec75",
+    (45, 630, 2):
+        "6db0cff3bed0534eda01bf9b67c3827a4b0dd785f7e702f57cdeb64500b9e831",
+    (50, 500, 1):
+        "2a8c33f95192319d98ea3fa2e580701dfa3efff72261d382dce48ba1a780b43a",
+    (50, 500, 2):
+        "5cd3d3cc668cbcc87123a36ce6c502d923324aab4bd5f5300f22c9eb6c2591de"}
+
+
+def _rfi_input(nkurto, nfft, npol, cuda):
+    """300 FFT blocks of _noise with the burst at 40000 and a square wave
+    over block 10 of pol 0 (every window of the block flagged); npol 1 at
+    a byte offset of 3 from its allocation (no block 16-byte aligned)."""
+    raw = _noise(300 * nfft, seed=3, burst_at=40000)
+    raw[0, 10 * nfft:11 * nfft] = np.where(np.arange(nfft) % 8 < 4, 228, 28)
+    if npol == 2:
+        return torch.from_numpy(raw).to(cuda)
+    flat = np.zeros(raw.shape[1] + 3, np.uint8)
+    flat[3:] = raw[0]
+    return torch.from_numpy(flat).to(cuda)[3:].reshape(1, -1)
+
+
 @pytest.mark.parametrize("dag_fb_thresh", [0.0, 5.0])
 @pytest.mark.parametrize("npol", [1, 2])
-def test_rfi_front_kernel_matches_plain(cuda, npol, dag_fb_thresh):
-    cfg = PipelineConfig.tiny()             # nkurto 50, nfft 500
-    raw = torch.from_numpy(np.ascontiguousarray(
-        _noise(200_000, seed=3, burst_at=40000)[:npol])).to(cuda)
-    got = trfi.rfi_front(raw, cfg.nkurto, cfg.nfft, cfg.dag_thresh,
-                         dag_fb_thresh)
-    want = trfi.rfi_front_plain(raw, cfg.nkurto, cfg.nfft, cfg.dag_thresh,
-                                dag_fb_thresh)
+@pytest.mark.parametrize("nkurto,nfft", [(50, 500), (30, 600), (45, 630)])
+def test_rfi_front_kernel_matches_plain(cuda, npol, dag_fb_thresh, nkurto,
+                                        nfft):
+    """tiny()'s geometry (nkurto 50, nfft 500), and two where a float4 of
+    the output straddles two windows (nfft 630: 16-byte boundaries fall
+    inside blocks of the output too)."""
+    raw = _rfi_input(nkurto, nfft, npol, cuda)
+    thresh = PipelineConfig.tiny().dag_thresh
+    got = trfi.rfi_front(raw, nkurto, nfft, thresh, dag_fb_thresh)
+    want = trfi.rfi_front_plain(raw, nkurto, nfft, thresh, dag_fb_thresh)
     torch.cuda.synchronize()
     assert torch.equal(got[0], want[0])
     assert torch.equal(got[1], want[1])
-    assert torch.equal(got[2] >= cfg.dag_thresh, want[2] >= cfg.dag_thresh)
+    assert torch.equal(got[2] >= thresh, want[2] >= thresh)
     np.testing.assert_allclose(got[2].cpu().numpy(), want[2].cpu().numpy(),
                                rtol=0, atol=1e-5)
-    assert float(got[1].min()) < 1.0        # the gates fired
+    ts = hashlib.sha256(got[2].cpu().numpy().tobytes()).hexdigest()
+    assert ts == RFI_TS_SHA256[(nkurto, nfft, npol)]
+    wpf = nfft // nkurto
+    assert bool((got[2][10 * wpf:11 * wpf] >= thresh).all())
+    assert bool((got[1][:, 10] == 0.0).all())
+    assert not bool(got[0][:, 10 * nfft:11 * nfft].any())
+    assert float(got[1].max()) == 1.0
 
 
 def _ema_inputs(seed, cuda):
@@ -512,15 +555,24 @@ def _ema_inputs(seed, cuda):
     return (torch.from_numpy(a).to(cuda) for a in (p, bp, w))
 
 
-@pytest.mark.parametrize("time_tile", [0, 16])
-def test_ema_kernel_matches_plain(cuda, time_tile):
+@pytest.mark.parametrize("npol", [1, 2])
+@pytest.mark.parametrize("time_tile", [0, 1, 16, 32])
+def test_ema_kernel_matches_plain(cuda, time_tile, npol):
+    """The unweighted EMA (chain.cuh's plain stream: the seed pass where a
+    tile is longer than the walk's 32-spectrum chunk, here the whole block
+    of 96; the walk; the output pass) bit-equal to its plain version, with
+    a dead spectrum, a 10x step, cold channels and, in channels 0, 15,
+    30, ..., a first 32 spectra of zero power under a cold bandpass (a
+    tile of mean 0 seeds 1, as 'scan')."""
     p, bp, _ = _ema_inputs(4, cuda)
+    p[:, :32, ::15] = 0.0
+    p, bp = p[:npol].contiguous(), bp[:npol].contiguous()
     got = tpk.normalize_ema_pallas(p, bp, 0.02, time_tile=time_tile)
     want = tdsp.norm_ops.normalize_ema(p, bp, 0.02, time_tile)
     torch.cuda.synchronize()
     for g, w in zip(got, want):
-        np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(),
-                                   rtol=2e-6, atol=2e-6)
+        assert torch.equal(g, w)
+    assert bool(torch.isfinite(got[0]).all())
 
 
 @pytest.mark.parametrize("time_tile", [0, 16])

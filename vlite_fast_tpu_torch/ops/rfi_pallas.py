@@ -3,10 +3,12 @@
 Replaces the TPU kernel vlite_fast_tpu/ops/rfi_pallas.py:rfi_front (body
 _front_kernel): u8 convert, kurtosis window statistics, D'Agostino gates
 and mask in one pass over a whole second.  The CUDA source is
-csrc/rfi_front.cu, one block per FFT block on the statistics of
-csrc/front.cuh (shared with the chain kernel's front); it is bound by
-memory, 256 MB read and 1 GB written per production second.  The source
-header has the details.
+csrc/rfi_front.cu, one block per FFT block: the block's bytes staged in
+shared memory with 16-byte copies, the window statistics and the gates
+of csrc/front.cuh from there (shared with the chain kernel's front; the
+gates on one warp), and the masked voltages written as 16-byte stores.
+It is bound by memory, 256 MB read and 1 GB written per production
+second.  The source header has the details.
 
 Dispatch: a CPU tensor goes to the plain version (convert, then
 ops/kurtosis.rfi_excise); a CUDA tensor launches the kernel or raises.
