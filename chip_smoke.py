@@ -44,15 +44,17 @@ Phases, each printing a line:
      plain version on one full-geometry second: u8 tiles byte-equal, bf16
      tiles value-equal; the u8 tiles timed beside one PyTorch call that
      gives them (F.pad of the permuted view);
-  9. the pretransposed chain kernels (f32 DFTs) on phase 2's two seconds
-     against phase 2's plain results: chain_second in its three
-     pretranspose modes (byte-identical to each other, at the chain bar
-     against chain_second_v2) and chain_second_v4 on u8 and bf16 tiles,
-     timed with the relayout counted in;
+  9. the pretransposed chain kernels (csrc/chain.cu on the CT-major
+     tiles, the same tensor-core DFT as phase 2's) on phase 2's two
+     seconds: chain_second in its three pretranspose modes and
+     chain_second_v4 on u8 and bf16 tiles, every output bit-identical to
+     phase 2's chain_second_v2 and at the chain bar against phase 2's
+     plain results, each timed with the relayout counted in;
  10. phase 4's main path once for each twin_chain_impl of the
      pretransposed programs (megakernel, megakernel3, megakernel3f,
-     megakernel4): the FRB recovered, and every twin second launching the
-     kernels of its program and never chain_second_v2;
+     megakernel4): the FRB recovered, every twin second launching the
+     kernels of its program and never chain_second_v2, and each
+     program's real-time factor;
  11. the staged chain's stage A (ops/megakernel.dft_detect_power, the
      split-plane bf16 DFT on the tensor cores, wgmma fed by bulk copies):
      its path, two production seconds (PipelineConfig(rfi_mode=0,
@@ -176,25 +178,15 @@ def chain_bound(cfg, raw, outs) -> dict:
     return bound(nbytes(raw, *outs), ops)
 
 
-def dft_as_written_ms(cfg, outs, tc: bool) -> float:
-    """A chain kernel's own DFT at its type's peak, for the log only (a
-    count, not a measurement): with `tc` (chain_second_v2) the tensor-core
-    DFT's padded bf16 products on every frame and on the frames of the
-    blocks flagged in part (0 < weight < 1), else chain.cu's direct
-    two-stage f32 DFT (stage 1 on k1 <= n1/2 of real input, stage 2 on the
-    nchan bins) for every stream."""
-    from vlite_fast_tpu_torch.ops import channelize as ch_ops
-    n1, n2 = ch_ops._ct_split(cfg.nfft)
+def dft_as_written_ms(cfg, outs) -> float:
+    """The chain kernels' own DFT at the bf16 peak, for the log only (a
+    count, not a measurement): the tensor-core DFT's padded bf16 products
+    on every frame and on the frames of the blocks flagged in part (0 <
+    weight < 1)."""
     frames = cfg.npol_in * cfg.seg_per_sec * cfg.ffts_per_seg
-    if tc:
-        w = outs[2]
-        partial = int(((w > 0) & (w < 1)).sum()) if cfg.rfi_mode else 0
-        return tc_dft_ops(cfg, frames + partial) / PEAK_OPS_PER_S["bf16"] \
-            * 1e3
-    nstreams = 2 if cfg.rfi_mode == 2 else 1
-    return nstreams * frames * (4 * (n1 // 2 + 1) * n2 * n1
-                                + 8 * cfg.nchan * n2) \
-        / PEAK_OPS_PER_S["f32"] * 1e3
+    w = outs[2]
+    partial = int(((w > 0) & (w < 1)).sum()) if cfg.rfi_mode else 0
+    return tc_dft_ops(cfg, frames + partial) / PEAK_OPS_PER_S["bf16"] * 1e3
 
 
 def kernel_times(fn) -> dict:
@@ -329,10 +321,8 @@ def phase_chain(dev, raws) -> dict:
         wants.append(want)
     ms = cuda_ms(lambda: mk.chain_second_v2(raws[0], bp_k, cfg), 5)
     cb = chain_bound(cfg, raws[0], gots[0])
-    written = dft_as_written_ms(cfg, gots[0], tc=True)
+    written = dft_as_written_ms(cfg, gots[0])
     kt = kernel_times(lambda: mk.chain_second_v2(raws[0], bp_k, cfg))
-    check(not any("dft_kernel" in k for k in kt),
-          f"chain_second_v2 launched chain.cu's f32 dft_kernel: {list(kt)}")
     w = torch.cat([g[2] for g in gots], dim=1)
     share = float(((w > 0) & (w < 1)).float().mean())
     log(f"[2] chain kernel vs plain, 2 full-geometry seconds: 2-bit "
@@ -474,8 +464,11 @@ def phase_pretranspose(dev, raw) -> dict:
 
 
 def phase_ct_chains(dev, raws, v2_gots, wants, plain_ms) -> list:
-    """Kernels B and C on phase 2's seconds, each carrying its own
-    bandpass, against phase 2's plain results."""
+    """chain_second in its three pretranspose modes and chain_second_v4 on
+    u8 and bf16 tiles, on phase 2's seconds, each carrying its own
+    bandpass: every output bit-identical to phase 2's chain_second_v2 (the
+    same tensor-core DFT on the same bf16 frames), and at the chain bar
+    against phase 2's plain results; each timed with its relayout."""
     from vlite_fast_tpu_torch import PipelineConfig
     from vlite_fast_tpu_torch.ops import megakernel as mk
     cfg = PipelineConfig()
@@ -487,58 +480,49 @@ def phase_ct_chains(dev, raws, v2_gots, wants, plain_ms) -> list:
                   lambda raw, bp, d=d: mk.chain_second_v4(raw, bp, cfg,
                                                           pre_dtype=d))
                  for d in ("u8", "bf16")]
-    outs, worst, ms = {}, {}, {}
+    worst, ms = {}, {}
     for name, fn in programs:
         bp = torch.zeros((2, 2, cfg.nchan), device=dev)
         w = worst.setdefault(name.split("[")[0], {
             "agree": 1.0, "dlev": 0, "bp_rel": 0.0, "dag": 0.0})
-        outs[name] = []
         for sec, raw in enumerate(raws):
             got = fn(raw, bp)
             torch.cuda.synchronize()
+            check(all(torch.equal(a, b) for a, b in zip(got, v2_gots[sec])),
+                  f"{name} second {sec}: outputs differ from "
+                  f"chain_second_v2's")
             levels_check(got, wants[sec], w, f"{name} second {sec}")
-            outs[name].append(got)
             bp = got[4]
         ms[name] = cuda_ms(lambda: fn(raws[0], bp), 5)
-    b_modes = [f"chain_second[{m}]" for m in mk.PRETRANSPOSE]
-    for name in b_modes[1:]:
-        check(all(torch.equal(a, b) for sec in range(len(raws))
-                  for a, b in zip(outs[b_modes[0]][sec], outs[name][sec])),
-              f"{name} differs from {b_modes[0]}")
-    # against the v2 kernel (tensor-core split-plane DFT): the chain bar
-    wv = {"agree": 1.0, "dlev": 0, "bp_rel": 0.0, "dag": 0.0}
-    for sec in range(len(raws)):
-        levels_check(outs[b_modes[0]][sec], v2_gots[sec], wv,
-                     f"chain_second vs chain_second_v2 second {sec}")
     wb, wc = worst["chain_second"], worst["chain_second_v4"]
-    log(f"[9] chain_second kernel (f32 DFT) vs plain, phase 2's 2 seconds: "
-        f"the three pretranspose modes byte-identical; against "
-        f"chain_second_v2 (tensor cores) 2-bit agreement >= "
-        f"{wv['agree']:.6f}, max level diff {wv['dlev']}, bandpass rel diff "
-        f"{wv['bp_rel']:.2e}; vs plain 2-bit agreement >= {wb['agree']:.6f}, "
-        f"max level diff {wb['dlev']}, weights equal, dag_frac diff "
-        f"{wb['dag']:.2e}, bandpass rel diff {wb['bp_rel']:.2e}; per "
-        f"data-second with the relayout (CUDA events, 5 reps): "
-        + ", ".join(f"{m} {ms[f'chain_second[{m}]']:.2f} ms"
+    log(f"[9] chain_second (CT-major tiles, tensor-core DFT), phase 2's 2 "
+        f"seconds: the three pretranspose modes bit-identical to "
+        f"chain_second_v2 (all five outputs); vs plain 2-bit agreement >= "
+        f"{wb['agree']:.6f}, max level diff {wb['dlev']}, weights equal, "
+        f"dag_frac diff {wb['dag']:.2e}, bandpass rel diff "
+        f"{wb['bp_rel']:.2e}; per data-second with the relayout (CUDA "
+        f"events, 5 reps): "
+        + ", ".join(f"{m} {ms[f'chain_second[{m}]']:.3f} ms"
                     for m in mk.PRETRANSPOSE))
-    log(f"[9] chain_second_v4 kernel vs plain, same seconds: 2-bit agreement "
-        f">= {wc['agree']:.6f}, max level diff {wc['dlev']}, weights equal, "
+    log(f"[9] chain_second_v4, same seconds: u8 and bf16 tiles "
+        f"bit-identical to chain_second_v2; vs plain 2-bit agreement >= "
+        f"{wc['agree']:.6f}, max level diff {wc['dlev']}, weights equal, "
         f"dag_frac diff {wc['dag']:.2e}, bandpass rel diff "
         f"{wc['bp_rel']:.2e}; per data-second with the relayout (CUDA "
-        f"events, 5 reps): u8 {ms['chain_second_v4[u8]']:.2f} ms, bf16 "
-        f"{ms['chain_second_v4[bf16]']:.2f} ms; plain {plain_ms:.0f} ms")
+        f"events, 5 reps): u8 {ms['chain_second_v4[u8]']:.3f} ms, bf16 "
+        f"{ms['chain_second_v4[bf16]']:.3f} ms; plain {plain_ms:.0f} ms")
     cb = chain_bound(cfg, raws[0], wants[0])
     log(f"[9] chain_second / chain_second_v4 bound {cb['bound_ms']:.3f} ms "
-        f"({cb['bound_by']}); their direct f32 DFT at the f32 peak "
-        f"{dft_as_written_ms(cfg, wants[0], tc=False):.2f} ms")
+        f"({cb['bound_by']}); the tensor-core DFT's padded bf16 products "
+        f"{dft_as_written_ms(cfg, v2_gots[0]):.2f} ms at the bf16 peak")
     return [_chain_row("chain_second", "chain.cu", "961", wb,
                        ms["chain_second[pallas]"], plain_ms,
-                       library_ms=None, **cb,
+                       library_ms=None, **cb, bit_identical_to_v2=True,
                        ms_by_pretranspose={m: ms[f"chain_second[{m}]"]
                                            for m in mk.PRETRANSPOSE}),
-            _chain_row("chain_second_v4", "chain_v4.cu", "2048", wc,
+            _chain_row("chain_second_v4", "chain.cu", "2048", wc,
                        ms["chain_second_v4[u8]"], plain_ms,
-                       library_ms=None, **cb,
+                       library_ms=None, **cb, bit_identical_to_v2=True,
                        ms_bf16=ms["chain_second_v4[bf16]"])]
 
 
@@ -580,9 +564,10 @@ TWIN_KERNELS = {"auto": ("chain_second_v2",),
 
 
 def phase_main_path(dev, twin: str = "auto", tag: str = "[4]",
-                    n_sec: int = 40, twin_device_ms: float = None) -> dict:
+                    n_sec: int = 40, twin_device_ms: float = None) -> tuple:
     """The main path (twin_device_ms: the twin program's device ms per
-    data-second, from phase 2, to hold the twin's spans against)."""
+    data-second, from phase 2, to hold the twin's spans against): its
+    kernel launches and its real-time factor."""
     from vlite_fast_tpu_torch import PipelineConfig, SearchConfig
     from vlite_fast_tpu_torch.models import baseband_dsp as dsp
     from vlite_fast_tpu_torch.runtime.pipeline import (ObservationDocument,
@@ -677,7 +662,7 @@ def phase_main_path(dev, twin: str = "auto", tag: str = "[4]",
     for c in sorted(prod.candidates, key=lambda c: -c.snr)[:5]:
         log(f"{tag}   candidate DM {c.dm:.2f} S/N {c.snr:.2f} at "
             f"{c.peak_time:.3f} s, width 2^{c.tfilt}, {c.ngiant} crossings")
-    return launches
+    return launches, n_sec / wall
 
 
 def phase_gulp_passes(dev) -> None:
@@ -1170,7 +1155,7 @@ def main() -> None:
     k_chain, v2_gots, wants = phase_chain(dev, raws)
     k_dedisp = phase_dedisperse(dev)
     torch.cuda.empty_cache()
-    launches = phase_main_path(dev, twin_device_ms=k_chain["ms"])
+    launches, _ = phase_main_path(dev, twin_device_ms=k_chain["ms"])
     torch.cuda.empty_cache()
     phase_gulp_passes(dev)
     phase_twin_agreement(dev)
@@ -1185,11 +1170,14 @@ def main() -> None:
     del v2_gots, wants
     torch.cuda.empty_cache()
     # the pretransposed programs' kernels count in their own main paths
+    rtf = {}
     for twin in ("megakernel", "megakernel3", "megakernel3f", "megakernel4"):
-        got = phase_main_path(dev, twin, "[10]")
+        got, rtf[twin] = phase_main_path(dev, twin, "[10]")
         for k in ("pallas_pretranspose", "chain_second", "chain_second_v4"):
             launches[k] += got[k]
         torch.cuda.empty_cache()
+    log("[10] real-time factors: " + ", ".join(
+        f"{t} {f:.3f}" for t, f in rtf.items()))
     for k in (k_chain, k_dedisp, k_rfi, *k_ema, k_pre, *k_ct):
         k["launches"] = launches[k["name"]]
     # the staged chain and the roll+select engine count on their own paths

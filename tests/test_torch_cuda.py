@@ -20,9 +20,11 @@ equal masked voltages, weights and flags, TS within 1e-5 absolute (cbrtf
 against a float64 cube root, then the cancellation Z22 - cbrt t) and
 bit-equal to the kernel's first design (stored digests); the
 pretranspose kernel byte-equal (u8) and value-equal (bf16) to its plain
-version; chain_second's three modes byte-identical to each other (one
-loader-agnostic sum order) and at the chain bar against chain_second_v2
-(an f32 DFT against the tensor cores' split-plane bf16 one); the EMA
+version; chain_second's three modes and chain_second_v4 on u8 and bf16
+tiles bit-identical to chain_second_v2 (one tensor-core DFT on the same
+bf16 frames, whatever the loader); chain_second_v2, dft_detect_power and
+chain_second_plain equal to stored sha-256 digests of their outputs
+before the CT-major layouts moved onto their DFT; the EMA
 launch of chain_second_v2 alone bit-equal to a torch version of its
 sequential arithmetic; the tensor-core DFT (dft_detect_power) within 2e-3
 relative (floor 1e-3) of dft_detect_oracle, the JAX package's bar for
@@ -402,19 +404,71 @@ def test_chain_ema_matches_sequential_torch(cuda, npol, ffts):
     assert tq.unpack_bits(got[1].cpu(), 2).float().std() > 0
 
 
-def test_chain_second_v4_chunks_agree(cuda, monkeypatch):
-    """The intermediate walked in chunks of one segment gives the whole
-    second's result."""
-    cfg = _mk_cfg(rfi_mode=2)
-    raw = torch.from_numpy(_noise(cfg.sample_rate, seed=4,
-                                  burst_at=40000)).to(cuda)
-    bp = torch.zeros((2, 2, cfg.nchan), device=cuda)
-    whole = tmk.chain_second_v4(raw, bp, cfg)
-    monkeypatch.setattr(tmk, "V4_CHUNK_BYTES", 1)
-    chunked = tmk.chain_second_v4(raw, bp, cfg)
+# the CT-major programs: chain_second in its three pretranspose modes and
+# chain_second_v4 on u8 and bf16 tiles
+CT_PROGRAMS = [("chain_second", {"pretranspose": m})
+               for m in tmk.PRETRANSPOSE] \
+    + [("chain_second_v4", {"pre_dtype": d}) for d in ("u8", "bf16")]
+
+
+def _ct_bit_identical(cfg, raw, cuda):
+    """Each CT-major program gives chain_second_v2's five outputs bit for
+    bit over two seconds, each carrying its own bandpass: the same
+    tensor-core DFT on the same bf16 frames, the same front and EMA."""
+    npol = cfg.npol_in
+    outs = {}
+    for name, kw in [("chain_second_v2", {})] + CT_PROGRAMS:
+        bp = torch.zeros((2, npol, cfg.nchan), device=cuda)
+        outs[name, str(kw)] = []
+        for _ in range(2):
+            got = getattr(tmk, name)(raw, bp, cfg, **kw)
+            outs[name, str(kw)].append(got)
+            bp = got[4]
     torch.cuda.synchronize()
-    for a, b in zip(whole, chunked):
-        assert torch.equal(a, b)
+    v2 = outs.pop(("chain_second_v2", "{}"))
+    for key, got in outs.items():
+        for sec in range(2):
+            for i, (g, w) in enumerate(zip(got[sec], v2[sec])):
+                assert torch.equal(g, w), (key, sec, i)
+    return v2
+
+
+@pytest.mark.parametrize("npol", [1, 2])
+@pytest.mark.parametrize("rfi_mode", [0, 1, 2])
+def test_ct_chains_bit_identical_to_v2(cuda, rfi_mode, npol):
+    cfg = _mk_cfg(rfi_mode=rfi_mode, npol_in=npol)
+    raw = torch.from_numpy(np.ascontiguousarray(
+        _noise(cfg.sample_rate, seed=7, burst_at=40000)[:npol])).to(cuda)
+    v2 = _ct_bit_identical(cfg, raw, cuda)
+    if rfi_mode:
+        assert float(v2[1][2].mean()) < 1.0     # the gates fired
+
+
+@pytest.mark.parametrize("npol", [1, 2])
+def test_ct_chains_bit_identical_to_v2_n2_not_multiple_of_32(cuda, npol):
+    """10000 = 100 x 100: the last slice of a tile is 4 rows, and the
+    masked frames' windows (nkurto 500) cover 5 whole m1 rows."""
+    cfg = PipelineConfig(sample_rate=10000 * 16 * 2, seg_per_sec=2,
+                         nfft=10000, nkurto=500, chanmin=101, chanmax=612,
+                         nscrunch=8, rfi_mode=2, npol_in=npol)
+    raw = torch.from_numpy(np.ascontiguousarray(
+        _noise(cfg.sample_rate, seed=13, burst_at=90000)[:npol])).to(cuda)
+    v2 = _ct_bit_identical(cfg, raw, cuda)
+    assert float(v2[1][2].mean()) < 1.0
+
+
+@pytest.mark.parametrize("flagged", ["all", "none"])
+def test_ct_chains_bit_identical_to_v2_every_block_flagged_or_none(
+        cuda, flagged):
+    """No block flagged in part (the list is empty): every window
+    flagged, or none."""
+    cfg = _mk_cfg(rfi_mode=2, dag_thresh=1e30 if flagged == "none" else 3.0)
+    raw = _noise(cfg.sample_rate, seed=12)
+    if flagged == "all":
+        tone = (100 * np.sin(0.3 * np.arange(cfg.sample_rate)))
+        raw = np.clip(raw + tone.astype(np.int16), 0, 255).astype(np.uint8)
+    v2 = _ct_bit_identical(cfg, torch.from_numpy(raw).to(cuda), cuda)
+    assert bool((v2[0][2] == (0.0 if flagged == "all" else 1.0)).all())
 
 
 def test_chain_kernel_rejects_unsupported(cuda):
@@ -753,6 +807,65 @@ def test_chain_second_plain_kernel_matches_oracle(cuda, npol, nfft, ffts,
             nseg * ffts // nscrunch, (chanmax - chanmin + 1) // 4)
         _assert_levels(got, want)
         _assert_bp(bp_k, bp_p)
+
+
+def _sha256(*tensors) -> str:
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _tc_digests(cuda) -> dict:
+    """sha-256 of what the kernels on dft_tc.cuh's raw-second loader give
+    on fixed inputs: chain_second_v2's five outputs over two seconds
+    (bandpass carried, rfi_mode 2, npol 1 and 2, the burst), and
+    dft_detect_power's power and chain_second_plain's rows and bandpass
+    at the STAGED geometries."""
+    out = {}
+    for npol in (1, 2):
+        cfg = _mk_cfg(rfi_mode=2, npol_in=npol)
+        raw = torch.from_numpy(np.ascontiguousarray(
+            _noise(cfg.sample_rate, seed=7, burst_at=40000)[:npol])).to(cuda)
+        bp, outs = torch.zeros((2, npol, cfg.nchan), device=cuda), []
+        for _ in range(2):
+            got = tmk.chain_second_v2(raw, bp, cfg)
+            outs += got
+            bp = got[4]
+        out[f"chain_second_v2/npol{npol}"] = _sha256(*outs)
+    for nfft, ffts, nseg in STAGED:
+        raw = torch.from_numpy(_uniform(2, nfft * ffts * nseg, 3)).to(cuda)
+        out[f"dft_detect_power/{nfft}"] = _sha256(
+            tmk.dft_detect_power(raw, nfft, 2, nseg))
+        chans = (101, 612) if nfft == 2048 else (2155, 6250)
+        chans = (chans[0], chans[1] - (chans[1] - chans[0] + 1) % 4)
+        packed, bp = tmk.chain_second_plain(
+            raw, torch.zeros((2, nfft // 2 + 1), device=cuda), nfft, 2, nseg,
+            4, 0.02, *chans)
+        out[f"chain_second_plain/{nfft}"] = _sha256(packed, bp)
+    return out
+
+
+# _tc_digests on an H100 with the kernels as they were before the CT-major
+# layouts moved onto dft_tc.cuh (its loader template): the raw second's
+# path must keep these bits
+TC_SHA256 = {
+    "chain_second_plain/12500":
+        "d3f334799503f95aa2b3e63db50d0d02c9cdac6f408394f8b508a0a1103723a6",
+    "chain_second_plain/2048":
+        "afd191a9afaffb7f200b96985f5a6e324eb388ff44c982696b15c183281af92a",
+    "chain_second_v2/npol1":
+        "bddf2a5ee6a319bf9ae2b8eef623424fd4dfb1cdcf065a552657d5fa2ad62e3f",
+    "chain_second_v2/npol2":
+        "1d398d15a48fd384419bb74e26b37a5ffb1c5ed56c99b38d25a9f4663f729c50",
+    "dft_detect_power/12500":
+        "c1c0f3ade94533ba3b861480866c822978baa1492c652e70dc45b23495faafbb",
+    "dft_detect_power/2048":
+        "eab6b0807502b963b97f309c5ccbd019e7086af56fdd0a94fc2b0f9ec955463f"}
+
+
+def test_tensor_core_kernels_keep_their_bits(cuda):
+    assert _tc_digests(cuda) == TC_SHA256
 
 
 @pytest.mark.parametrize("sub_chunk", [16, 3])

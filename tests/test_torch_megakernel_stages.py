@@ -242,6 +242,29 @@ def test_tc_planes_hold_the_split_planes_in_core_matrices(nfft):
         assert np.array_equal(unfold(w2[p]), want)
 
 
+@pytest.mark.parametrize("ct", [1, 2])
+@pytest.mark.parametrize("nfft", [500, 2048, 10000, 12500, 15376])
+def test_tc_geometry_ct_ring_holds_a_pass_of_lead(nfft, ct):
+    """The ring of the CT-major tiles' loader (dft_tc.cuh's make_geom with
+    `ct` bytes an element): slots of 32 tile rows (n2 where n2 < 32),
+    128-byte multiples so every bulk copy stays 16-byte aligned, at least
+    npass + 1 of them (one pass of lead, or the consumers would wait on a
+    slice never fetched), beside the same planes and frame tile as the raw
+    second's loader, within a block's shared memory; tc_fits holds for
+    the split (15376 = 124 x 124 runs two blocks per frame)."""
+    nat, geo = tmk.tc_geometry(nfft), tmk.tc_geometry(nfft, ct)
+    n1, n2 = tch._ct_split(nfft)
+    assert tmk.tc_fits(nfft) and geo.smem <= tmk.TC_SMEM_MAX
+    slot = min(32, n2) * tmk.LANE * ct
+    assert geo.npass < geo.nslot <= tmk.TC_CT_SLOTS
+    # the ring (then its barriers) follows the raw second's planes and
+    # frame tile
+    ring = geo.smem - geo.nslot * (slot + 8)
+    assert ring == nat.smem - nat.nslot * (-(-nfft // 16) * 16 + 16 + 8)
+    assert ring % 128 == 0 and slot % 128 == 0
+    assert geo[:8] == nat[:8] and geo.split == nat.split == (nfft == 15376)
+
+
 def test_staged_wrappers_refuse_other_devices():
     """A tensor that is neither on the CPU nor on a card is refused: the
     wrappers launch the kernel or raise, and never fall back."""

@@ -232,3 +232,39 @@ def test_natural_gate_narrows_only_off_the_jax_chain():
     # as before: its split (500 = 20 x 25) takes the kernel
     cfg = _t(PipelineConfig.tiny(nbit=2, inject_frb=True))
     assert tdsp.resolve_twin_impl(cfg) == "megakernel2"
+
+
+@pytest.mark.parametrize("impl", ["megakernel", "megakernel4"])
+def test_ct_gate_narrows_only_off_the_jax_chain(impl):
+    """chain_kernel_takes('ct') follows the tensor-core DFT that
+    chain_second and chain_second_v4 now run (megakernel.tc_fits, for the
+    u8 and bf16 tiles' loaders too), where it used to take any CT split
+    within the 128 x 128 tile whose frame and two stage-1 planes fit 227
+    KB.  Over every nfft from 64 to 19368 with a CT split, each whose
+    verdict changes is one that the JAX package's megakernel_supported
+    refuses for `impl`; the production (100 x 125) and test (32 x 64,
+    20 x 25, 100 x 100) splits take the kernel."""
+    def old(nfft):
+        n1, n2 = tdsp.ch_ops._ct_split(nfft)
+        return n1 <= 128 and n2 <= 128 and 3 * 4 * nfft <= 232448
+
+    changed = []
+    for nfft in range(64, 19369):
+        try:
+            tdsp.ch_ops._ct_split(nfft)
+        except ValueError:
+            continue
+        cfg = PipelineConfig.tiny(nbit=2, nfft=nfft, nkurto=nfft,
+                                  sample_rate=4 * nfft, seg_per_sec=1,
+                                  chanmin=0, chanmax=3, rfi_mode=0,
+                                  chain_impl=impl)
+        takes = tdsp.chain_kernel_takes(_t(cfg), "ct")
+        if takes != old(nfft):
+            assert old(nfft) and not takes, nfft
+            changed.append(nfft)
+            assert not jdsp.megakernel_supported(cfg), nfft
+    assert changed                  # the gate did narrow
+    for nfft in (500, 2048, 10000, 12500):
+        assert tdsp.chain_kernel_takes(_t(PipelineConfig.tiny(
+            nbit=2, nfft=nfft, nkurto=nfft, sample_rate=4 * nfft,
+            seg_per_sec=1, chain_impl=impl)), "ct")

@@ -35,7 +35,7 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / \
     "vlite_fast_tpu_torch"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 # every library of the port, by csrc/<name>.cu
-LIBRARIES = ("chain", "chain_v4", "dedisperse", "dedisperse_rollsel", "ema",
+LIBRARIES = ("chain", "dedisperse", "dedisperse_rollsel", "ema",
              "pretranspose", "rfi_front", "stage_ab", "tile_bench")
 
 _LIBS: dict = {}

@@ -1,9 +1,7 @@
-// The front and the back end of the fused chain, shared by the two chain
-// sources: chain.cu (the natural layout on the tensor-core DFT of
-// dft_tc.cuh; the Cooley-Tukey-major layouts on an f32 DFT, one block per
-// frame) and chain_v4.cu (the DFT as two batched passes), and by
-// stage_ab.cu's back end.  Between them each source writes the power
-// planes.
+// The front and the back end of the fused chain, shared by chain.cu
+// (every input layout, on the tensor-core DFT of dft_tc.cuh), by
+// stage_ab.cu's back end and by ema.cu.  Between them the DFT writes the
+// power planes.
 //
 //   front_kernel  one block per FFT block (both pols): the statistics and
 //                 gates of front.cuh, the keep flag per window, the weight
@@ -117,6 +115,61 @@ inline int num_streams(const ChainParams& P) {
   return P.rfi_mode == 2 ? 2 : 1;
 }
 
+// The samples of an FFT block staged in shared memory in frame order:
+// sample n of pol p at s[p * nfft + n]
+template <class T>
+struct StagedFrames {
+  const T* s;
+  int nfft;
+  __device__ __forceinline__ float operator()(int p, long long,
+                                              int n) const {
+    return volt(s[p * nfft + n]);
+  }
+};
+
+// What the front's statistics read: the raw second in device memory
+// (neighbouring lanes, neighbouring bytes), as it is; or block j's CT
+// tiles, whose neighbouring samples are 128 lanes apart, staged first into
+// `buf` in frame order (16-byte loads of each row's lanes m1 < n1).  The
+// statistics read the same values in the same order either way.
+__device__ __forceinline__ const NaturalU8& front_input(const ChainParams&,
+                                                       const NaturalU8& ld,
+                                                       long long, void*) {
+  return ld;
+}
+template <class T>
+__device__ __forceinline__ StagedFrames<T> front_input(const ChainParams& P,
+                                                       const CtMajor<T>& ld,
+                                                       long long j,
+                                                       void* buf) {
+  constexpr int kV = 16 / sizeof(T);        // elements per 16-byte load
+  const int per_row = (P.n1 + kV - 1) / kV;
+  T* s = (T*)buf;
+  for (int p = 0; p < P.npol; ++p) {
+    const T* tile = ld.x + ld.tile(p, j);
+    T* dst = s + p * P.nfft;
+    for (int v = threadIdx.x; v < P.n2 * per_row; v += blockDim.x) {
+      const int m2 = v / per_row, m1 = (v - m2 * per_row) * kV;
+      const uint4 d = __ldg((const uint4*)(tile + m2 * 128 + m1));
+      const T* e = (const T*)&d;
+#pragma unroll
+      for (int i = 0; i < kV; ++i)
+        if (m1 + i < P.n1) dst[(m1 + i) * P.n2 + m2] = e[i];
+    }
+  }
+  __syncthreads();
+  return StagedFrames<T>{s, P.nfft};
+}
+
+// bytes of shared memory front_input stages for a block
+inline int front_staged_bytes(const ChainParams&, const NaturalU8&) {
+  return 0;
+}
+template <class T>
+inline int front_staged_bytes(const ChainParams& P, const CtMajor<T>&) {
+  return P.npol * P.nfft * (int)sizeof(T);
+}
+
 // partial / list / nlist (nullable): partial[j] = 1 where block j kept
 // some windows but not all, and those blocks appended to list (in no
 // particular order), nlist counting them (zeroed by the caller)
@@ -130,7 +183,8 @@ __global__ void front_kernel(ChainParams P, Load ld,
   extern __shared__ float sm[];
   const int j = blockIdx.x;
   const FrontCounts c =
-      front_block(P, ld, j, sm, keep + (long long)j * P.wpf);
+      front_block(P, front_input(P, ld, j, sm + front_smem_floats(P)), j,
+                  sm, keep + (long long)j * P.wpf);
   if (threadIdx.x != 0) return;
   const float wt = __fmul_rn((float)c.nkeep, P.rwpf);
   for (int p = 0; p < P.npol; ++p) weights[(long long)p * P.nblk + j] = wt;
@@ -588,7 +642,13 @@ cudaError_t launch_front(const ChainParams& P, const Load& ld, void* keep,
                          void* partial = nullptr, void* list = nullptr,
                          void* nlist = nullptr) {
   if (P.rfi_mode == 0) return cudaSuccess;
-  const size_t sm = (size_t)front_smem_floats(P) * sizeof(float);
+  const int sm = front_smem_floats(P) * (int)sizeof(float) +
+                 front_staged_bytes(P, ld);
+  if (sm > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        front_kernel<Load>, cudaFuncAttributeMaxDynamicSharedMemorySize, sm);
+    if (e != cudaSuccess) return e;
+  }
   front_kernel<<<P.nblk, 256, sm, st>>>(
       P, ld, (uint8_t*)keep, (float*)weights, (int*)dagcnt,
       (uint8_t*)partial, (int*)list, (int*)nlist);
@@ -627,22 +687,6 @@ cudaError_t launch_ema(const ChainParams& P, const void* plain,
       (const float*)weights, (const float*)seeds, (uint8_t*)packed,
       (uint8_t*)packed_kur, (const int*)dagcnt, (float*)dag_frac);
   return cudaGetLastError();
-}
-
-// The EMA launch on power planes holding the streams the launch computes
-// from first_stream(P) on, (nstreams, npol, nblk, nchan) f32, every block
-// of the kurtosis stream transformed (chain.cu's CT-major layouts,
-// chain_v4.cu)
-cudaError_t launch_ema_streams(const ChainParams& P, const void* power,
-                               const void* weights, void* seeds,
-                               const void* bp_in, void* bp_out, void* packed,
-                               void* packed_kur, const void* dagcnt,
-                               void* dag_frac, cudaStream_t st) {
-  const float* plane = (const float*)power;
-  const float* kur =
-      P.rfi_mode == 2 ? plane + (long long)P.npol * P.nblk * P.nchan : plane;
-  return launch_ema(P, plane, kur, nullptr, weights, seeds, bp_in, bp_out,
-                    packed, packed_kur, dagcnt, dag_frac, st);
 }
 
 }  // namespace

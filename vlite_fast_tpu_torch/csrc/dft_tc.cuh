@@ -1,8 +1,12 @@
 // The Cooley-Tukey DFT and detect of one frame on Hopper's warpgroup
 // tensor cores (wgmma), in the TPU kernels' split-plane bf16 arithmetic,
 // fed by bulk copies (cp.async.bulk, the 1-D TMA).  Used by stage_ab.cu
-// (the staged chain: dft_detect_power and chain_second_plain) and by
-// chain.cu's natural layout (chain_second_v2, both streams).
+// (the staged chain: dft_detect_power and chain_second_plain) and by every
+// layout of chain.cu: the raw second (chain_second_v2) and the
+// Cooley-Tukey-major u8 or bf16 tiles (chain_second, chain_second_v4),
+// both streams.  The frames come through a loader (front.cuh), which
+// sets how they reach the frame tile; every loader puts the same bf16
+// values at the same places there, so the three chains give the same bits.
 //
 // Same function as the JAX package's _dft_detect_body
 // (vlite_fast_tpu/ops/megakernel.py:290-325) and the port's
@@ -52,9 +56,16 @@
 //   - the frame tile is one buffer cut in slices of 32 m2 rows: once both
 //     warpgroups have read slice h of frame f (stage 1, pass h), the
 //     consumers convert slice h of the next frame from its ring slot
-//     while their stage-2 products of pass h run on the tensor cores.
+//     while their stage-2 products of pass h run on the tensor cores;
+//   - CT-major tiles (CtMajor<T>): a frame's 32-row slice is one
+//     contiguous, aligned run of its tile (4 KB u8, 8 KB bf16), so the
+//     ring holds slices, not frames: thread 0 brings slice h of a frame
+//     into slot q % nslot (q = k npass + h, up to kCtSlots slots, at
+//     least npass + 1: a pass of lead), once per pass, and each item of
+//     the converter (8 m1 at one m2) is one 8- or 16-byte load.
 // Shared memory at the production split: W1 93 KB, W2 64 KB, the tile 28
-// KB, three 12.5 KB slots: 225 of 227 KB.  To fit, W1 stores only its rows
+// KB, three 12.5 KB slots: 225 of 227 KB (CT-major: 8 4-KB u8 slices, or 5
+// 8-KB bf16 ones, 220 and 223 KB).  To fit, W1 stores only its rows
 // up to n1 rounded up to 8 (the rows past them that the second
 // warpgroup's 64-row operand reaches read the next plane's finite values
 // and give rows k1 >= n1, which are never written).  W2 stores its whole
@@ -65,8 +76,9 @@
 // block's shared memory.
 // The twiddle (128 KB at production) stays in device memory, read in
 // accumulator order (L2-resident).  Splits up to n1 = 128 whose W1 planes
-// do not fit beside the rest (some with n1 >= 105 and n2 >= 113; not the
-// production 100 x 125) run split: two blocks transform each frame, one
+// do not fit beside the rest (some with n1 >= 105 and n2 >= 113, and on
+// bf16 tiles some with n1 >= 105 and n2 > 96; not the production 100 x
+// 125) run split: two blocks transform each frame, one
 // warpgroup and its 64 rows of W1 each.
 //
 // Padding: n1 rounds up to 16 in the stage-1 depth and to 64 in rows,
@@ -79,11 +91,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "front.cuh"
 
 namespace dft_tc {
 
 constexpr int kSlots = 3;                    // raw frames in flight
+constexpr int kCtSlots = 8;                  // CT-major slices, at most
 constexpr int kMaxWg = 2;                    // warpgroups (n1 <= 128)
 constexpr int kThreads = 128 * kMaxWg;
 constexpr int kSmemMax = 232448;             // bytes a block may use
@@ -95,13 +110,19 @@ struct Geom {
   int rg1;    // W1 rows stored, in 8-row groups: ceil(n1 / 8)
   int npass;  // stage-1 passes of 32 m2 columns: ceil(n2 / 32)
   int kb2;    // W2 depth (m2) stored, in 8-wide core blocks: 4 npass
-  int slot;   // bytes of one raw-frame slot
+  int ct;     // bytes of a CT-major tile's element (1, 2), 0: natural
+  int slot;   // bytes of one ring slot: a raw frame, or a CT slice
+  int nslot;  // ring slots: kSlots raw frames, or up to kCtSlots slices
   int split;  // 1: two blocks per frame, one warpgroup's 64 rows each
   // shared memory: byte sizes and offsets
   int w1_plane, w2_plane, tile, ring, bars, smem;
 };
 
-inline Geom make_geom(int nfft, int n1, int n2) {
+// ct: 0 for the raw second (NaturalU8), else the element bytes of the
+// CT-major tiles (CtMajor<uint8_t> 1, CtMajor<__nv_bfloat16> 2), whose
+// ring holds slices of 32 tile rows (m2) and needs npass + 1 of them: one
+// pass of lead over the slice the consumers convert next
+inline Geom make_geom(int nfft, int n1, int n2, int ct = 0) {
   Geom g;
   g.nfft = nfft;
   g.n1 = n1;
@@ -113,24 +134,32 @@ inline Geom make_geom(int nfft, int n1, int n2) {
   g.rg1 = (n1 + 7) / 8;
   g.npass = (n2 + 31) / 32;
   g.kb2 = 4 * g.npass;
-  g.slot = (nfft + 15) / 16 * 16 + 16;
+  g.ct = ct;
+  g.slot = ct ? (n2 < 32 ? n2 : 32) * 128 * ct : (nfft + 15) / 16 * 16 + 16;
   g.w2_plane = 8 * g.kb2 * 128;             // 64 k2 rows x 8 kb2 m2
   for (g.split = 0; g.split < 2; ++g.split) {
     g.w1_plane = (g.split ? 8 : g.rg1) * g.kb1 * 128;
     g.tile = 4 * g.w1_plane + 4 * g.w2_plane;
     g.ring = g.tile + 4 * g.npass * g.kb1 * 128;
-    g.bars = g.ring + kSlots * g.slot;
-    g.smem = g.bars + kSlots * 8;
-    if (g.smem <= kSmemMax || g.nwg < 2) break;
+    g.nslot = kSlots;
+    if (ct) {
+      const int room = (kSmemMax - g.ring - kCtSlots * 8) / g.slot;
+      g.nslot = room < kCtSlots ? room : kCtSlots;
+    }
+    g.bars = g.ring + g.nslot * g.slot;
+    g.smem = g.bars + g.nslot * 8;
+    if ((g.smem <= kSmemMax && (!ct || g.nslot > g.npass)) || g.nwg < 2)
+      break;
   }
   return g;
 }
 
 // the splits the kernel takes (checked by the host before a launch; the
-// port's ops/megakernel.tc_fits is the same test)
+// port's ops/megakernel.tc_fits is the same test, for every loader)
 inline bool fits(const Geom& g) {
   return g.n1 >= 2 && g.n1 <= 64 * kMaxWg && g.n2 <= 128 &&
-         g.n2_out <= 64 && g.smem <= kSmemMax;
+         g.n2_out <= 64 && g.smem <= kSmemMax &&
+         (!g.ct || g.nslot > g.npass);
 }
 
 // ---------------------------------------------------------------- PTX ----
@@ -281,8 +310,11 @@ __device__ __forceinline__ float volt_u8(uint8_t u) {
 
 // ---------------------------------------------------------------- jobs ---
 
-// The frames a launch transforms.  Job i < npol * nblk is frame (p, j) =
-// (i / nblk, i % nblk) of the raw second, unmasked, written to `power`
+// The frames a launch transforms, read through the loader Ld: NaturalU8
+// (the raw second) or CtMajor<T> (the Cooley-Tukey-major tiles of
+// ops/megakernel.pallas_pretranspose, T uint8_t or __nv_bfloat16; frame
+// sample (m1, m2) at tile row m2, lane m1).  Job i < npol * nblk is frame
+// (p, j) = (i / nblk, i % nblk) of the second, unmasked, written to `power`
 // row i (pol-major: the chain's (npol, nblk, nchan) plane) or, with ffts
 // > 0, row (s * npol + p) * ffts + t for j = s * ffts + t (stage A's
 // (nseg, npol * ffts, nchan)).  With a list, job npol * nblk + b * npol +
@@ -290,8 +322,9 @@ __device__ __forceinline__ float volt_u8(uint8_t u) {
 // the frame zero where keep[w] == 0), written to `power_kur` at the
 // frame's pol-major row: the kurtosis stream of the blocks the front
 // flagged in part.
+template <class Ld>
 struct Jobs {
-  NaturalU8 ld;
+  Ld ld;
   int npol;
   long long nblk;
   int ffts;
@@ -304,12 +337,25 @@ struct Jobs {
 };
 
 struct Job {
-  long long src;          // offset of the frame's first byte in raw
+  long long src;          // offset of the frame's first element in the input
   const uint8_t* keep;    // its keep flags, nullptr when unmasked
   float* out;             // its power row
 };
 
-__device__ __forceinline__ Job job_of(const Jobs& J, long long i,
+// the offset of frame (p, j)'s first element: in the raw second, or of
+// its tile
+__device__ __forceinline__ long long frame_src(const NaturalU8& ld,
+                                               long long p, long long j) {
+  return p * ld.nsamp + j * (long long)ld.nfft;
+}
+template <class T>
+__device__ __forceinline__ long long frame_src(const CtMajor<T>& ld,
+                                               long long p, long long j) {
+  return ld.tile(p, j);
+}
+
+template <class Ld>
+__device__ __forceinline__ Job job_of(const Jobs<Ld>& J, long long i,
                                       int nchan) {
   const long long nplain = (long long)J.npol * J.nblk;
   Job o;
@@ -331,13 +377,13 @@ __device__ __forceinline__ Job job_of(const Jobs& J, long long i,
     o.keep = J.keep + j * J.wpf;
     o.out = J.power_kur + (p * J.nblk + j) * nchan;
   }
-  o.src = p * J.ld.nsamp + j * (long long)J.ld.nfft;
+  o.src = frame_src(J.ld, p, j);
   return o;
 }
 
 // [lo, hi): the bytes of the frame at `src` that one bulk copy brings, the
 // 16-byte-aligned span around it clamped to the buffer (hi == lo: none)
-__device__ __forceinline__ void span(const Jobs& J, long long src,
+__device__ __forceinline__ void span(const Jobs<NaturalU8>& J, long long src,
                                      long long& lo, long long& hi) {
   const unsigned long long base = (unsigned long long)J.ld.raw;
   const unsigned long long end =
@@ -351,11 +397,25 @@ __device__ __forceinline__ void span(const Jobs& J, long long src,
   hi = h > l ? (long long)(h - base) : lo;
 }
 
+// the element type a loader reads: bytes of the raw second, or the tiles'
+template <class Ld>
+struct ElemOf {
+  using type = uint8_t;
+};
+template <class T>
+struct ElemOf<CtMajor<T>> {
+  using type = T;
+};
+
 // ---------------------------------------------------------------- kernel -
 
+template <class Ld>
 __global__ void __launch_bounds__(kThreads, 1)
-    dft_tc_kernel(Geom G, Jobs J, const uint4* __restrict__ w1,
-                  const float4* __restrict__ tw, const uint4* __restrict__ w2) {
+    dft_tc_kernel(Geom G, Jobs<Ld> J, const uint4* __restrict__ w1,
+                  const float4* __restrict__ tw,
+                  const uint4* __restrict__ w2) {
+  constexpr bool kCt = !std::is_same<Ld, NaturalU8>::value;
+  using Elem = typename ElemOf<Ld>::type;
   extern __shared__ __align__(128) unsigned char smem[];
   uint64_t* full = (uint64_t*)(smem + G.bars);
   unsigned char* ring = smem + G.ring;
@@ -384,7 +444,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
   fence_async_smem();
   if (tid == 0) {
-    for (int s = 0; s < kSlots; ++s) mbar_init(&full[s], 1);
+    for (int s = 0; s < (kCt ? G.nslot : kSlots); ++s) mbar_init(&full[s], 1);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
@@ -394,19 +454,44 @@ __global__ void __launch_bounds__(kThreads, 1)
   // (kSlots jobs ahead; a slot is refilled once every thread has passed
   // the barrier after converting it)
   auto fetch = [&](int k) {
-    const long long i = j0 + k * jstep;
-    if (i >= njobs) return;
-    long long lo, hi;
-    span(J, job_of(J, i, G.nchan).src, lo, hi);
-    const int s = k % kSlots;
-    fence_async_smem();
-    mbar_expect_tx(&full[s], (uint32_t)(hi - lo));
-    if (hi > lo)
-      bulk_copy(ring + s * G.slot, J.ld.raw + lo, (uint32_t)(hi - lo),
-                &full[s]);
+    if constexpr (!kCt) {
+      const long long i = j0 + k * jstep;
+      if (i >= njobs) return;
+      long long lo, hi;
+      span(J, job_of(J, i, G.nchan).src, lo, hi);
+      const int s = k % kSlots;
+      fence_async_smem();
+      mbar_expect_tx(&full[s], (uint32_t)(hi - lo));
+      if (hi > lo)
+        bulk_copy(ring + s * G.slot, J.ld.raw + lo, (uint32_t)(hi - lo),
+                  &full[s]);
+    }
   };
-  if (tid == 0)
-    for (int k = 0; k < kSlots; ++k) fetch(k);
+  // CT-major tiles: unit q = k npass + h is slice h (tile rows [32h, 32h +
+  // 32) within n2, one contiguous run) of local job k, brought into slot q
+  // % nslot, nslot - npass >= 1 passes ahead of the consumers
+  auto fetch_ct = [&](int q) {
+    if constexpr (kCt) {
+      const int k = q / G.npass, h = q - k * G.npass;
+      const long long i = j0 + k * jstep;
+      if (i >= njobs) return;
+      const int rows = G.n2 - 32 * h < 32 ? G.n2 - 32 * h : 32;
+      const uint32_t bytes = rows * 128 * (uint32_t)sizeof(Elem);
+      const int s = q % G.nslot;
+      fence_async_smem();
+      mbar_expect_tx(&full[s], bytes);
+      bulk_copy(ring + s * G.slot,
+                J.ld.x + job_of(J, i, G.nchan).src + 32 * h * 128, bytes,
+                &full[s]);
+    }
+  };
+  if constexpr (kCt) {
+    if (tid == 0)
+      for (int q = 0; q < G.nslot; ++q) fetch_ct(q);
+  } else {
+    if (tid == 0)
+      for (int k = 0; k < kSlots; ++k) fetch(k);
+  }
 
   const int wg = tid >> 7, wl = (tid >> 5) & 3, lane = tid & 31;
   const int g = lane >> 2, t4 = lane & 3;
@@ -429,57 +514,124 @@ __global__ void __launch_bounds__(kThreads, 1)
   // take the sample-by-sample path.
   auto convert = [&](const Job& jb, int slot, long long lo, long long hi,
                      int h) {
-    const unsigned char* sl = ring + slot * G.slot;
-    const bool whole = jb.src >= lo && jb.src + G.nfft <= hi;
-    const uint32_t fr = saddr(sl) + (uint32_t)(whole ? jb.src - lo : 0);
-    for (int it = tid; it < 32 * G.kb1; it += nthr) {
-      const int m2 = 32 * h + (it & 31), c = it >> 5;
-      const int n0 = 8 * c * G.n2 + m2;
-      float v[8] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-      if (m2 < G.n2 && whole && 8 * c + 8 <= G.n1) {
-        uint32_t b[8];
+    if constexpr (!kCt) {
+      const unsigned char* sl = ring + slot * G.slot;
+      const bool whole = jb.src >= lo && jb.src + G.nfft <= hi;
+      const uint32_t fr = saddr(sl) + (uint32_t)(whole ? jb.src - lo : 0);
+      for (int it = tid; it < 32 * G.kb1; it += nthr) {
+        const int m2 = 32 * h + (it & 31), c = it >> 5;
+        const int n0 = 8 * c * G.n2 + m2;
+        float v[8] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+        if (m2 < G.n2 && whole && 8 * c + 8 <= G.n1) {
+          uint32_t b[8];
 #pragma unroll
-        for (int e = 0; e < 8; ++e)
-          asm volatile("ld.shared.u8 %0, [%1];"
-                       : "=r"(b[e])
-                       : "r"(fr + n0 + e * G.n2));
+          for (int e = 0; e < 8; ++e)
+            asm volatile("ld.shared.u8 %0, [%1];"
+                         : "=r"(b[e])
+                         : "r"(fr + n0 + e * G.n2));
 #pragma unroll
-        for (int e = 0; e < 8; ++e) v[e] = volt_u8((uint8_t)b[e]);
-        if (jb.keep) {
-          int w = n0 / J.nkurto, r = n0 - w * J.nkurto;
+          for (int e = 0; e < 8; ++e) v[e] = volt_u8((uint8_t)b[e]);
+          if (jb.keep) {
+            int w = n0 / J.nkurto, r = n0 - w * J.nkurto;
+#pragma unroll
+            for (int e = 0; e < 8; ++e) {
+              if (!__ldg(jb.keep + w)) v[e] = 0.0f;
+              for (r += G.n2; r >= J.nkurto; r -= J.nkurto) ++w;
+            }
+          }
+        } else if (m2 < G.n2) {
 #pragma unroll
           for (int e = 0; e < 8; ++e) {
-            if (!__ldg(jb.keep + w)) v[e] = 0.0f;
-            for (r += G.n2; r >= J.nkurto; r -= J.nkurto) ++w;
+            const int n = n0 + e * G.n2;
+            if (8 * c + e < G.n1) {
+              const long long o = jb.src + n;
+              v[e] = volt_u8((o >= lo && o < hi) ? sl[o - lo]
+                                                 : __ldg(J.ld.raw + o));
+              if (jb.keep && !__ldg(jb.keep + n / J.nkurto)) v[e] = 0.0f;
+            }
           }
         }
-      } else if (m2 < G.n2) {
+        // both voltages of a pair are exact in bf16: their top halves
+        uint32_t word[4];
 #pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          const int n = n0 + e * G.n2;
-          if (8 * c + e < G.n1) {
-            const long long o = jb.src + n;
-            v[e] = volt_u8((o >= lo && o < hi) ? sl[o - lo]
-                                               : __ldg(J.ld.raw + o));
-            if (jb.keep && !__ldg(jb.keep + n / J.nkurto)) v[e] = 0.0f;
-          }
-        }
+        for (int e = 0; e < 8; e += 2)
+          word[e >> 1] = __byte_perm(__float_as_uint(v[e]),
+                                     __float_as_uint(v[e + 1]), 0x7632);
+        *(uint4*)(smem + G.tile + (m2 >> 3) * sbo1 + c * 128 +
+                  (m2 & 7) * 16) = make_uint4(word[0], word[1], word[2],
+                                              word[3]);
       }
-      // both voltages of a pair are exact in bf16: their top halves
-      uint32_t word[4];
+    }
+  };
+  // CT-major tiles: slice h of a job's frame, unit q, waited for in its
+  // slot and converted as `convert` does, into the same values at the
+  // same places.  A core-matrix row (8 m1 at one m2) is 8 elements of tile
+  // row m2, contiguous: one 8-byte (u8) or 16-byte (bf16) load.  bf16
+  // tiles hold the voltages already (exact: the words are the tile's
+  // top halves); lanes m1 >= n1 and masked windows become 0 by clearing
+  // their halves.
+  auto convert_ct = [&](const Job& jb, int q, int h) {
+    if constexpr (kCt) {
+      const int slot = q % G.nslot;
+      mbar_wait(&full[slot], (uint32_t)(q / G.nslot) & 1);
+      const uint32_t sl = saddr(ring + slot * G.slot);
+      for (int it = tid; it < 32 * G.kb1; it += nthr) {
+        const int r = it & 31, m2 = 32 * h + r, c = it >> 5;
+        const int nv = G.n1 - 8 * c;      // lanes of the core block in n1
+        uint32_t word[4] = {0u, 0u, 0u, 0u};
+        if (m2 < G.n2 && nv > 0) {
+          const uint32_t a =
+              sl + (uint32_t)((r * 128 + 8 * c) * sizeof(Elem));
+          if constexpr (sizeof(Elem) == 1) {
+            uint32_t b[2];
+            asm volatile("ld.shared.v2.u32 {%0, %1}, [%2];"
+                         : "=r"(b[0]), "=r"(b[1])
+                         : "r"(a));
 #pragma unroll
-      for (int e = 0; e < 8; e += 2)
-        word[e >> 1] = __byte_perm(__float_as_uint(v[e]),
-                                   __float_as_uint(v[e + 1]), 0x7632);
-      *(uint4*)(smem + G.tile + (m2 >> 3) * sbo1 + c * 128 + (m2 & 7) * 16) =
-          make_uint4(word[0], word[1], word[2], word[3]);
+            for (int w = 0; w < 4; ++w) {
+              const uint32_t x = b[w >> 1] >> (16 * (w & 1));
+              const float v0 = volt_u8((uint8_t)x);
+              const float v1 = volt_u8((uint8_t)(x >> 8));
+              word[w] = __byte_perm(__float_as_uint(v0), __float_as_uint(v1),
+                                    0x7632);
+            }
+          } else {
+            asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];"
+                         : "=r"(word[0]), "=r"(word[1]), "=r"(word[2]),
+                           "=r"(word[3])
+                         : "r"(a));
+          }
+          uint32_t kept = nv < 8 ? (1u << nv) - 1 : 0xFFu;
+          if (jb.keep) {
+            const int n0 = 8 * c * G.n2 + m2;
+            int w = n0 / J.nkurto, rr = n0 - w * J.nkurto;
+#pragma unroll
+            for (int e = 0; e < 8; ++e) {
+              if (e < nv && !__ldg(jb.keep + w)) kept &= ~(1u << e);
+              for (rr += G.n2; rr >= J.nkurto; rr -= J.nkurto) ++w;
+            }
+          }
+          if (kept != 0xFFu) {
+#pragma unroll
+            for (int w = 0; w < 4; ++w)
+              word[w] &= ((kept >> (2 * w)) & 1 ? 0x0000FFFFu : 0u) |
+                         ((kept >> (2 * w + 1)) & 1 ? 0xFFFF0000u : 0u);
+          }
+        }
+        *(uint4*)(smem + G.tile + (m2 >> 3) * sbo1 + c * 128 +
+                  (m2 & 7) * 16) = make_uint4(word[0], word[1], word[2],
+                                              word[3]);
+      }
     }
   };
 
   long long i = j0;
   if (i >= njobs) return;
   Job cur = job_of(J, i, G.nchan);
-  {
+  if constexpr (kCt) {
+    for (int h = 0; h < G.npass; ++h) convert_ct(cur, h, h);
+    fence_async_smem();
+  } else {
     long long lo, hi;
     span(J, cur.src, lo, hi);
     mbar_wait(&full[0], 0);
@@ -493,8 +645,10 @@ __global__ void __launch_bounds__(kThreads, 1)
     long long nlo = 0, nhi = 0;
     if (more) {
       nxt = job_of(J, i + jstep, G.nchan);
-      span(J, nxt.src, nlo, nhi);
-      mbar_wait(&full[nslot], (uint32_t)((k + 1) / kSlots) & 1);
+      if constexpr (!kCt) {
+        span(J, nxt.src, nlo, nhi);
+        mbar_wait(&full[nslot], (uint32_t)((k + 1) / kSlots) & 1);
+      }
     }
     float pr[32], pi[32];
 #pragma unroll
@@ -503,7 +657,12 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int h = 0; h < G.npass; ++h) {
       named_sync(1, nthr);    // slice h holds this frame
       // job k was converted before this barrier: its slot takes job k + 3
-      if (h == 0 && tid == 0) fetch(k + kSlots);
+      // (CT: unit k npass + h's slot takes the unit nslot later)
+      if constexpr (kCt) {
+        if (tid == 0) fetch_ct(k * G.npass + h + G.nslot);
+      } else {
+        if (h == 0 && tid == 0) fetch(k + kSlots);
+      }
       // ---- stage 1, pass h: the four W1 planes against m2 [32h, 32h+32),
       // every k16 product from zero, added rounded to nearest
       float acc[4][16], c0[16], c1[16], c2[16], c3[16];
@@ -593,7 +752,12 @@ __global__ void __launch_bounds__(kThreads, 1)
         wgmma_n64_rs<1>(ci, rh[e], wih);
         wgmma_n64_rs<1>(ci, ih[e], wrh);
         wg_commit();
-        if (e == 0 && more) convert(nxt, nslot, nlo, nhi, h);
+        if (e == 0 && more) {
+          if constexpr (kCt)
+            convert_ct(nxt, (k + 1) * G.npass + h, h);
+          else
+            convert(nxt, nslot, nlo, nhi, h);
+        }
         wg_wait<1>();
         reg_fence(cr);
 #pragma unroll
@@ -626,12 +790,17 @@ __global__ void __launch_bounds__(kThreads, 1)
 // Launch over `max_jobs` jobs at most (the grid: one block per SM, fewer
 // for fewer jobs; split, an even number, two per job); the kernel reads
 // the listed count itself.
-inline cudaError_t launch(const Geom& G, const Jobs& J, long long max_jobs,
-                          const void* w1, const void* tw, const void* w2,
-                          cudaStream_t st) {
-  if (!fits(G)) return cudaErrorInvalidValue;
+template <class Ld>
+inline cudaError_t launch(const Geom& G, const Jobs<Ld>& J,
+                          long long max_jobs, const void* w1, const void* tw,
+                          const void* w2, cudaStream_t st) {
+  const int ct = std::is_same<Ld, NaturalU8>::value
+                     ? 0
+                     : (int)sizeof(typename ElemOf<Ld>::type);
+  if (!fits(G) || G.ct != ct) return cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(
-      dft_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, G.smem);
+      dft_tc_kernel<Ld>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      G.smem);
   if (e != cudaSuccess) return e;
   int dev = 0, nsm = 0;
   if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
@@ -642,7 +811,7 @@ inline cudaError_t launch(const Geom& G, const Jobs& J, long long max_jobs,
   int grid = (int)(want < nsm ? want : nsm);
   if (G.split) grid -= grid % 2;
   if (grid < 1) return cudaSuccess;
-  dft_tc_kernel<<<grid, G.split ? 128 : 128 * G.nwg, G.smem, st>>>(
+  dft_tc_kernel<Ld><<<grid, G.split ? 128 : 128 * G.nwg, G.smem, st>>>(
       G, J, (const uint4*)w1, (const float4*)tw, (const uint4*)w2);
   return cudaGetLastError();
 }

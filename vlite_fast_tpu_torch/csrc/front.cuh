@@ -12,14 +12,14 @@
 // the plain torch version and the JAX reference do (no contraction into
 // FMA); means are sum * (1/n), the form XLA gives jnp.mean.
 //
-// The voltages reach the front (and chain.cu's DFT) through a loader:
-// ld(p, j, n) is sample n of FFT block j of pol p, converted, and
-// ld.frame() fills a frame in shared memory.  NaturalU8 reads the raw
-// second, CtMajor the Cooley-Tukey-major tiles of
-// ops/megakernel.pallas_pretranspose, and rfi_front.cu's StagedU8 the
-// block's bytes it staged in shared memory.  Every layout sums the same
-// samples in the same order, so the statistics are bit-equal across
-// layouts.
+// The voltages reach the front through a loader: ld(p, j, n) is sample n
+// of FFT block j of pol p, converted.  NaturalU8 reads the raw second,
+// chain.cuh's StagedFrames the samples of CtMajor tiles (the
+// Cooley-Tukey-major layout of ops/megakernel.pallas_pretranspose) staged
+// in frame order, and rfi_front.cu's StagedU8 the block's bytes it staged
+// in shared memory.  Every layout sums the same samples in the same order,
+// so the statistics are bit-equal across layouts.  NaturalU8 and CtMajor
+// are also dft_tc.cuh's loaders.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -51,18 +51,6 @@ struct NaturalU8 {
                                               int n) const {
     return conv_u8(raw[(long long)p * nsamp + j * nfft + n]);
   }
-  // xs[n] = sample n of the frame (zero where keep[n / nkurto] == 0 when
-  // `masked`); neighbouring threads read neighbouring bytes
-  __device__ __forceinline__ void frame(int p, long long j, int n1, int n2,
-                                        const uint8_t* keep, int nkurto,
-                                        bool masked, float* xs) const {
-    const uint8_t* src = raw + (long long)p * nsamp + j * nfft;
-    for (int i = threadIdx.x; i < nfft; i += blockDim.x) {
-      float x = conv_u8(src[i]);
-      if (masked && !keep[i / nkurto]) x = 0.0f;
-      xs[i] = x;
-    }
-  }
 };
 
 // Cooley-Tukey-major tiles, (nseg, npol * ffts * 128, 128) of T (u8 raw
@@ -73,28 +61,11 @@ struct NaturalU8 {
 template <class T>
 struct CtMajor {
   const T* x;
-  int npol, ffts, n2;
-  __device__ __forceinline__ const T* tile(int p, long long j) const {
+  int npol, ffts;
+  // the offset of the tile's first element in x
+  __device__ __forceinline__ long long tile(long long p, long long j) const {
     const long long s = j / ffts, t = j - s * ffts;
-    return x + (((s * npol + p) * ffts + t) << 14);
-  }
-  __device__ __forceinline__ float operator()(int p, long long j,
-                                              int n) const {
-    const int m1 = n / n2, m2 = n - m1 * n2;
-    return volt(tile(p, j)[m2 * 128 + m1]);
-  }
-  // as NaturalU8::frame; neighbouring threads read neighbouring lanes
-  __device__ __forceinline__ void frame(int p, long long j, int n1, int n2_,
-                                        const uint8_t* keep, int nkurto,
-                                        bool masked, float* xs) const {
-    const T* src = tile(p, j);
-    for (int i = threadIdx.x; i < n1 * n2_; i += blockDim.x) {
-      const int m2 = i / n1, m1 = i - m2 * n1;
-      const int n = m1 * n2_ + m2;
-      float v = volt(src[m2 * 128 + m1]);
-      if (masked && !keep[n / nkurto]) v = 0.0f;
-      xs[n] = v;
-    }
+    return ((s * npol + p) * ffts + t) << 14;
   }
 };
 

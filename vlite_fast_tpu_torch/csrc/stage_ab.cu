@@ -55,9 +55,9 @@ extern "C" int vf_dft_detect_power(const long long* ip, const void* raw,
   if (!dft_tc::fits(G)) return (int)cudaErrorInvalidValue;
   const int ffts = (int)(nsamp / nseg / nfft);
   const long long nblk = (long long)nseg * ffts;
-  const dft_tc::Jobs J{NaturalU8{(const uint8_t*)raw, nsamp, nfft},
-                       npol, nblk, ffts, nullptr, nullptr, nullptr, 0, 1,
-                       (float*)power, nullptr};
+  const dft_tc::Jobs<NaturalU8> J{
+      NaturalU8{(const uint8_t*)raw, nsamp, nfft}, npol, nblk, ffts, nullptr,
+      nullptr, nullptr, 0, 1, (float*)power, nullptr};
   return (int)dft_tc::launch(G, J, npol * nblk, a1, tw, b2,
                              (cudaStream_t)stream);
 }
@@ -80,9 +80,9 @@ extern "C" int vf_chain_second_plain(const long long* ip, const float* fp,
   const dft_tc::Geom G = dft_tc::make_geom(P.nfft, P.n1, P.n2);
   if (P.rfi_mode != 0 || !dft_tc::fits(G)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  const dft_tc::Jobs J{NaturalU8{(const uint8_t*)raw, P.nsamp, P.nfft},
-                       P.npol, P.nblk, 0, nullptr, nullptr, nullptr, 0, 1,
-                       (float*)power, nullptr};
+  const dft_tc::Jobs<NaturalU8> J{
+      NaturalU8{(const uint8_t*)raw, P.nsamp, P.nfft}, P.npol, P.nblk, 0,
+      nullptr, nullptr, nullptr, 0, 1, (float*)power, nullptr};
   cudaError_t e = dft_tc::launch(G, J, (long long)P.npol * P.nblk, a1, tw,
                                  b2, st);
   if (e != cudaSuccess) return (int)e;

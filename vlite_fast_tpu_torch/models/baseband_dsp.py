@@ -124,25 +124,24 @@ _PRETRANSPOSE = {"megakernel": "xla", "megakernel3": "pallas",
 
 def chain_kernel_takes(cfg: PipelineConfig, layout: str = "natural") -> bool:
     """Configs the port's chain kernels (ops/megakernel) accept: the
-    injection-free, 2-bit, single-output-pol chain with the CT DFT.  The
-    natural layout ('natural', chain_second_v2) runs it on the tensor-core
-    DFT, which takes CT splits with n1 <= 128, n2 <= 128, n2_out <= 64
-    whose constant planes, frame tile and ring fit a block's shared memory
-    (ops/megakernel.tc_fits); the CT-major layout ('ct') needs both CT
-    factors within its 128 x 128 tile and one frame and its two stage-1
-    planes in one block's shared memory (227 KB on Hopper)."""
+    injection-free, 2-bit, single-output-pol chain with the CT DFT.  Every
+    layout ('natural', chain_second_v2; 'ct', chain_second and
+    chain_second_v4 on the CT-major tiles) runs it on the tensor-core DFT,
+    which takes CT splits with n1 <= 128, n2 <= 128, n2_out <= 64 whose
+    constant planes, frame tile and ring fit a block's shared memory
+    (ops/megakernel.tc_fits, for every loader)."""
     from vlite_fast_tpu_torch.ops import megakernel as mk
+    if layout not in ("natural", "ct"):
+        raise ValueError(f"chain_kernel_takes: layout {layout!r}")
     if cfg.inject_frb or cfg.channelizer != "matmul" or cfg.nbit != 2:
         return False
     if cfg.npol_out != 1 or cfg.npol_in not in (1, 2) or cfg.do_histo:
         return False
     try:
-        n1, n2 = ch_ops._ct_split(cfg.nfft)
+        ch_ops._ct_split(cfg.nfft)
     except ValueError:
         return False
-    if layout == "natural":
-        return mk.tc_fits(cfg.nfft)
-    return n1 <= 128 and n2 <= 128 and 3 * 4 * cfg.nfft <= 232448
+    return mk.tc_fits(cfg.nfft)
 
 
 def megakernel_supported(cfg: PipelineConfig) -> bool:

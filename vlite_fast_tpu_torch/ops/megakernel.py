@@ -11,8 +11,9 @@ on the injection-free twin:
                        csrc/pretranspose.cu;
   chain_second         (body _full_kernel) on those CT-major tiles:
                        csrc/chain.cu, layouts 1 (u8) and 2 (bf16);
-  chain_second_v4      (body _full_kernel_v4) the same with both DFT
-                       stages batched: csrc/chain_v4.cu.
+  chain_second_v4      (body _full_kernel_v4) the same, its DFT stages
+                       batched on the TPU: the same chain.cu launch on
+                       pallas_pretranspose's tiles.
 
 Two are the staged chain, the JAX package's milestones towards the
 fused kernel (its tests and benchmarks/bench_megakernel_tpu.py reach
@@ -26,18 +27,16 @@ them; no configuration does):
                        the bandpass carried: the same DFT, then chain.cuh's
                        EMA launch in rfi_mode 0.
 
-The three chains compute one function (a front, a Cooley-Tukey DFT, an
-EMA/back-end launch on the current stream).  chain_second_v2 runs its DFT
-on the tensor cores in the TPU kernels' split-plane bf16 arithmetic
-(wgmma, csrc/dft_tc.cuh, the same kernel as the staged chain's), the
-kurtosis stream's own transform only in the blocks the front flagged in
-part; chain_second and chain_second_v4 keep f32 DFTs on the CUDA cores
-(~0.36 TFLOP of FMA per data-second): chain.cu keeps each frame and its
-stage-1 planes in shared memory, chain_v4.cu passes a complex
-intermediate between two batched passes.  All three end in the same
-back end: a parallel pass for the EMA's per-segment seeds, then one
-thread per (stream, pol, channel) walking the spectra.  The source
-headers have the details.
+The three chains compute one function, as their TPU kernels do, and are
+one launch of csrc/chain.cu on the current stream: the front, the DFT on
+the tensor cores in the TPU kernels' split-plane bf16 arithmetic (wgmma,
+csrc/dft_tc.cuh, the same kernel as the staged chain's; the kurtosis
+stream's own transform only in the blocks the front flagged in part),
+then the EMA back end (a pass for each segment's starting bandpass, then
+one thread per (stream, segment, pol, channel)).  Only the loader
+differs: the raw second, or CT-major u8 or bf16 tiles, each putting the
+same bf16 frame in shared memory, so the three give the same bits.  The
+source headers have the details.
 
 They work in the natural layout: raw (npol, nsamp) u8 in, linear
 channels out.  The chains take the bandpass (2, npol, nchan) [plain;
@@ -83,23 +82,6 @@ LAUNCHES = {"chain_second_v2": 0, "pallas_pretranspose": 0,
             "dft_detect_power": 0, "chain_second_plain": 0}
 LANE = 128               # the CT-major tile is LANE x LANE
 PRETRANSPOSE = ("xla", "pallas", "pallas_bf16")
-# intermediate scratch of chain_second_v4 per launch chunk
-V4_CHUNK_BYTES = 256 * 2 ** 20
-
-_TABLES: dict = {}
-
-
-def _tables(nfft: int, device: torch.device) -> tuple:
-    """(w1, tw, w2[:, :n2_out]) as interleaved complex f32 on `device`."""
-    key = (nfft, str(device))
-    if key not in _TABLES:
-        n1, _ = ch_ops._ct_split(nfft)
-        w1, tw, w2 = ch_ops._ct_tables(nfft)
-        w2 = w2[:, :nfft // 2 // n1 + 1]
-        _TABLES[key] = tuple(
-            torch.view_as_real(torch.from_numpy(np.ascontiguousarray(t)))
-            .contiguous().to(device) for t in (w1, tw, w2))
-    return _TABLES[key]
 
 
 def chain_second_v2_plain(raw: torch.Tensor, bp: torch.Tensor,
@@ -240,29 +222,21 @@ def _ema_seeds(npol: int, nseg: int, nchan: int, device) -> torch.Tensor:
                        dtype=torch.float32, device=device)
 
 
-def _launch_chain(lib_name: str, fn_name: str, inp: torch.Tensor,
-                  layout: int, bp: torch.Tensor, cfg: PipelineConfig,
-                  chunk: int = 0):
-    """Allocate the outputs and scratch and launch csrc/<lib_name>.cu's
-    `fn_name` on `inp` in input layout `layout` (0 natural u8 on the
-    tensor-core DFT, 1 CT-major u8, 2 CT-major bf16); chunk > 0 adds
-    chain_v4's intermediate for `chunk` segments per pass."""
-    lib = _build.load(lib_name)
-    fn = getattr(lib, fn_name)
+def _launch_chain(inp: torch.Tensor, layout: int, bp: torch.Tensor,
+                  cfg: PipelineConfig):
+    """Allocate the outputs and scratch and launch csrc/chain.cu's
+    vf_chain_second on `inp` in input layout `layout` (0 the raw second,
+    1 CT-major u8 tiles, 2 CT-major bf16 tiles)."""
+    lib = _build.load("chain")
+    fn = lib.vf_chain_second
     dev = bp.device
     npol = cfg.npol_in
-    n1, n2 = ch_ops._ct_split(cfg.nfft)
     nrows = cfg.seg_per_sec * cfg.out_samps_per_seg
     nbytes = cfg.nchanout // 4
     nblk = cfg.seg_per_sec * cfg.ffts_per_seg
-    if layout == 0:
-        # the plain plane, and with the front the kurtosis plane of the
-        # blocks flagged in part
-        tables = tc_planes(cfg.nfft, dev)
-        nplanes = 1 if cfg.rfi_mode == 0 else 2
-    else:
-        tables = _tables(cfg.nfft, dev)
-        nplanes = 2 if cfg.rfi_mode == 2 else 1
+    # the plain plane, and with the front the kurtosis plane of the blocks
+    # flagged in part
+    nplanes = 1 if cfg.rfi_mode == 0 else 2
     power = torch.empty((nplanes, npol, nblk, cfg.nchan),
                         dtype=torch.float32, device=dev)
     keep = torch.empty((max(1, nblk * cfg.windows_per_fft),),
@@ -276,27 +250,21 @@ def _launch_chain(lib_name: str, fn_name: str, inp: torch.Tensor,
                            device=dev)
     bp_out = bp.clone()
     ivals, fvals = _chain_params(cfg, layout)
-    if chunk:
-        ivals.append(chunk)
-        scratch = [torch.empty(
-            (nplanes, chunk * npol * cfg.ffts_per_seg, n1, n2, 2),
-            dtype=torch.float32, device=dev)]
-    else:
-        # the front's list of blocks flagged in part: flags, ids, count
-        scratch = [torch.empty((nblk,), dtype=torch.uint8, device=dev),
-                   torch.empty((nblk,), dtype=torch.int32, device=dev),
-                   torch.zeros((1,), dtype=torch.int32, device=dev)]
+    # the front's list of blocks flagged in part: flags, ids, count
+    scratch = [torch.empty((nblk,), dtype=torch.uint8, device=dev),
+               torch.empty((nblk,), dtype=torch.int32, device=dev),
+               torch.zeros((1,), dtype=torch.int32, device=dev)]
     ip = (ctypes.c_longlong * len(ivals))(*ivals)
     fp = (ctypes.c_float * len(fvals))(*fvals)
     seeds = _ema_seeds(npol, cfg.seg_per_sec, cfg.nchan, dev)
-    ptrs = [_ptr(t) for t in (inp, *tables, bp, power, keep, dagcnt, seeds,
-                              *scratch, packed, packed_kur, weights,
-                              dag_frac, bp_out)]
+    ptrs = [_ptr(t) for t in (inp, *tc_planes(cfg.nfft, dev), bp, power,
+                              keep, dagcnt, seeds, *scratch, packed,
+                              packed_kur, weights, dag_frac, bp_out)]
     fn.argtypes = [ctypes.c_void_p] * (len(ptrs) + 3)
     fn.restype = ctypes.c_int
     rc = fn(ctypes.cast(ip, ctypes.c_void_p), ctypes.cast(fp, ctypes.c_void_p),
             *ptrs, ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
-    _build.check(rc, fn_name, lib)
+    _build.check(rc, "vf_chain_second", lib)
     return packed, packed_kur, weights, dag_frac, bp_out
 
 
@@ -313,7 +281,7 @@ def chain_second_v2(raw: torch.Tensor, bp: torch.Tensor,
     if raw.device.type == "cpu":
         return chain_second_v2_plain(raw, bp, cfg)
     _check_chain_args("chain_second_v2", raw, bp, cfg, "natural")
-    out = _launch_chain("chain", "vf_chain_second", raw, 0, bp, cfg)
+    out = _launch_chain(raw, 0, bp, cfg)
     LAUNCHES["chain_second_v2"] += 1
     return out
 
@@ -338,18 +306,19 @@ def chain_second(raw: torch.Tensor, bp: torch.Tensor, cfg: PipelineConfig,
         xs, layout = pallas_pretranspose(*args), 1
     else:
         xs, layout = pallas_pretranspose(*args, torch.bfloat16), 2
-    out = _launch_chain("chain", "vf_chain_second", xs, layout, bp, cfg)
+    out = _launch_chain(xs, layout, bp, cfg)
     LAUNCHES["chain_second"] += 1
     return out
 
 
 def chain_second_v4(raw: torch.Tensor, bp: torch.Tensor, cfg: PipelineConfig,
                     pre_dtype: str = "u8", pre_impl: str = "mxu"):
-    """chain_second with both DFT stages batched, on pallas_pretranspose's
-    tiles (pre_dtype 'u8' or 'bf16').  pre_impl ('mxu' | 'xlu') picks the
-    TPU's transpose engine, which gives identical bytes either way; it is
-    checked and has no other effect here.  Same arguments and returns as
-    chain_second_v2."""
+    """chain_second on pallas_pretranspose's tiles (pre_dtype 'u8' or
+    'bf16'): the TPU kernel batches both DFT stages, the card runs the
+    same chain.cu launch as chain_second.  pre_impl ('mxu' | 'xlu') picks
+    the TPU's transpose engine, which gives identical bytes either way; it
+    is checked and has no other effect here.  Same arguments and returns
+    as chain_second_v2."""
     if pre_dtype not in ("u8", "bf16") or pre_impl not in ("mxu", "xlu"):
         raise ValueError(f"chain_second_v4: pre_dtype {pre_dtype!r}, "
                          f"pre_impl {pre_impl!r}")
@@ -359,12 +328,7 @@ def chain_second_v4(raw: torch.Tensor, bp: torch.Tensor, cfg: PipelineConfig,
     bf16 = pre_dtype == "bf16"
     xs = pallas_pretranspose(raw, cfg.nfft, cfg.npol_in, cfg.seg_per_sec,
                              torch.bfloat16 if bf16 else torch.uint8)
-    n1, n2 = ch_ops._ct_split(cfg.nfft)
-    seg_bytes = (2 if cfg.rfi_mode == 2 else 1) * cfg.npol_in \
-        * cfg.ffts_per_seg * n1 * n2 * 8
-    chunk = max(1, min(cfg.seg_per_sec, V4_CHUNK_BYTES // seg_bytes))
-    out = _launch_chain("chain_v4", "vf_chain_second_v4", xs,
-                        2 if bf16 else 1, bp, cfg, chunk=chunk)
+    out = _launch_chain(xs, 2 if bf16 else 1, bp, cfg)
     LAUNCHES["chain_second_v4"] += 1
     return out
 
@@ -472,13 +436,14 @@ def dft_detect_oracle(raw: torch.Tensor, nfft: int, npol: int,
 
 class TcGeometry(NamedTuple):
     """The tensor-core DFT's shapes for nfft = n1 * n2 (csrc/dft_tc.cuh's
-    Geom): consumer warpgroups (64 rows k1 each), the stage-1 depth in
-    8-wide core blocks, the W1 rows stored in 8-row groups, the stage-1
-    passes of 32 m2 columns, the W2 depth stored in 8-wide core blocks
-    (all 32 npass columns that stage 2 walks),
-    whether two blocks share each frame (one warpgroup's 64 rows of W1
-    each, where all of W1 does not fit) and the block's shared memory in
-    bytes."""
+    Geom) and one loader (ct: 0 the raw second, else the element bytes of
+    the CT-major tiles): consumer warpgroups (64 rows k1 each), the stage-1
+    depth in 8-wide core blocks, the W1 rows stored in 8-row groups, the
+    stage-1 passes of 32 m2 columns, the W2 depth stored in 8-wide core
+    blocks (all 32 npass columns that stage 2 walks), the ring's slots
+    (raw frames, or CT slices of 32 tile rows), whether two blocks share
+    each frame (one warpgroup's 64 rows of W1 each, where all of W1 does
+    not fit) and the block's shared memory in bytes."""
 
     n1: int
     n2: int
@@ -488,35 +453,45 @@ class TcGeometry(NamedTuple):
     rg1: int
     npass: int
     kb2: int
+    nslot: int
     split: bool
     smem: int
 
 
 TC_SMEM_MAX = 232448     # shared memory a block may use on Hopper
 TC_SLOTS = 3             # raw frames in flight (dft_tc.cuh's kSlots)
+TC_CT_SLOTS = 8          # CT slices in flight, at most (kCtSlots)
 
 
-def tc_geometry(nfft: int) -> TcGeometry:
+def tc_geometry(nfft: int, ct: int = 0) -> TcGeometry:
     n1, n2 = ch_ops._ct_split(nfft)
     kb1, rg1, npass = 2 * -(-n1 // 16), -(-n1 // 8), -(-n2 // 32)
     kb2, nwg = 4 * npass, -(-n1 // 64)
-    slot = -(-nfft // 16) * 16 + 16
+    slot = min(32, n2) * 128 * ct if ct else -(-nfft // 16) * 16 + 16
     for split in (False, True):
-        smem = (4 * (8 if split else rg1) * kb1 + 4 * 8 * kb2
-                + 4 * npass * kb1) * 128 + TC_SLOTS * slot + 2 * TC_SLOTS * 8
-        if smem <= TC_SMEM_MAX or nwg < 2:
+        ring = (4 * (8 if split else rg1) * kb1 + 4 * 8 * kb2
+                + 4 * npass * kb1) * 128
+        nslot = TC_SLOTS if not ct else min(
+            TC_CT_SLOTS, (TC_SMEM_MAX - ring - 8 * TC_CT_SLOTS) // slot)
+        smem = ring + nslot * slot + 8 * nslot
+        if (smem <= TC_SMEM_MAX and (not ct or nslot > npass)) or nwg < 2:
             break
     return TcGeometry(n1, n2, nfft // 2 // n1 + 1, nwg, kb1, rg1, npass, kb2,
-                      split, smem)
+                      nslot, split, smem)
 
 
 def tc_fits(nfft: int) -> bool:
-    """Whether the tensor-core DFT takes nfft's CT split: n1 <= 128 (two
-    warpgroups), n2 <= 128, n2_out <= 64 (one m64n64 stage-2 product) and
-    its planes, frame tile and ring within a block's shared memory."""
-    g = tc_geometry(nfft)
-    return 2 <= g.n1 <= 128 and g.n2 <= 128 and g.n2_out <= 64 \
-        and g.smem <= TC_SMEM_MAX
+    """Whether the tensor-core DFT takes nfft's CT split, for every loader
+    (the raw second, u8 and bf16 CT-major tiles): n1 <= 128 (two
+    warpgroups), n2 <= 128, n2_out <= 64 (one m64n64 stage-2 product), its
+    planes, frame tile and ring within a block's shared memory, and for
+    the tiles at least npass + 1 slices in the ring."""
+    for ct in (0, 1, 2):
+        g = tc_geometry(nfft, ct)
+        if not (2 <= g.n1 <= 128 and g.n2 <= 128 and g.n2_out <= 64
+                and g.smem <= TC_SMEM_MAX and (not ct or g.nslot > g.npass)):
+            return False
+    return True
 
 
 def tc_planes(nfft: int, device) -> tuple:
