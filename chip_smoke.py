@@ -42,8 +42,8 @@ Phases, each printing a line:
      three kernels, against process_second_plain on torch ops;
   8. the relayout kernel (ops/megakernel.pallas_pretranspose) against its
      plain version on one full-geometry second: u8 tiles byte-equal, bf16
-     tiles value-equal; the u8 tiles timed beside one PyTorch call that
-     gives them (F.pad of the permuted view);
+     tiles value-equal; both timed beside their bounds, the u8 tiles
+     beside one PyTorch call that gives them (F.pad of the permuted view);
   9. the pretransposed chain kernels (csrc/chain.cu on the CT-major
      tiles, the same tensor-core DFT as phase 2's) on phase 2's two
      seconds: chain_second in its three pretranspose modes and
@@ -77,7 +77,8 @@ Phases, each printing a line:
      csrc/tile_bench.cu, the JAX package's
      benchmarks/bench_transpose_prims_tpu.py): its path, the script's
      three modes at its shapes (320 steps x 128 tiles), each equal to its
-     plain version and timed;
+     plain version and timed beside its bound (the adds; for 'mxu' the
+     identity products it prescribes, at the bf16 peak);
 then the run's wall time, one JSON line of per-kernel results (each with
 its time, its plain version's, its bound from this run's shapes, the
 library call's time where one PyTorch call computes the function, and
@@ -432,11 +433,11 @@ def phase_pretranspose(dev, raw) -> dict:
     library = lambda: torch.nn.functional.pad(
         raw.reshape(cfg.npol_in, cfg.seg_per_sec, -1, n1, n2)
         .permute(1, 0, 2, 4, 3), (0, mk.LANE - n1, 0, mk.LANE - n2))
-    res = {}
+    res, bounds = {}, {}
     for dtype, what in ((torch.uint8, "u8"), (torch.bfloat16, "bf16")):
         got = mk.pallas_pretranspose(*args, dtype)
+        bounds[what] = bound(nbytes(raw, got), 0)
         if dtype == torch.uint8:
-            pre_bound = bound(nbytes(raw, got), 0)
             check(torch.equal(library().reshape(got.shape), got),
                   "pallas_pretranspose u8: differs from the padded view")
             lib_ms = cuda_ms(library, 5)
@@ -450,17 +451,20 @@ def phase_pretranspose(dev, raw) -> dict:
                              5), plain_ms)
     log(f"[8] pallas_pretranspose kernel vs plain, one full-geometry second "
         f"({tuple(raw.shape)} u8 -> {shape} tiles): u8 byte-equal, bf16 "
-        f"value-equal; kernel {res['u8'][0]:.3f} ms u8, {res['bf16'][0]:.3f} "
-        f"ms bf16 (CUDA events, 5 reps), bound {pre_bound['bound_ms']:.3f} "
-        f"ms u8 ({pre_bound['bound_by']}), plain {res['u8'][1]:.0f} / "
+        f"value-equal; kernel {res['u8'][0]:.3f} ms u8 (bound "
+        f"{bounds['u8']['bound_ms']:.3f} ms, {bounds['u8']['bound_by']}), "
+        f"{res['bf16'][0]:.3f} ms bf16 (bound "
+        f"{bounds['bf16']['bound_ms']:.3f} ms, {bounds['bf16']['bound_by']}) "
+        f"(CUDA events, 5 reps), plain {res['u8'][1]:.0f} / "
         f"{res['bf16'][1]:.0f} ms (wall), F.pad of the permuted view (u8, "
         f"equal) {lib_ms:.3f} ms (CUDA events)")
     return {"name": "pallas_pretranspose", "route": "cuda",
             "source": "vlite_fast_tpu_torch/csrc/pretranspose.cu",
             "replaces": "vlite_fast_tpu/ops/megakernel.py:221",
             "max_abs_err": 0.0, "ms": res["u8"][0], "plain_ms": res["u8"][1],
-            "library_ms": lib_ms, **pre_bound,
-            "ms_bf16": res["bf16"][0], "plain_ms_bf16": res["bf16"][1]}
+            "library_ms": lib_ms, **bounds["u8"],
+            "ms_bf16": res["bf16"][0], "plain_ms_bf16": res["bf16"][1],
+            "bound_ms_bf16": bounds["bf16"]["bound_ms"]}
 
 
 def phase_ct_chains(dev, raws, v2_gots, wants, plain_ms) -> list:
@@ -1123,22 +1127,27 @@ def phase_tile_bench(dev) -> dict:
         want, plain_ms[impl] = timed_wall(lambda: tp.tile_sum_plain(x, impl))
         check(torch.equal(y, want), f"tile_bench[{impl}]: differs from plain")
     x, y, _ = runs["xlu"]
-    b = bound(nbytes(x, y), tp.REPS * tp.NB * tp.LANE * tp.LANE)
+    # the adds of the sums; 'mxu' the identity products it prescribes
+    tiles = tp.REPS * tp.NB
+    b = {impl: bound(nbytes(x, y), tiles * tp.LANE ** 2) for impl in
+         ("none", "xlu")}
+    b["mxu"] = bound(nbytes(x, y), tiles * 2 * tp.LANE ** 3, "bf16")
     ms = {impl: r[2] for impl, r in runs.items()}
     log(f"[14] tile_bench kernel (csrc/tile_bench.cu) vs plain, the script's "
         f"shapes ({tp.REPS} steps x {tp.NB} tiles of 128 x 128 f32): all "
         f"three modes equal; "
-        + ", ".join(f"{k} {v:.3f} ms" for k, v in ms.items())
-        + f" (CUDA events, 10 reps), bound {b['bound_ms']:.4f} ms "
-        f"({b['bound_by']}), plain "
+        + ", ".join(f"{k} {v:.3f} ms (bound {b[k]['bound_ms']:.4f} ms, "
+                    f"{b[k]['bound_by']})" for k, v in ms.items())
+        + " (CUDA events, 10 reps), plain "
         + " / ".join(f"{v:.0f}" for v in plain_ms.values())
         + f" ms (wall); {launches} launches on its path")
     return {"name": "tile_bench", "route": "cuda",
             "source": "vlite_fast_tpu_torch/csrc/tile_bench.cu",
             "replaces": "benchmarks/bench_transpose_prims_tpu.py:87",
             "launches": launches, "max_abs_err": 0.0, "ms": ms["xlu"],
-            "plain_ms": plain_ms["xlu"], "library_ms": None, **b,
-            "ms_by_impl": ms}
+            "plain_ms": plain_ms["xlu"], "library_ms": None, **b["xlu"],
+            "ms_by_impl": ms,
+            "bound_ms_by_impl": {k: v["bound_ms"] for k, v in b.items()}}
 
 
 def main() -> None:

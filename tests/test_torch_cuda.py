@@ -147,6 +147,34 @@ def test_pretranspose_kernel_matches_plain(cuda, npol):
                        tmk.pretranspose_u8(*args))
 
 
+@pytest.mark.parametrize("offset", [0, 5])
+@pytest.mark.parametrize("npol", [1, 2])
+@pytest.mark.parametrize("nfft", [12500, 2048, 10000, 630])
+def test_pretranspose_kernel_every_alignment(cuda, nfft, npol, offset):
+    """Frames 4-byte (12500), 16-byte (2048), 16-byte (10000) and 2-byte
+    (630) aligned, from a buffer at a 16-byte boundary or 5 bytes past
+    one, over enough tiles that the blocks walk runs of frames whose
+    length is no multiple of the ring's slots (and at most grid + 1
+    tiles, where a block holds one or two frames)."""
+    nsm = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for extra in (1, None):
+        grid = tmk.pretranspose_plan(nfft, 10 ** 6, False, nsm).grid
+        ntile = grid + 1 if extra else 4 * grid + 5
+        ffts = -(-ntile // (2 * npol))
+        nsamp = 2 * ffts * nfft
+        rng = np.random.default_rng(nfft + npol)
+        buf = torch.from_numpy(rng.integers(0, 256, npol * nsamp + offset,
+                                            dtype=np.uint8)).to(cuda)
+        raw = buf[offset:].view(npol, nsamp)
+        raw[0, :100] = 0                    # zero bytes convert to 0.0
+        args = (raw, nfft, npol, 2)
+        for dtype in (torch.uint8, torch.bfloat16):
+            got = tmk.pallas_pretranspose(*args, dtype)
+            want = tmk.pallas_pretranspose_plain(*args, dtype)
+            torch.cuda.synchronize()
+            assert got.dtype == dtype and torch.equal(got, want)
+
+
 @pytest.mark.parametrize("npol", [1, 2])
 @pytest.mark.parametrize("rfi_mode", [0, 1, 2])
 def test_chain_second_kernel_matches_plain(cuda, rfi_mode, npol):
@@ -994,6 +1022,20 @@ def test_ema_weighted_kernel_bit_equal(cuda, time_tile):
     assert (got[0][:, 32:64] == 0.0).all()
     # a tile of one spectrum reseeds at a spike instead of clipping it
     assert bool((got[0] == C.BP_CLIP_VALUE).any()) == (time_tile != 1)
+
+
+@pytest.mark.parametrize("nb", [1, 3, 128])
+@pytest.mark.parametrize("reps", [1, 7, 320])
+@pytest.mark.parametrize("impl", ttp.IMPLS)
+def test_tile_bench_kernel_every_cluster_fill(cuda, impl, reps, nb):
+    """Clusters of 8 steps: 1 and 7 steps fill none (the idle blocks only
+    take part in the cluster's barriers), 320 fill 40."""
+    x = torch.from_numpy(np.random.default_rng(nb).standard_normal(
+        (nb * ttp.LANE, ttp.LANE)).astype(np.float32)).to(cuda)
+    got = ttp.tile_sum(x, impl, reps=reps)
+    want = ttp.tile_sum_plain(x, impl)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("impl", ttp.IMPLS)

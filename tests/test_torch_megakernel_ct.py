@@ -232,3 +232,102 @@ def test_state_carry_from_jax_megakernel_second(chain_impl):
     _assert_bp(stt.bp, st2.bp)
     _assert_bp(stt.bp_kur, st2.bp_kur)
     assert stt.segs_since_inject == int(st2.segs_since_inject)
+
+
+@pytest.mark.parametrize("rfi_mode", [0, 2])
+def test_ct_plain_is_split_plane_at_seed_9(rfi_mode):
+    """The CT chains' plain version runs the TPU kernels' split-plane bf16
+    DFT: on the card test's seed-9 input (npol 2), where the f32 chain
+    puts plain-stream level [2, 237] of second 0 one level off, it gives
+    the JAX package's chain_second_v4 (interpret mode) level for level."""
+    cfg = _cfg(rfi_mode)
+    raw = _noise(cfg.sample_rate, seed=9, burst_at=40000)
+    bp0 = jmk.bp_to_factored_v2(jnp.zeros((4, cfg.nchan), jnp.float32), NFFT)
+    want = _refold(cfg, *jmk.chain_second_v4(
+        jnp.asarray(raw), bp0, *_jax_args(cfg), pre_dtype="u8",
+        pre_impl="xlu"), jmk.unfactor_pack_realign_v2,
+        jmk.bp_from_factored_v2)
+    bp = torch.zeros((2, 2, cfg.nchan))
+    got = tmk.chain_second_v4_plain(torch.from_numpy(raw), bp, _t(cfg))
+    f32 = tmk.chain_second_v2_plain(torch.from_numpy(raw), bp, _t(cfg))
+    _assert_chain_matches(cfg, got, want)
+    lev = lambda p: np.asarray(jq.unpack_bits(jnp.asarray(np.asarray(p)), 2))
+    assert lev(got[0])[2, 237] == lev(want[0])[2, 237]
+    assert lev(f32[0])[2, 237] != lev(want[0])[2, 237]
+
+
+def test_split_power_matches_dft_detect_oracle():
+    """split_power on converted bytes is stage A's oracle (one function,
+    two layouts)."""
+    cfg = _t(_cfg(0))
+    raw = torch.from_numpy(_noise(cfg.sample_rate, seed=3))
+    want = tmk.dft_detect_oracle(raw, NFFT, 2, NSEG)
+    x = tdsp.unpack_ops.convert_uint8(raw)
+    got = tmk.split_power(cfg, x, -1)                # (2, 48, nchan)
+    ffts = cfg.ffts_per_seg
+    got = got.reshape(2, NSEG, ffts, -1).transpose(0, 1).reshape(want.shape)
+    assert torch.equal(got, want)
+
+
+def _relayouts():
+    """Every nfft in 4..40000 the relayout takes (CT factors <= 128; a
+    prime has no CT split, and tc_fits needs one too)."""
+    out = []
+    for nfft in range(4, 40001):
+        try:
+            n1, n2 = tmk.ch_ops._ct_split(nfft)
+        except ValueError:
+            continue
+        if n1 <= tmk.LANE and n2 <= tmk.LANE:
+            out.append(nfft)
+    return out
+
+
+def test_frame_spans_cover_every_frame():
+    """For every nfft the relayout takes (every one tc_fits takes among
+    them) and every alignment of a frame's first byte: the bytes copied
+    by threads and the bulk copy's 16-byte chunks cover the frame once,
+    the bulk copy lands on a 16-byte boundary, and the frame lies in its
+    slot; the plan fits a block's shared memory with at least one block
+    an SM."""
+    takes = _relayouts()                 # tc_fits takes a subset of them
+    assert 12500 in takes and any(tmk.tc_fits(n) for n in takes)
+    for nfft in takes:
+        for bf16 in (False, True):
+            plan = tmk.pretranspose_plan(nfft, 20480, bf16, 132)
+            assert plan.slot % 16 == 0 and plan.per_sm >= 1
+            assert plan.smem <= tmk.TC_SMEM_MAX
+        for ph in range(16):
+            head, nvec, tail = tmk.frame_span(ph, nfft)
+            assert head + 16 * nvec + tail == nfft
+            assert 0 <= head < 16 and 0 <= tail < 16 and nvec >= 0
+            assert (ph + head) % 16 == 0 or (head == nfft and not nvec)
+            assert ph + nfft <= plan.slot
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_pretranspose_plan_covers_every_tile_once(bf16):
+    """Block b walks tiles [b ntile // grid, (b + 1) ntile // grid): every
+    tile once, no block without one; production fills 3 (u8) or 2 (bf16)
+    blocks an SM of an H100."""
+    for ntile in (1, 2, 5, 395, 396, 397, 1589, 20480):
+        plan = tmk.pretranspose_plan(12500, ntile, bf16, 132)
+        runs = [range(b * ntile // plan.grid, (b + 1) * ntile // plan.grid)
+                for b in range(plan.grid)]
+        assert all(len(r) for r in runs)
+        assert [t for r in runs for t in r] == list(range(ntile))
+    assert tmk.pretranspose_plan(12500, 20480, bf16, 132).per_sm == \
+        (2 if bf16 else 3)
+
+
+def test_pallas_pretranspose_rejects_what_the_kernel_does_not_take():
+    raw = torch.zeros((2, 2048 * 4), dtype=torch.uint8)
+    with pytest.raises(ValueError, match="out_dtype"):
+        tmk.pallas_pretranspose(raw, 2048, 2, 2, torch.float32)
+    with pytest.raises(ValueError, match="exceed"):
+        tmk.pallas_pretranspose(torch.zeros((2, 40000), dtype=torch.uint8),
+                                40000, 2, 1)
+    for bad in (raw.to(torch.int16), raw[:1], raw[:, :2048 * 3],
+                raw.t().contiguous().t(), raw[:, ::2]):
+        with pytest.raises(ValueError, match="contiguous uint8"):
+            tmk.pallas_pretranspose(bad, 2048, 2, 2)

@@ -93,6 +93,7 @@
 
 #include <type_traits>
 
+#include "bulk.cuh"
 #include "front.cuh"
 
 namespace dft_tc {
@@ -164,57 +165,12 @@ inline bool fits(const Geom& g) {
 
 // ---------------------------------------------------------------- PTX ----
 
-__device__ __forceinline__ uint32_t saddr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* b, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(saddr(b)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* b, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-                   saddr(b)),
-               "r"(bytes)
-               : "memory");
-}
-
-// wait until the phase of parity `parity` has completed; a phase that
-// never completes (a lost copy) traps after 2^24 polls, an error instead
-// of a hung card
-__device__ __forceinline__ void mbar_wait(uint64_t* b, uint32_t parity) {
-  uint32_t done = 0;
-  for (uint32_t n = 0; !done; ++n) {
-    if (n == (1u << 24)) __trap();
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(saddr(b)), "r"(parity)
-        : "memory");
-  }
-}
-
-__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
-                                          uint32_t bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];" ::"r"(saddr(dst)),
-      "l"(src), "r"(bytes), "r"(saddr(bar))
-      : "memory");
-}
-
-// generic-proxy writes to shared memory -> visible to wgmma / TMA
-__device__ __forceinline__ void fence_async_smem() {
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-}
-
-__device__ __forceinline__ void named_sync(int id, int nthreads) {
-  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(nthreads) : "memory");
-}
+using bulk::fence_async_smem;
+using bulk::mbar_expect_tx;
+using bulk::mbar_init;
+using bulk::mbar_wait;
+using bulk::named_sync;
+using bulk::saddr;
 
 // wgmma shared-memory descriptor, no swizzle (core matrices of 8 rows x
 // 16 bytes, rows contiguous): lbo = bytes between core matrices along K,
@@ -463,7 +419,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       fence_async_smem();
       mbar_expect_tx(&full[s], (uint32_t)(hi - lo));
       if (hi > lo)
-        bulk_copy(ring + s * G.slot, J.ld.raw + lo, (uint32_t)(hi - lo),
+        bulk::load(ring + s * G.slot, J.ld.raw + lo, (uint32_t)(hi - lo),
                   &full[s]);
     }
   };
@@ -480,7 +436,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       const int s = q % G.nslot;
       fence_async_smem();
       mbar_expect_tx(&full[s], bytes);
-      bulk_copy(ring + s * G.slot,
+      bulk::load(ring + s * G.slot,
                 J.ld.x + job_of(J, i, G.nchan).src + 32 * h * 128, bytes,
                 &full[s]);
     }

@@ -1,5 +1,8 @@
 // The tile-transpose microbenchmark, hand-written for Hopper (sm_90a).
-// Called through ctypes from benchmarks/transpose_prims.py:tile_sum.
+// Called through ctypes from benchmarks/transpose_prims.py:tile_sum,
+// which plans the launch (tile_bench_plan: cluster, grid, shared memory)
+// and mirrors the stage and step arithmetic below (cluster_steps,
+// stage_loaders).
 //
 // Replaces the TPU kernel benchmarks/bench_transpose_prims_tpu.py:
 // tile_bench (body _tile_kernel): each of `reps` grid steps sums the nb
@@ -9,157 +12,305 @@
 //   'mxu'  (2)  transposed by a bf16 identity product with f32
 //               accumulation (the tile rounded to bf16, transposed),
 // and writes the (128, 128) sum; every step writes the same result.
+// Every step is one block that computes its own whole sum from zero,
+// reading every tile; no step shares a sum or keeps a tile in registers
+// across steps, and every tile is transposed ('xlu') or multiplied
+// ('mxu') in every step.  Each tile's value is added to the running sum
+// with __fadd_rn in tile order, so every mode equals its plain version
+// bit for bit.
 //
-//   tile_kernel  one block per grid step, 256 threads, over the nb tiles
-//                in order:
-//     none  each thread sums 64 outputs straight from device memory;
-//     xlu   the tile is staged in shared memory at row stride 129, and
-//           each thread reads its outputs down a column (the 32 lanes of a
-//           warp take neighbouring columns: 32 banks);
-//     mxu   the tile is staged at row stride 132, and each warp runs
-//           mma.sync m16n8k16 (bf16 in, f32 accumulate) for its 16 rows of
-//           the transposed tile against the identity: A[i][k] = tile[k][i]
-//           (the fragments' 32 lanes hit 32 banks), B = I, the 8 k-steps
-//           chained from zero (one product of each output is the tile's
-//           value, the others are zeros, so the sum is exact).
-//   Each tile's value is added to the running sum with __fadd_rn in tile
-//   order, so every mode equals its plain version bit for bit.
-//
-// What bounds it: the adds of the sum (reps x nb x 128^2, 0.010 ms at the
-// f32 peak for the script's 320 x 128 tiles) and, as written, the reads:
-// every step reads the 8.4 MB input, from L2 after the first.
+// What bounds it: the adds (reps x nb x 128^2, 0.010 ms at the f32 peak
+// for the script's 320 x 128 tiles) or, for 'mxu', the identity products
+// the mode prescribes (reps x nb x 2 x 128^3, 0.174 ms at the bf16 peak).
+// Every step reads the 8.4 MB input; read from L2 by every block, that was
+// 2.7 GB through L2 per call.  Design (bulk.cuh):
+//   - clusters of up to 8 blocks (consecutive steps; the last cluster's
+//     blocks past `reps` only take part in its barriers).  The input
+//     streams through a ring of stages of 64 tile rows (32 KB, 3 of them;
+//     'mxu' 32 rows, 5); stage k is loaded by the cluster's active block
+//     k % nact, with one multicast bulk copy into the same stage of every
+//     active block (.multicast::cluster), so L2 serves each stage once
+//     per cluster;
+//   - a producer warp a block: lane 0 loads this block's stages as soon
+//     as their slots are free everywhere (its empty barriers: one
+//     arrival from each active block); lane 1 forwards: once this
+//     block's 8 consumer warps have read a stage (its used barrier, local
+//     arrivals) it sets this block's full barrier to expect the slot's
+//     next stage (expect_tx) and sends one remote arrival (mapa) to the
+//     block that loads it.  The consumers only wait on full barriers and
+//     arrive on local ones: the cluster-scope traffic stays off their
+//     path;
+//   - 'none' and 'xlu': thread i reads float4s i, i + 256, ... of the
+//     stage (a warp reads whole 512-byte rows: no bank conflict) and adds
+//     them to its 64 sums; staged row r, columns 4 i' .. 4 i' + 3 of
+//     stage j of a tile are output row 64 j + r ('none') or output column
+//     64 j + r ('xlu': the tile read transposed in the layout the copy
+//     wrote); the sum leaves through shared memory in whole rows;
+//   - 'mxu': warp w converts the stage's 8 tile rows 8 (w & 3) .. (its
+//     output columns) to bf16 in a buffer of its own (row stride 136),
+//     then runs mma.sync m16n8k16 for them and
+//     output rows 64 (w >> 2) ..: D = I x B with B the bf16 tile rows fed
+//     by ldmatrix (a tile row is B's column: B[k][n] = tile[n][k]), all 8
+//     k-steps of each 16-row block chained from zero (one product of each
+//     output is the tile's value, the others are zeros, so the sum is
+//     exact);
+//   - a cluster-wide barrier after the mbarriers' init and before any
+//     block exits (peers may still multicast or arrive until then).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bulk.cuh"
+
 namespace {
 
 constexpr int kLane = 128;
-constexpr int kThreads = 256;
-constexpr int kPer = kLane * kLane / kThreads;   // outputs per thread
+constexpr int kThreads = 256;                    // the consumers
+constexpr int kWarps = kThreads / 32;            // + one producer warp
+// 'none' / 'xlu': stages of 64 tile rows (32 KB), 3 in the ring; 'mxu':
+// stages of 32 rows (16 KB, a warp's 4 column blocks), 5 beside its two
+// bf16 buffers; two blocks an SM either way
+constexpr int kRowsNx = 64, kStagesNx = 3;
+constexpr int kRowsMxu = 32, kStagesMxu = 5;
+constexpr int kBfStride = 136;                   // bf16 a converted row
+constexpr int kBfBytes = 8 * kBfStride * 2;      // a warp's 8 rows
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return (uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(lo)) |
          ((uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(hi)) << 16);
 }
 
-// one bf16 of the identity: 1.0 where row k meets column n
-__device__ __forceinline__ uint32_t eye2(int k, int n) {
-  return (k == n ? 0x3F80u : 0u) | (k + 1 == n ? 0x3F800000u : 0u);
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
+__device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0,
+                                         uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint32_t b0,
+                                         uint32_t b1) {
   asm volatile(
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
+                                            const void* row) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(bulk::saddr(row))
+      : "memory");
+}
+
+// Shared memory: the stages; for 'mxu' a bf16 buffer a consumer warp;
+// the full, empty and used mbarriers (tile_bench_plan's smem)
 template <int kImpl>
-__global__ void __launch_bounds__(kThreads)
-    tile_kernel(const float* __restrict__ x, int nb, float* __restrict__ out) {
-  constexpr int kStride = kImpl == 2 ? 132 : 129;
-  extern __shared__ float tile[];                  // (128, kStride)
-  const int tid = threadIdx.x;
-  if (kImpl != 2) {
-    // thread: column c, rows r0 + 2q
-    const int c = tid & (kLane - 1), r0 = tid >> 7;
-    float acc[kPer];
+__global__ void __launch_bounds__(kThreads + 32, 2)
+    tile_kernel(const float* __restrict__ x, int nb, int reps,
+                float* __restrict__ out) {
+  constexpr int kR = kImpl == 2 ? kRowsMxu : kRowsNx;     // rows a stage
+  constexpr int kNs = kImpl == 2 ? kStagesMxu : kStagesNx;
+  constexpr int kSB = kR * kLane * 4;                     // stage bytes
+  constexpr int kQ = kLane / kR;                          // stages a tile
+  constexpr int kPer = kR * kLane / 4 / kThreads;         // float4s a stage
+  extern __shared__ __align__(128) uint8_t smem[];
+  uint8_t* bf = smem + kNs * kSB;
+  uint64_t* full = (uint64_t*)(bf + (kImpl == 2 ? kWarps * kBfBytes : 0));
+  uint64_t* empty = full + kNs;
+  uint64_t* used = empty + kNs;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int rank = (int)bulk::cluster_rank();
+  int ncl;
+  asm("mov.u32 %0, %%cluster_nctarank;" : "=r"(ncl));
+  const int nact = min(ncl, reps - ((int)blockIdx.x - rank));
+  const int nstage = nb * kQ;
+  if (tid == 0) {
+    for (int q = 0; q < kNs; ++q) {
+      bulk::mbar_init(&full[q], 1);
+      bulk::mbar_init(&empty[q], nact);
+      bulk::mbar_init(&used[q], kWarps);
+    }
+    bulk::fence_mbar_init();
+  }
+  bulk::cluster_sync();
+  if (rank < nact && warp == kWarps && lane == 0) {
+    // the loader: stages rank, rank + nact, ..., each once every active
+    // block has released the slot's previous stage (the releases of the
+    // slots this block refills arrive here, in order: bit q of `par` is
+    // the parity of the next phase of empty[q])
+    const uint16_t mask = (uint16_t)((1u << nact) - 1u);
+    uint32_t par = 0;
+    for (int k = rank; k < nstage; k += nact) {
+      const int q = k % kNs;
+      if (k >= kNs) {
+        bulk::mbar_wait<true>(&empty[q], (par >> q) & 1u);
+        par ^= 1u << q;
+      }
+      bulk::load_multicast(smem + q * kSB, x + (long long)k * kR * kLane, kSB,
+                           &full[q], mask);
+    }
+  } else if (rank < nact && warp == kWarps && lane == 1) {
+    // the forwarder: this block's full barrier expects each stage's bytes
+    // once the slot's previous stage is read here (used), and the block
+    // that loads the slot's next stage hears of it (one remote arrival)
+    for (int k = 0; k < kNs && k < nstage; ++k)
+      bulk::mbar_expect_tx(&full[k], kSB);
+    for (int k = 0; k + kNs < nstage; ++k) {
+      const int q = k % kNs;
+      bulk::mbar_wait(&used[q], (uint32_t)(k / kNs) & 1u);
+      bulk::mbar_expect_tx(&full[q], kSB);
+      bulk::mbar_arrive_remote(&empty[q], (k + kNs) % nact);
+    }
+  } else if (rank < nact && warp < kWarps) {
+    float acc[kQ][kPer][4];
 #pragma unroll
-    for (int q = 0; q < kPer; ++q) acc[q] = 0.0f;
+    for (int j = 0; j < kQ; ++j)
+#pragma unroll
+      for (int m = 0; m < kPer; ++m)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[j][m][e] = 0.0f;
+    // mxu: identity A fragments (a0 = a3 on the diagonal block), the
+    // warp's 8 output columns cb and its four 16-row blocks from 4 rh
+    const int g = lane >> 2, t = lane & 3, cb = warp & 3, rh = warp >> 2;
+    const uint32_t eye = (g == 2 * t ? 0x3F80u : 0u) |
+                         (g == 2 * t + 1 ? 0x3F800000u : 0u);
     for (int b = 0; b < nb; ++b) {
-      const float* xb = x + (long long)b * kLane * kLane;
-      if (kImpl == 0) {
 #pragma unroll
-        for (int q = 0; q < kPer; ++q)
-          acc[q] = __fadd_rn(acc[q], __ldg(xb + (r0 + 2 * q) * kLane + c));
-      } else {
-        __syncthreads();   // the last tile was read
-        for (int e = tid; e < kLane * kLane; e += kThreads)
-          tile[(e >> 7) * kStride + (e & (kLane - 1))] = __ldg(xb + e);
-        __syncthreads();
+      for (int j = 0; j < kQ; ++j) {
+        const int k = b * kQ + j, q = k % kNs;
+        bulk::mbar_wait(&full[q], (uint32_t)(k / kNs) & 1u);
+        const float4* st = (const float4*)(smem + q * kSB);
+        if (kImpl != 2) {
 #pragma unroll
-        for (int q = 0; q < kPer; ++q)
-          acc[q] = __fadd_rn(acc[q], tile[c * kStride + r0 + 2 * q]);
+          for (int m = 0; m < kPer; ++m) {
+            const float4 v = st[tid + kThreads * m];
+            acc[j][m][0] = __fadd_rn(acc[j][m][0], v.x);
+            acc[j][m][1] = __fadd_rn(acc[j][m][1], v.y);
+            acc[j][m][2] = __fadd_rn(acc[j][m][2], v.z);
+            acc[j][m][3] = __fadd_rn(acc[j][m][3], v.w);
+          }
+          __syncwarp();
+          if (lane == 0) bulk::mbar_arrive(&used[q]);
+          continue;
+        }
+        // the warp converts the stage's 8 tile rows it multiplies (its
+        // output columns) into its own buffer: no block-wide barrier
+        uint8_t* buf = bf + warp * kBfBytes;
+        __syncwarp();   // the last stage's ldmatrix has read the buffer
+#pragma unroll
+        for (int r = 0; r < 8; ++r) {
+          const float4 v = st[(8 * cb + r) * (kLane / 4) + lane];
+          *(uint2*)(buf + (r * kBfStride + 4 * lane) * 2) =
+              make_uint2(pack_bf16(v.x, v.y), pack_bf16(v.z, v.w));
+        }
+        __syncwarp();
+        if (lane == 0) bulk::mbar_arrive(&used[q]);
+        // B fragments of two k-steps at a time (ldmatrix.x4: k-steps 2 kp
+        // and 2 kp + 1, k 0-7 and 8-15 of each), the four 16-row blocks'
+        // products chained from zero over the 8 k-steps
+        float d[4][4];
+#pragma unroll
+        for (int rb = 0; rb < 4; ++rb)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) d[rb][e] = 0.0f;
+#pragma unroll
+        for (int kp = 0; kp < 4; ++kp) {
+          const int mtx = lane >> 3;
+          uint32_t r[4];
+          ldmatrix_x4(r, buf + ((lane & 7) * kBfStride +
+                                16 * (2 * kp + (mtx >> 1)) + 8 * (mtx & 1)) *
+                                   2);
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int rb = 0; rb < 4; ++rb) {
+              const uint32_t a = 2 * kp + h == 4 * rh + rb ? eye : 0u;
+              mma_bf16(d[rb], a, 0u, 0u, a, r[2 * h], r[2 * h + 1]);
+            }
+        }
+#pragma unroll
+        for (int rb = 0; rb < 4; ++rb)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            acc[j][rb][e] = __fadd_rn(acc[j][rb][e], d[rb][e]);
       }
     }
+    // the sum leaves through shared memory (the stages, all read), in
+    // whole output rows: out[r][c] at o[r * (kLane + 1) + c]
+    float* o = (float*)smem;
+    bulk::named_sync(1, kThreads);
 #pragma unroll
-    for (int q = 0; q < kPer; ++q) out[(r0 + 2 * q) * kLane + c] = acc[q];
-    return;
-  }
-  // mxu: warp w computes rows i0 = 16 w of the transposed tile, all 16
-  // column tiles of 8
-  const int lane = tid & 31, i0 = (tid >> 5) * 16;
-  const int g = lane >> 2, t = lane & 3;
-  float acc[16][4];
+    for (int j = 0; j < kQ; ++j)
 #pragma unroll
-  for (int j = 0; j < 16; ++j)
+      for (int m = 0; m < kPer; ++m) {
+        const int i = tid + kThreads * m;
+        if (kImpl == 0) {
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.0f;
-  for (int b = 0; b < nb; ++b) {
-    const float* xb = x + (long long)b * kLane * kLane;
-    __syncthreads();
+          for (int e = 0; e < 4; ++e)
+            o[(kR * j + (i >> 5)) * (kLane + 1) + 4 * (i & 31) + e] =
+                acc[j][m][e];
+        } else if (kImpl == 1) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            o[(4 * (i & 31) + e) * (kLane + 1) + kR * j + (i >> 5)] =
+                acc[j][m][e];
+        } else {
+          float* p = o + (16 * (4 * rh + m) + g) * (kLane + 1) + kR * j +
+                     8 * cb + 2 * t;
+          p[0] = acc[j][m][0];
+          p[1] = acc[j][m][1];
+          p[8 * (kLane + 1)] = acc[j][m][2];
+          p[8 * (kLane + 1) + 1] = acc[j][m][3];
+        }
+      }
+    bulk::named_sync(1, kThreads);
     for (int e = tid; e < kLane * kLane; e += kThreads)
-      tile[(e >> 7) * kStride + (e & (kLane - 1))] = __ldg(xb + e);
-    __syncthreads();
-    uint32_t a[8][4];
-#pragma unroll
-    for (int kk = 0; kk < 8; ++kk) {
-      const float* col = tile + (kk * 16 + 2 * t) * kStride + i0 + g;
-      a[kk][0] = pack_bf16(col[0], col[kStride]);
-      a[kk][1] = pack_bf16(col[8], col[kStride + 8]);
-      a[kk][2] = pack_bf16(col[8 * kStride], col[9 * kStride]);
-      a[kk][3] = pack_bf16(col[8 * kStride + 8], col[9 * kStride + 8]);
-    }
-#pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      float d[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-#pragma unroll
-      for (int kk = 0; kk < 8; ++kk) {
-        const int k = kk * 16 + 2 * t, n = j * 8 + g;
-        mma_bf16(d, a[kk], eye2(k, n), eye2(k + 8, n));
-      }
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[j][e] = __fadd_rn(acc[j][e], d[e]);
-    }
+      out[e] = o[(e >> 7) * (kLane + 1) + (e & (kLane - 1))];
   }
-#pragma unroll
-  for (int j = 0; j < 16; ++j) {
-    float* o = out + (i0 + g) * kLane + j * 8 + 2 * t;
-    o[0] = acc[j][0];
-    o[1] = acc[j][1];
-    o[8 * kLane] = acc[j][2];
-    o[8 * kLane + 1] = acc[j][3];
-  }
+  __syncwarp();
+  bulk::cluster_sync();   // no block leaves while a peer may still write
 }
 
 template <int kImpl>
-cudaError_t launch(const float* x, int nb, int reps, float* out,
-                   cudaStream_t st) {
-  const int smem = kImpl == 0 ? 0 : kLane * (kImpl == 2 ? 132 : 129) * 4;
+cudaError_t launch(const float* x, int nb, int reps, int cluster, int grid,
+                   int smem, float* out, cudaStream_t st) {
   cudaError_t e = cudaFuncSetAttribute(
       tile_kernel<kImpl>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
-  tile_kernel<kImpl><<<reps, kThreads, smem, st>>>(x, nb, out);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(kThreads + 32);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, tile_kernel<kImpl>, x, nb, reps, out);
+  if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // x f32 (nb * 128, 128); impl 0 none, 1 xlu, 2 mxu; reps grid steps; out
-// f32 (128, 128).  Returns a cudaError_t.
+// f32 (128, 128); ip (int): cluster, grid, shared memory bytes
+// (transpose_prims.tile_bench_plan).  Returns a cudaError_t.
 extern "C" int vf_tile_bench(const void* x, int nb, int impl, int reps,
-                             void* out, void* stream) {
+                             const int* ip, void* out, void* stream) {
   const float* xi = (const float*)x;
   float* o = (float*)out;
+  const int cluster = ip[0], grid = ip[1], smem = ip[2];
+  if (cluster < 1 || cluster > 8 || grid % cluster ||
+      grid < reps || grid - reps >= cluster)
+    return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   switch (impl) {
-    case 0: return (int)launch<0>(xi, nb, reps, o, st);
-    case 1: return (int)launch<1>(xi, nb, reps, o, st);
-    case 2: return (int)launch<2>(xi, nb, reps, o, st);
+    case 0: return (int)launch<0>(xi, nb, reps, cluster, grid, smem, o, st);
+    case 1: return (int)launch<1>(xi, nb, reps, cluster, grid, smem, o, st);
+    case 2: return (int)launch<2>(xi, nb, reps, cluster, grid, smem, o, st);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -272,8 +272,11 @@ def _finish_stream(cfg: PipelineConfig, out: torch.Tensor,
 
 
 def process_segment(cfg: PipelineConfig, raw: torch.Tensor,
-                    state: DSPState) -> tuple[SegmentOutput, DSPState]:
-    """One 1/seg_per_sec-second chunk: raw (npol_in, seg_samps) uint8."""
+                    state: DSPState, power=_power
+                    ) -> tuple[SegmentOutput, DSPState]:
+    """One 1/seg_per_sec-second chunk: raw (npol_in, seg_samps) uint8.
+    `power(cfg, voltages, since)` is the channelize + detect stage
+    (`_power`, f32; ops/megakernel gives the split-plane DFT's)."""
     x = unpack_ops.convert_uint8(raw)
     x_kur, weights, dag_frac = _rfi_stage(cfg, x)
     since = state.segs_since_inject
@@ -283,12 +286,12 @@ def process_segment(cfg: PipelineConfig, raw: torch.Tensor,
                         device=raw.device)
     packed = packed_kur = empty
     if cfg.rfi_mode != 1:
-        out, bp = norm_ops.normalize_ema(_power(cfg, x, since), bp,
+        out, bp = norm_ops.normalize_ema(power(cfg, x, since), bp,
                                          cfg.bp_scale)
         packed = _finish_stream(cfg, out, None)
     if cfg.rfi_mode != 0:
         out, bp_kur = norm_ops.normalize_ema_weighted(
-            _power(cfg, x_kur, since), weights, bp_kur, cfg.bp_scale)
+            power(cfg, x_kur, since), weights, bp_kur, cfg.bp_scale)
         packed_kur = _finish_stream(cfg, out, weights)
     new_state = state._replace(
         bp=bp, bp_kur=bp_kur,
@@ -297,14 +300,14 @@ def process_segment(cfg: PipelineConfig, raw: torch.Tensor,
 
 
 def run_segments(cfg: PipelineConfig, raw_second: torch.Tensor,
-                 state: DSPState) -> tuple[list, DSPState]:
+                 state: DSPState, power=_power) -> tuple[list, DSPState]:
     """process_segment over the second's segments in order."""
     _check_supported(cfg)
     torch.backends.cuda.matmul.allow_tf32 = False   # the DFT stays f32
     segs = raw_second.reshape(cfg.npol_in, cfg.seg_per_sec, cfg.seg_samps)
     outs = []
     for s in range(cfg.seg_per_sec):
-        out, state = process_segment(cfg, segs[:, s], state)
+        out, state = process_segment(cfg, segs[:, s], state, power)
         outs.append(out)
     return outs, state
 

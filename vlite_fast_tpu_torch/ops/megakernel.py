@@ -52,10 +52,12 @@ stage-B bandpass over).  `pretranspose_u8` is XLA in the reference and
 stays torch.
 
 Dispatch: a CPU tensor goes to the plain version (for the chains the
-port's baseband_dsp.process_second_plain with injection off, one
-function for all three; dft_detect_oracle and chain_second_plain_oracle
-for the stages); a CUDA tensor launches the kernel or raises.  LAUNCHES
-counts kernel launches per wrapper.
+port's torch chain segment by segment with injection off: on the f32 DFT
+for chain_second_v2, on the split-plane DFT for the CT-major chains,
+whose card tests hold them to it at seeds where the f32 DFT puts a 2-bit
+level one off; dft_detect_oracle and chain_second_plain_oracle for the
+stages); a CUDA tensor launches the kernel or raises.  LAUNCHES counts
+kernel launches per wrapper.
 """
 
 from __future__ import annotations
@@ -84,13 +86,14 @@ LANE = 128               # the CT-major tile is LANE x LANE
 PRETRANSPOSE = ("xla", "pallas", "pallas_bf16")
 
 
-def chain_second_v2_plain(raw: torch.Tensor, bp: torch.Tensor,
-                          cfg: PipelineConfig):
-    """The plain version: the port's torch chain, segment by segment."""
+def _chain_plain(raw: torch.Tensor, bp: torch.Tensor, cfg: PipelineConfig,
+                 power=dsp._power):
+    """The port's torch chain, segment by segment, with `power` as its
+    channelize + detect stage (dsp.run_segments)."""
     cfg0 = dataclasses.replace(cfg, inject_frb=False)
     state = dsp.init_state(cfg0, raw.device)._replace(bp=bp[0],
                                                       bp_kur=bp[1])
-    outs, state = dsp.run_segments(cfg0, raw, state)
+    outs, state = dsp.run_segments(cfg0, raw, state, power)
     return (torch.cat([o.packed for o in outs]),
             torch.cat([o.packed_kur for o in outs]),
             torch.cat([o.weights for o in outs], dim=1),
@@ -98,11 +101,26 @@ def chain_second_v2_plain(raw: torch.Tensor, bp: torch.Tensor,
             torch.stack([state.bp, state.bp_kur]))
 
 
-# the three chain kernels compute one function, so they share one plain
-# version (the names follow the kernels; `chain_second_plain` is another
-# TPU kernel's, the Stage-B chain)
-chain_second_ct_plain = chain_second_v2_plain
-chain_second_v4_plain = chain_second_v2_plain
+def chain_second_v2_plain(raw: torch.Tensor, bp: torch.Tensor,
+                          cfg: PipelineConfig):
+    """The plain version of chain_second_v2: the port's torch chain on
+    the f32 DFT, segment by segment."""
+    return _chain_plain(raw, bp, cfg)
+
+
+def chain_second_ct_plain(raw: torch.Tensor, bp: torch.Tensor,
+                          cfg: PipelineConfig):
+    """The plain version of the CT-major chains (chain_second,
+    chain_second_v4): the same chain on the split-plane bf16 DFT that
+    every TPU chain kernel computes (split_power, dft_detect_oracle's
+    products), the front, the kurtosis stream, the EMA, the scrunches and
+    the pack the torch chain's own.  The JAX package holds its v4 kernel
+    to its v1 and v2 kernels, never to an f32 chain; `chain_second_plain`
+    is another TPU kernel's, the Stage-B chain."""
+    return _chain_plain(raw, bp, cfg, split_power)
+
+
+chain_second_v4_plain = chain_second_ct_plain
 
 
 def pretranspose_u8(raw: torch.Tensor, nfft: int, npol: int,
@@ -131,6 +149,50 @@ def pallas_pretranspose_plain(raw: torch.Tensor, nfft: int, npol: int,
     return unpack_ops.convert_uint8(u).to(out_dtype)
 
 
+# csrc/pretranspose.cu's ring: frames in flight and tile buffers a block
+# holds; a block's threads; shared memory of an SM (H100: 228 KB, 1 KB of
+# it reserved per resident block)
+PRE_SLOTS, PRE_BUFS, PRE_THREADS = 3, 2, 256
+SM_SMEM, SM_SMEM_RESERVED, SM_THREADS = 233472, 1024, 2048
+
+
+class PretransposePlan(NamedTuple):
+    """A launch of csrc/pretranspose.cu: the bytes of a frame slot, the
+    block's shared memory, resident blocks per SM and the grid."""
+
+    slot: int
+    smem: int
+    per_sm: int
+    grid: int
+
+
+def frame_span(ph: int, nfft: int) -> tuple:
+    """How csrc/pretranspose.cu stages a frame whose first byte lies at
+    address & 15 == ph, byte i at slot[ph + i]: (head, nvec, tail) = the
+    bytes before the first 16-byte boundary (copied by threads), the
+    16-byte chunks after it (one bulk copy to slot + ph + head, a 16-byte
+    boundary) and the bytes after the last chunk (by threads)."""
+    head = min((16 - ph) % 16, nfft)
+    nvec = (nfft - head) // 16
+    return head, nvec, nfft - head - 16 * nvec
+
+
+def pretranspose_plan(nfft: int, ntile: int, bf16: bool,
+                      nsm: int) -> PretransposePlan:
+    """The launch for ntile tiles on nsm SMs: PRE_SLOTS slots of nfft + 15
+    bytes rounded up to 16, PRE_BUFS tile buffers and one mbarrier a
+    slot; as many blocks per SM as their shared memory and threads allow,
+    persistent (at most one per tile); block b walks tiles
+    [b ntile // grid, (b + 1) ntile // grid)."""
+    slot = -(-(nfft + 15) // 16) * 16
+    smem = (PRE_BUFS * LANE * LANE * (2 if bf16 else 1) + PRE_SLOTS * slot
+            + 8 * PRE_SLOTS)
+    per_sm = min(SM_THREADS // PRE_THREADS,
+                 SM_SMEM // (smem + SM_SMEM_RESERVED))
+    return PretransposePlan(slot, smem, per_sm, max(1, min(ntile,
+                                                           nsm * per_sm)))
+
+
 def pallas_pretranspose(raw: torch.Tensor, nfft: int, npol: int,
                         seg_per_sec: int,
                         out_dtype=torch.uint8) -> torch.Tensor:
@@ -138,12 +200,38 @@ def pallas_pretranspose(raw: torch.Tensor, nfft: int, npol: int,
 
     raw: contiguous u8 (npol, nsamp); out_dtype torch.uint8 (the bytes)
     or torch.bfloat16 (the converted voltages)."""
+    n1, n2, ffts = _check_pretranspose_args(raw, nfft, npol, seg_per_sec,
+                                            out_dtype)
     if raw.device.type == "cpu":
         return pallas_pretranspose_plain(raw, nfft, npol, seg_per_sec,
                                          out_dtype)
     if raw.device.type != "cuda":
         raise ValueError(f"pallas_pretranspose: unsupported device "
                          f"{raw.device}")
+    nsamp = raw.shape[-1]
+    out = torch.empty((seg_per_sec, npol * ffts * LANE, LANE),
+                      dtype=out_dtype, device=raw.device)
+    bf16 = out_dtype == torch.bfloat16
+    nsm = torch.cuda.get_device_properties(raw.device).multi_processor_count
+    plan = pretranspose_plan(nfft, seg_per_sec * npol * ffts, bf16, nsm)
+    lib = _build.load("pretranspose")
+    fn = lib.vf_pretranspose
+    fn.argtypes = [ctypes.c_void_p] * 4
+    fn.restype = ctypes.c_int
+    ip = (ctypes.c_longlong * 10)(npol, nsamp, nfft, n1, n2, seg_per_sec,
+                                  int(bf16), plan.slot, plan.grid, plan.smem)
+    rc = fn(ctypes.cast(ip, ctypes.c_void_p), ctypes.c_void_p(raw.data_ptr()),
+            ctypes.c_void_p(out.data_ptr()),
+            ctypes.c_void_p(torch.cuda.current_stream(raw.device)
+                            .cuda_stream))
+    _build.check(rc, "vf_pretranspose", lib)
+    LAUNCHES["pallas_pretranspose"] += 1
+    return out
+
+
+def _check_pretranspose_args(raw: torch.Tensor, nfft: int, npol: int,
+                             seg_per_sec: int, out_dtype) -> tuple:
+    """(n1, n2, ffts) of a relayout the kernel takes; raises otherwise."""
     if out_dtype not in (torch.uint8, torch.bfloat16):
         raise ValueError(f"pallas_pretranspose: out_dtype {out_dtype}")
     n1, n2 = ch_ops._ct_split(nfft)
@@ -153,24 +241,9 @@ def pallas_pretranspose(raw: torch.Tensor, nfft: int, npol: int,
     nsamp = raw.shape[-1]
     if raw.dtype != torch.uint8 or raw.dim() != 2 or raw.shape[0] != npol \
             or nsamp % (seg_per_sec * nfft) or not raw.is_contiguous():
-        raise ValueError(f"raw must be contiguous uint8 ({npol}, k * "
-                         f"{seg_per_sec * nfft})")
-    ffts = nsamp // seg_per_sec // nfft
-    out = torch.empty((seg_per_sec, npol * ffts * LANE, LANE),
-                      dtype=out_dtype, device=raw.device)
-    lib = _build.load("pretranspose")
-    fn = lib.vf_pretranspose
-    fn.argtypes = [ctypes.c_void_p] * 4
-    fn.restype = ctypes.c_int
-    ip = (ctypes.c_longlong * 7)(npol, nsamp, nfft, n1, n2, seg_per_sec,
-                                 int(out_dtype == torch.bfloat16))
-    rc = fn(ctypes.cast(ip, ctypes.c_void_p), ctypes.c_void_p(raw.data_ptr()),
-            ctypes.c_void_p(out.data_ptr()),
-            ctypes.c_void_p(torch.cuda.current_stream(raw.device)
-                            .cuda_stream))
-    _build.check(rc, "vf_pretranspose", lib)
-    LAUNCHES["pallas_pretranspose"] += 1
-    return out
+        raise ValueError(f"pallas_pretranspose: raw must be contiguous "
+                         f"uint8 ({npol}, k * {seg_per_sec * nfft})")
+    return n1, n2, nsamp // seg_per_sec // nfft
 
 
 def _check_chain_args(name: str, raw: torch.Tensor, bp: torch.Tensor,
@@ -402,36 +475,58 @@ def dft_detect_oracle(raw: torch.Tensor, nfft: int, npol: int,
     terms (its dft_detect_oracle).  raw u8 (npol, nsamp) -> power f32
     (nseg, npol * ffts, nfft // 2 + 1), linear channels.  seg_chunk
     segments at a time bound the memory at production size."""
-    n1, n2 = ch_ops._ct_split(nfft)
-    n2o = nfft // 2 // n1 + 1
     nchan = nfft // 2 + 1
-    sp = split_planes(nfft, raw.device)
     fr = _frames(raw, nfft, npol, seg_per_sec)
     ffts = fr.shape[2]
     out = torch.empty((seg_per_sec, npol * ffts, nchan), dtype=torch.float32,
                       device=raw.device)
     for s0 in range(0, seg_per_sec, seg_chunk):
         s1 = min(s0 + seg_chunk, seg_per_sec)
-        x = unpack_ops.convert_uint8(fr[s0:s1].reshape(-1, n1, n2))
-        ar = torch.matmul(sp.w1r_hi, x) + torch.matmul(sp.w1r_lo, x)
-        ai = torch.matmul(sp.w1i_hi, x) + torch.matmul(sp.w1i_lo, x)
-        br = ar * sp.twr - ai * sp.twi
-        bi = ar * sp.twi + ai * sp.twr
-        rh, rl = _hi_lo(br)
-        ih, il = _hi_lo(bi)
-
-        def stage2(w_hi, w_lo, h, lo):
-            return (torch.matmul(h, w_hi) + torch.matmul(lo, w_hi)
-                    + torch.matmul(h, w_lo))
-
-        pr = (stage2(sp.w2r_hi, sp.w2r_lo, rh, rl)
-              - stage2(sp.w2i_hi, sp.w2i_lo, ih, il))
-        pi = (stage2(sp.w2i_hi, sp.w2i_lo, rh, rl)
-              + stage2(sp.w2r_hi, sp.w2r_lo, ih, il))
-        p = pr * pr + pi * pi                          # (f, k1, k2)
-        lin = p.transpose(1, 2).reshape(-1, n2o * n1)[:, :nchan]
-        out[s0:s1] = lin.reshape(s1 - s0, npol * ffts, nchan)
+        x = unpack_ops.convert_uint8(fr[s0:s1])
+        out[s0:s1] = _split_detect(x, nfft).reshape(s1 - s0, npol * ffts,
+                                                    nchan)
     return out
+
+
+def _split_detect(x: torch.Tensor, nfft: int) -> torch.Tensor:
+    """The split-plane bf16 DFT and |X|^2 of bf16-exact f32 frames x
+    (..., n1, n2), sample n = m1 * n2 + m2 at [m1, m2], emulated in f32 in
+    the JAX package's order of terms -> power (..., nfft // 2 + 1),
+    linear channels."""
+    n1, n2 = ch_ops._ct_split(nfft)
+    n2o = nfft // 2 // n1 + 1
+    sp = split_planes(nfft, x.device)
+    batch = x.shape[:-2]
+    x = x.reshape(-1, n1, n2)
+    ar = torch.matmul(sp.w1r_hi, x) + torch.matmul(sp.w1r_lo, x)
+    ai = torch.matmul(sp.w1i_hi, x) + torch.matmul(sp.w1i_lo, x)
+    br = ar * sp.twr - ai * sp.twi
+    bi = ar * sp.twi + ai * sp.twr
+    rh, rl = _hi_lo(br)
+    ih, il = _hi_lo(bi)
+
+    def stage2(w_hi, w_lo, h, lo):
+        return (torch.matmul(h, w_hi) + torch.matmul(lo, w_hi)
+                + torch.matmul(h, w_lo))
+
+    pr = (stage2(sp.w2r_hi, sp.w2r_lo, rh, rl)
+          - stage2(sp.w2i_hi, sp.w2i_lo, ih, il))
+    pi = (stage2(sp.w2i_hi, sp.w2i_lo, rh, rl)
+          + stage2(sp.w2r_hi, sp.w2r_lo, ih, il))
+    p = pr * pr + pi * pi                              # (f, k1, k2)
+    lin = p.transpose(1, 2).reshape(-1, n2o * n1)[:, :nfft // 2 + 1]
+    return lin.reshape(*batch, -1)
+
+
+def split_power(cfg: PipelineConfig, v: torch.Tensor, since: int
+                ) -> torch.Tensor:
+    """baseband_dsp's power stage on the split-plane DFT (no injection):
+    voltages (npol, nsamp) f32, bf16-exact (converted bytes, masked or
+    not) -> power f32 (npol, nsamp // nfft, nchan)."""
+    n1, n2 = ch_ops._ct_split(cfg.nfft)
+    npol, nsamp = v.shape
+    return _split_detect(v.reshape(npol, nsamp // cfg.nfft, n1, n2),
+                         cfg.nfft)
 
 
 class TcGeometry(NamedTuple):
