@@ -35,6 +35,7 @@ relative; the roll+select dedispersion bit-equal to its plain version
 the fold kernel.
 """
 
+import ctypes
 import dataclasses
 import hashlib
 import json
@@ -156,9 +157,13 @@ def test_pretranspose_kernel_every_alignment(cuda, nfft, npol, offset):
     one, over enough tiles that the blocks walk runs of frames whose
     length is no multiple of the ring's slots (and at most grid + 1
     tiles, where a block holds one or two frames)."""
-    nsm = torch.cuda.get_device_properties(cuda).multi_processor_count
+    lib = _build.load("pretranspose")
+    lib.vf_pretranspose_grid.argtypes = [ctypes.c_int, ctypes.c_longlong,
+                                         ctypes.c_int]
+    lib.vf_pretranspose_grid.restype = ctypes.c_int
     for extra in (1, None):
-        grid = tmk.pretranspose_plan(nfft, 10 ** 6, False, nsm).grid
+        grid = lib.vf_pretranspose_grid(nfft, 10 ** 6, 0)    # the u8 grid
+        assert grid >= 1
         ntile = grid + 1 if extra else 4 * grid + 5
         ffts = -(-ntile // (2 * npol))
         nsamp = 2 * ffts * nfft

@@ -269,55 +269,27 @@ def test_split_power_matches_dft_detect_oracle():
     assert torch.equal(got, want)
 
 
-def _relayouts():
-    """Every nfft in 4..40000 the relayout takes (CT factors <= 128; a
-    prime has no CT split, and tc_fits needs one too)."""
-    out = []
-    for nfft in range(4, 40001):
-        try:
-            n1, n2 = tmk.ch_ops._ct_split(nfft)
-        except ValueError:
-            continue
-        if n1 <= tmk.LANE and n2 <= tmk.LANE:
-            out.append(nfft)
-    return out
-
-
-def test_frame_spans_cover_every_frame():
-    """For every nfft the relayout takes (every one tc_fits takes among
-    them) and every alignment of a frame's first byte: the bytes copied
-    by threads and the bulk copy's 16-byte chunks cover the frame once,
-    the bulk copy lands on a 16-byte boundary, and the frame lies in its
-    slot; the plan fits a block's shared memory with at least one block
-    an SM."""
-    takes = _relayouts()                 # tc_fits takes a subset of them
-    assert 12500 in takes and any(tmk.tc_fits(n) for n in takes)
-    for nfft in takes:
-        for bf16 in (False, True):
-            plan = tmk.pretranspose_plan(nfft, 20480, bf16, 132)
-            assert plan.slot % 16 == 0 and plan.per_sm >= 1
-            assert plan.smem <= tmk.TC_SMEM_MAX
-        for ph in range(16):
-            head, nvec, tail = tmk.frame_span(ph, nfft)
-            assert head + 16 * nvec + tail == nfft
-            assert 0 <= head < 16 and 0 <= tail < 16 and nvec >= 0
-            assert (ph + head) % 16 == 0 or (head == nfft and not nvec)
-            assert ph + nfft <= plan.slot
-
-
-@pytest.mark.parametrize("bf16", [False, True])
-def test_pretranspose_plan_covers_every_tile_once(bf16):
-    """Block b walks tiles [b ntile // grid, (b + 1) ntile // grid): every
-    tile once, no block without one; production fills 3 (u8) or 2 (bf16)
-    blocks an SM of an H100."""
-    for ntile in (1, 2, 5, 395, 396, 397, 1589, 20480):
-        plan = tmk.pretranspose_plan(12500, ntile, bf16, 132)
-        runs = [range(b * ntile // plan.grid, (b + 1) * ntile // plan.grid)
-                for b in range(plan.grid)]
-        assert all(len(r) for r in runs)
-        assert [t for r in runs for t in r] == list(range(ntile))
-    assert tmk.pretranspose_plan(12500, 20480, bf16, 132).per_sm == \
-        (2 if bf16 else 3)
+@pytest.mark.parametrize("npol", [1, 2])
+@pytest.mark.parametrize("nfft", [12500, 2048, 10000, 630])
+def test_pallas_pretranspose_every_frame_size_matches_jax(nfft, npol):
+    """Frames that start 4-, 16-, 16- and 2-byte aligned in the second
+    (the CUDA tests run the kernel on them at every alignment): u8 tiles
+    byte-equal to JAX's pretranspose_u8, bf16 tiles value-equal to the
+    JAX package's Pallas relayout (interpret mode)."""
+    nseg, ffts = 2, 3
+    r = np.random.default_rng(nfft + npol).integers(
+        0, 256, (npol, nseg * ffts * nfft), dtype=np.uint8)
+    r[0, :100] = 0                        # zero bytes convert to 0.0
+    args = (nfft, npol, nseg)
+    want_u8 = np.asarray(jmk.pretranspose_u8(jnp.asarray(r), *args))
+    t = torch.from_numpy(r)
+    got_u8 = tmk.pallas_pretranspose(t, *args)
+    assert got_u8.shape == (nseg, npol * ffts * tmk.LANE, tmk.LANE)
+    assert np.array_equal(got_u8.numpy(), want_u8)
+    want_bf = np.asarray(jmk.pallas_pretranspose(
+        jnp.asarray(r), *args, out_dtype=jnp.bfloat16)).astype(np.float32)
+    got_bf = tmk.pallas_pretranspose(t, *args, torch.bfloat16)
+    assert np.array_equal(got_bf.float().numpy(), want_bf)
 
 
 def test_pallas_pretranspose_rejects_what_the_kernel_does_not_take():

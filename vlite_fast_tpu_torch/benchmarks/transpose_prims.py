@@ -26,8 +26,6 @@ from __future__ import annotations
 import ctypes
 import sys
 import time
-from typing import NamedTuple
-
 import numpy as np
 import torch
 
@@ -58,48 +56,6 @@ def tile_sum_plain(x: torch.Tensor, impl: str) -> torch.Tensor:
     return acc
 
 
-# csrc/tile_bench.cu's launch: blocks a cluster, threads a block (8
-# consumer warps, 1 producer), tile rows a stage and stages in the ring
-# (by mode), the row stride (bf16) of the 'mxu' warps' conversion buffers
-CLUSTER, THREADS, BF_STRIDE = 8, 288, 136
-STAGE_ROWS = {"none": 64, "xlu": 64, "mxu": 32}
-STAGES = {"none": 3, "xlu": 3, "mxu": 5}
-
-
-class TilePlan(NamedTuple):
-    """A launch of csrc/tile_bench.cu: blocks a cluster, the grid (whole
-    clusters; block s is step s, blocks s >= reps only take part in
-    their cluster's barriers) and a block's shared memory."""
-
-    cluster: int
-    grid: int
-    smem: int
-
-
-def tile_bench_plan(reps: int, impl: str) -> TilePlan:
-    """STAGES[impl] stages of STAGE_ROWS[impl] f32 rows and their full,
-    empty and used mbarriers; 'mxu' adds a bf16 buffer of 8 rows for each
-    of the 8 consumer warps."""
-    rows = STAGE_ROWS[impl]
-    smem = STAGES[impl] * (rows * LANE * 4 + 24)
-    if impl == "mxu":
-        smem += 8 * 8 * BF_STRIDE * 2
-    return TilePlan(CLUSTER, -(-reps // CLUSTER) * CLUSTER, smem)
-
-
-def cluster_steps(plan: TilePlan, reps: int) -> list:
-    """The steps of each cluster of a plan, as the kernel finds them:
-    block b is step b and active where b < reps."""
-    return [[b for b in range(c, c + plan.cluster) if b < reps]
-            for c in range(0, plan.grid, plan.cluster)]
-
-
-def stage_loaders(nstage: int, nact: int) -> list:
-    """The stages each of a cluster's nact active blocks loads (and
-    multicasts to the others): block r stages r, r + nact, ..."""
-    return [list(range(r, nstage, nact)) for r in range(nact)]
-
-
 def tile_sum(x: torch.Tensor, impl: str, reps: int = REPS) -> torch.Tensor:
     """tile_sum_plain(x, impl), on a CUDA tensor by csrc/tile_bench.cu with
     `reps` blocks, each computing (and writing) the whole sum."""
@@ -116,15 +72,13 @@ def tile_sum(x: torch.Tensor, impl: str, reps: int = REPS) -> torch.Tensor:
     if x.device.type != "cuda":
         raise ValueError(f"tile_sum: unsupported device {x.device}")
     out = torch.empty((LANE, LANE), dtype=torch.float32, device=x.device)
-    plan = tile_bench_plan(reps, impl)
     lib = _build.load("tile_bench")
     fn = lib.vf_tile_bench
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, i, i, i, p, p, p]
+    fn.argtypes = [p, i, i, i, p, p]
     fn.restype = ctypes.c_int
-    ip = (ctypes.c_int * 3)(*plan)
     _build.check(fn(p(x.data_ptr()), x.shape[0] // LANE, IMPLS.index(impl),
-                    reps, ctypes.cast(ip, p), p(out.data_ptr()),
+                    reps, p(out.data_ptr()),
                     p(torch.cuda.current_stream(x.device).cuda_stream)),
                  "vf_tile_bench", lib)
     LAUNCHES += 1

@@ -1,8 +1,7 @@
 // The Cooley-Tukey-major relayout of one second, hand-written for Hopper
 // (sm_90a).  Called through ctypes from
-// ops/megakernel.py:pallas_pretranspose, which plans the launch
-// (pretranspose_plan: slot bytes, shared memory, grid) and mirrors the
-// span arithmetic below (frame_span).
+// ops/megakernel.py:pallas_pretranspose; the launch (slot bytes, shared
+// memory, grid) is planned here (plan below).
 //
 // Replaces the TPU kernel vlite_fast_tpu/ops/megakernel.py:
 // pallas_pretranspose (body _pretranspose_kernel): the raw second
@@ -49,8 +48,8 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kSlots = 3;    // frames in flight (pretranspose_plan's)
-constexpr int kBufs = 2;     // tile buffers (pretranspose_plan's)
+constexpr int kSlots = 3;    // frames in flight
+constexpr int kBufs = 2;     // tile buffers
 constexpr int kLane = 128;
 
 struct PreParams {
@@ -70,7 +69,7 @@ __device__ __forceinline__ const uint8_t* frame_src(const PreParams& P,
   return raw + (long long)p * P.nsamp + (s * P.ffts + t) * P.nfft;
 }
 
-// Warp 0: frame `tile` into `slot` (ops/megakernel.frame_span): byte i at
+// Warp 0: frame `tile` into `slot`: byte i at
 // slot[ph + i], ph = address & 15; head bytes before the first 16-byte
 // boundary and tail bytes after the last one by the lanes, the nvec
 // 16-byte chunks between by one bulk copy onto the slot's mbarrier.
@@ -189,22 +188,53 @@ __global__ void __launch_bounds__(kThreads)
   if (tid == 0) bulk::wait_all();
 }
 
+// The launch for ntile tiles of nfft-sample frames: kSlots slots of
+// nfft + 15 bytes rounded up to 16, kBufs tile buffers and an mbarrier a
+// slot; as many resident blocks an SM as their shared memory, threads and
+// registers allow, persistent (at most one a tile): block b walks tiles
+// [b ntile / grid, (b + 1) ntile / grid).
+struct Plan {
+  int slot, smem, grid;
+};
+
 template <class T>
-cudaError_t launch(const PreParams& P, int grid, int smem, const void* raw,
-                   void* out, cudaStream_t st) {
+cudaError_t plan(int nfft, long long ntile, Plan* p) {
+  p->slot = (nfft + 15 + 15) / 16 * 16;
+  p->smem = kBufs * kLane * kLane * (int)sizeof(T) + kSlots * p->slot +
+            8 * kSlots;
   cudaError_t e = cudaFuncSetAttribute(
       pretranspose_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      p->smem);
+  int dev = 0, nsm = 0, per_sm = 0;
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, pretranspose_kernel<T>, kThreads, p->smem);
   if (e != cudaSuccess) return e;
-  pretranspose_kernel<T><<<grid, kThreads, smem, st>>>(
+  if (per_sm < 1 || ntile < 1) return cudaErrorInvalidConfiguration;
+  p->grid = (int)(ntile < (long long)nsm * per_sm ? ntile
+                                                   : (long long)nsm * per_sm);
+  return cudaSuccess;
+}
+
+template <class T>
+cudaError_t launch(const PreParams& P0, const void* raw, void* out,
+                   cudaStream_t st) {
+  Plan pl;
+  cudaError_t e = plan<T>(P0.nfft, P0.ntile, &pl);
+  if (e != cudaSuccess) return e;
+  PreParams P = P0;
+  P.slot = pl.slot;
+  pretranspose_kernel<T><<<pl.grid, kThreads, pl.smem, st>>>(
       P, (const uint8_t*)raw, (T*)out);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// ip (int64): npol, nsamp, nfft, n1, n2, seg_per_sec, out_bf16, slot
-// bytes, grid, shared memory bytes (ops/megakernel.pretranspose_plan).
+// ip (int64): npol, nsamp, nfft, n1, n2, seg_per_sec, out_bf16.
 // Device pointers: raw u8 (npol, nsamp); out u8 or bf16
 // (seg_per_sec, npol * ffts * 128, 128).
 // Launches on `stream`; returns cudaGetLastError() after the launch.
@@ -217,15 +247,23 @@ extern "C" int vf_pretranspose(const long long* ip, const void* raw,
   P.n1 = (int)ip[3];
   P.n2 = (int)ip[4];
   const int nseg = (int)ip[5];
+  if (P.npol < 1 || P.nfft < 1 || nseg < 1 || P.n1 * P.n2 != P.nfft ||
+      P.n1 > kLane || P.n2 > kLane)
+    return (int)cudaErrorInvalidValue;
   P.ffts = (int)(P.nsamp / nseg / P.nfft);
   P.ntile = (long long)nseg * P.npol * P.ffts;
-  P.slot = (int)ip[7];
-  const int grid = (int)ip[8], smem = (int)ip[9];
-  if (P.slot % 16 || P.slot < P.nfft + 15 || grid < 1)
-    return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
-  return (int)(ip[6] ? launch<uint16_t>(P, grid, smem, raw, out, st)
-                     : launch<uint8_t>(P, grid, smem, raw, out, st));
+  return (int)(ip[6] ? launch<uint16_t>(P, raw, out, st)
+                     : launch<uint8_t>(P, raw, out, st));
+}
+
+// The grid vf_pretranspose launches for ntile tiles of nfft-sample frames
+// on the current device (u8 or bf16 tiles), or minus a cudaError_t.
+extern "C" int vf_pretranspose_grid(int nfft, long long ntile, int bf16) {
+  Plan pl;
+  const cudaError_t e = bf16 ? plan<uint16_t>(nfft, ntile, &pl)
+                             : plan<uint8_t>(nfft, ntile, &pl);
+  return e == cudaSuccess ? pl.grid : -(int)e;
 }
 
 extern "C" const char* vf_error_string(int e) {

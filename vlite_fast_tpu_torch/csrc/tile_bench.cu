@@ -1,8 +1,7 @@
 // The tile-transpose microbenchmark, hand-written for Hopper (sm_90a).
-// Called through ctypes from benchmarks/transpose_prims.py:tile_sum,
-// which plans the launch (tile_bench_plan: cluster, grid, shared memory)
-// and mirrors the stage and step arithmetic below (cluster_steps,
-// stage_loaders).
+// Called through ctypes from benchmarks/transpose_prims.py:tile_sum; the
+// launch (grid, cluster, shared memory) is planned here, from the
+// layout's constants.
 //
 // Replaces the TPU kernel benchmarks/bench_transpose_prims_tpu.py:
 // tile_bench (body _tile_kernel): each of `reps` grid steps sums the nb
@@ -14,20 +13,20 @@
 // and writes the (128, 128) sum; every step writes the same result.
 // Every step is one block that computes its own whole sum from zero,
 // reading every tile; no step shares a sum or keeps a tile in registers
-// across steps, and every tile is transposed ('xlu') or multiplied
-// ('mxu') in every step.  Each tile's value is added to the running sum
-// with __fadd_rn in tile order, so every mode equals its plain version
-// bit for bit.
+// across steps, and every tile is transposed ('xlu': read down its
+// columns) or multiplied ('mxu') in every step.  Each tile's value is
+// added to the running sum with __fadd_rn in tile order, so every mode
+// equals its plain version bit for bit.
 //
 // What bounds it: the adds (reps x nb x 128^2, 0.010 ms at the f32 peak
 // for the script's 320 x 128 tiles) or, for 'mxu', the identity products
 // the mode prescribes (reps x nb x 2 x 128^3, 0.174 ms at the bf16 peak).
 // Every step reads the 8.4 MB input; read from L2 by every block, that was
 // 2.7 GB through L2 per call.  Design (bulk.cuh):
-//   - clusters of up to 8 blocks (consecutive steps; the last cluster's
-//     blocks past `reps` only take part in its barriers).  The input
-//     streams through a ring of stages of 64 tile rows (32 KB, 3 of them;
-//     'mxu' 32 rows, 5); stage k is loaded by the cluster's active block
+//   - clusters of 8 blocks (consecutive steps; the last cluster's blocks
+//     past `reps` only take part in its barriers).  The input streams
+//     through a ring of stages of 64 tile rows (32 KB, 3 of them; 'mxu'
+//     32 rows, 5); stage k is loaded by the cluster's active block
 //     k % nact, with one multicast bulk copy into the same stage of every
 //     active block (.multicast::cluster), so L2 serves each stage once
 //     per cluster;
@@ -40,20 +39,27 @@
 //     block that loads it.  The consumers only wait on full barriers and
 //     arrive on local ones: the cluster-scope traffic stays off their
 //     path;
-//   - 'none' and 'xlu': thread i reads float4s i, i + 256, ... of the
-//     stage (a warp reads whole 512-byte rows: no bank conflict) and adds
-//     them to its 64 sums; staged row r, columns 4 i' .. 4 i' + 3 of
-//     stage j of a tile are output row 64 j + r ('none') or output column
-//     64 j + r ('xlu': the tile read transposed in the layout the copy
-//     wrote); the sum leaves through shared memory in whole rows;
+//   - 'none': thread i reads float4s i, i + 256, ... of the stage (a warp
+//     reads whole 512-byte rows: no bank conflict) and adds them to its
+//     64 sums; staged row r, columns 4 i' .. 4 i' + 3 of stage j of a
+//     tile are output row 64 j + r;
+//   - 'xlu': the thread of output row R (lane + 32 m) and columns
+//     64 j + 4 c .. + 3 reads staged rows 4 c .. 4 c + 3 at column R, four
+//     words down the stage's column R (the lanes of a warp read 32
+//     neighbouring words of a row: no bank conflict), and adds each at
+//     its transposed place;
 //   - 'mxu': warp w converts the stage's 8 tile rows 8 (w & 3) .. (its
 //     output columns) to bf16 in a buffer of its own (row stride 136),
-//     then runs mma.sync m16n8k16 for them and
-//     output rows 64 (w >> 2) ..: D = I x B with B the bf16 tile rows fed
-//     by ldmatrix (a tile row is B's column: B[k][n] = tile[n][k]), all 8
-//     k-steps of each 16-row block chained from zero (one product of each
+//     then for each of its four 16-row blocks of output rows
+//     64 (w >> 2) .. runs mma.sync m16n8k16: D = I x B with B the bf16
+//     tile rows fed by ldmatrix (a tile row is B's column: B[k][n] =
+//     tile[n][k]), all 8 k-steps chained from zero (one product of each
 //     output is the tile's value, the others are zeros, so the sum is
-//     exact);
+//     exact).  Its 64 sums, 16 products and B fragments need more than
+//     the 96 registers that keep two blocks of 9 warps an SM: ptxas
+//     spills a few words to the stack.  A cap of 104 or 112 registers
+//     spills nothing but leaves one block an SM, and runs slower;
+//   - the sum leaves through shared memory in whole rows;
 //   - a cluster-wide barrier after the mbarriers' init and before any
 //     block exits (peers may still multicast or arrive until then).
 
@@ -68,13 +74,25 @@ namespace {
 constexpr int kLane = 128;
 constexpr int kThreads = 256;                    // the consumers
 constexpr int kWarps = kThreads / 32;            // + one producer warp
-// 'none' / 'xlu': stages of 64 tile rows (32 KB), 3 in the ring; 'mxu':
-// stages of 32 rows (16 KB, a warp's 4 column blocks), 5 beside its two
-// bf16 buffers; two blocks an SM either way
-constexpr int kRowsNx = 64, kStagesNx = 3;
-constexpr int kRowsMxu = 32, kStagesMxu = 5;
+constexpr int kCluster = 8;                      // steps a cluster
 constexpr int kBfStride = 136;                   // bf16 a converted row
 constexpr int kBfBytes = 8 * kBfStride * 2;      // a warp's 8 rows
+
+// A block's shared memory by mode: the ring's stages (64 tile rows, 32 KB,
+// 3 of them for 'none' / 'xlu'; 32 rows, 16 KB, 5 for 'mxu', a warp's 4
+// column blocks), 'mxu''s bf16 buffer a consumer warp, then the full,
+// empty and used mbarriers of each stage; two blocks an SM either way
+template <int kImpl>
+struct Layout {
+  static constexpr int kRows = kImpl == 2 ? 32 : 64;     // tile rows a stage
+  static constexpr int kStages = kImpl == 2 ? 5 : 3;
+  static constexpr int kStageBytes = kRows * kLane * 4;
+  static constexpr int kBf = kImpl == 2 ? kWarps * kBfBytes : 0;
+  static constexpr int kSmem = kStages * kStageBytes + kBf + 3 * kStages * 8;
+  // the sum leaves through the stages: 128 rows of 129 floats
+  static_assert(kStages * kStageBytes >= kLane * (kLane + 1) * 4, "ring");
+  static_assert(2 * (kSmem + 1024) <= 233472, "two blocks an SM");
+};
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return (uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(lo)) |
@@ -101,20 +119,18 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
       : "memory");
 }
 
-// Shared memory: the stages; for 'mxu' a bf16 buffer a consumer warp;
-// the full, empty and used mbarriers (tile_bench_plan's smem)
 template <int kImpl>
-__global__ void __launch_bounds__(kThreads + 32, 2)
+__global__ void __cluster_dims__(kCluster, 1, 1)
+    __launch_bounds__(kThreads + 32, 2)
     tile_kernel(const float* __restrict__ x, int nb, int reps,
                 float* __restrict__ out) {
-  constexpr int kR = kImpl == 2 ? kRowsMxu : kRowsNx;     // rows a stage
-  constexpr int kNs = kImpl == 2 ? kStagesMxu : kStagesNx;
-  constexpr int kSB = kR * kLane * 4;                     // stage bytes
+  using L = Layout<kImpl>;
+  constexpr int kR = L::kRows, kNs = L::kStages, kSB = L::kStageBytes;
   constexpr int kQ = kLane / kR;                          // stages a tile
   constexpr int kPer = kR * kLane / 4 / kThreads;         // float4s a stage
   extern __shared__ __align__(128) uint8_t smem[];
   uint8_t* bf = smem + kNs * kSB;
-  uint64_t* full = (uint64_t*)(bf + (kImpl == 2 ? kWarps * kBfBytes : 0));
+  uint64_t* full = (uint64_t*)(bf + L::kBf);
   uint64_t* empty = full + kNs;
   uint64_t* used = empty + kNs;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -179,7 +195,7 @@ __global__ void __launch_bounds__(kThreads + 32, 2)
         const int k = b * kQ + j, q = k % kNs;
         bulk::mbar_wait(&full[q], (uint32_t)(k / kNs) & 1u);
         const float4* st = (const float4*)(smem + q * kSB);
-        if (kImpl != 2) {
+        if (kImpl == 0) {
 #pragma unroll
           for (int m = 0; m < kPer; ++m) {
             const float4 v = st[tid + kThreads * m];
@@ -188,6 +204,20 @@ __global__ void __launch_bounds__(kThreads + 32, 2)
             acc[j][m][2] = __fadd_rn(acc[j][m][2], v.z);
             acc[j][m][3] = __fadd_rn(acc[j][m][3], v.w);
           }
+        } else if (kImpl == 1) {
+          // output row R = lane + 32 (m & 3), columns kR j + 4 c .. + 3
+          // (c = 2 warp + (m >> 2)): staged rows 4 c .. 4 c + 3, column R
+          const float* sf = (const float*)st;
+#pragma unroll
+          for (int m = 0; m < kPer; ++m) {
+            const float* col =
+                sf + 4 * (2 * warp + (m >> 2)) * kLane + lane + 32 * (m & 3);
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              acc[j][m][e] = __fadd_rn(acc[j][m][e], col[e * kLane]);
+          }
+        }
+        if (kImpl != 2) {
           __syncwarp();
           if (lane == 0) bulk::mbar_arrive(&used[q]);
           continue;
@@ -251,8 +281,8 @@ __global__ void __launch_bounds__(kThreads + 32, 2)
         } else if (kImpl == 1) {
 #pragma unroll
           for (int e = 0; e < 4; ++e)
-            o[(4 * (i & 31) + e) * (kLane + 1) + kR * j + (i >> 5)] =
-                acc[j][m][e];
+            o[(lane + 32 * (m & 3)) * (kLane + 1) + kR * j +
+              4 * (2 * warp + (m >> 2)) + e] = acc[j][m][e];
         } else {
           float* p = o + (16 * (4 * rh + m) + g) * (kLane + 1) + kR * j +
                      8 * cb + 2 * t;
@@ -271,46 +301,32 @@ __global__ void __launch_bounds__(kThreads + 32, 2)
 }
 
 template <int kImpl>
-cudaError_t launch(const float* x, int nb, int reps, int cluster, int grid,
-                   int smem, float* out, cudaStream_t st) {
+cudaError_t launch(const float* x, int nb, int reps, float* out,
+                   cudaStream_t st) {
+  constexpr int smem = Layout<kImpl>::kSmem;
   cudaError_t e = cudaFuncSetAttribute(
       tile_kernel<kImpl>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(grid);
-  cfg.blockDim = dim3(kThreads + 32);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = st;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = cluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  e = cudaLaunchKernelEx(&cfg, tile_kernel<kImpl>, x, nb, reps, out);
-  if (e != cudaSuccess) return e;
+  const int grid = (reps + kCluster - 1) / kCluster * kCluster;
+  tile_kernel<kImpl><<<grid, kThreads + 32, smem, st>>>(x, nb, reps, out);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// x f32 (nb * 128, 128); impl 0 none, 1 xlu, 2 mxu; reps grid steps; out
-// f32 (128, 128); ip (int): cluster, grid, shared memory bytes
-// (transpose_prims.tile_bench_plan).  Returns a cudaError_t.
+// x f32 (nb * 128, 128); impl 0 none, 1 xlu, 2 mxu; reps grid steps
+// (whole clusters of 8 blocks, block s step s); out f32 (128, 128).
+// Returns a cudaError_t.
 extern "C" int vf_tile_bench(const void* x, int nb, int impl, int reps,
-                             const int* ip, void* out, void* stream) {
+                             void* out, void* stream) {
   const float* xi = (const float*)x;
   float* o = (float*)out;
-  const int cluster = ip[0], grid = ip[1], smem = ip[2];
-  if (cluster < 1 || cluster > 8 || grid % cluster ||
-      grid < reps || grid - reps >= cluster)
-    return (int)cudaErrorInvalidValue;
+  if (nb < 1 || reps < 1) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   switch (impl) {
-    case 0: return (int)launch<0>(xi, nb, reps, cluster, grid, smem, o, st);
-    case 1: return (int)launch<1>(xi, nb, reps, cluster, grid, smem, o, st);
-    case 2: return (int)launch<2>(xi, nb, reps, cluster, grid, smem, o, st);
+    case 0: return (int)launch<0>(xi, nb, reps, o, st);
+    case 1: return (int)launch<1>(xi, nb, reps, o, st);
+    case 2: return (int)launch<2>(xi, nb, reps, o, st);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -149,50 +149,6 @@ def pallas_pretranspose_plain(raw: torch.Tensor, nfft: int, npol: int,
     return unpack_ops.convert_uint8(u).to(out_dtype)
 
 
-# csrc/pretranspose.cu's ring: frames in flight and tile buffers a block
-# holds; a block's threads; shared memory of an SM (H100: 228 KB, 1 KB of
-# it reserved per resident block)
-PRE_SLOTS, PRE_BUFS, PRE_THREADS = 3, 2, 256
-SM_SMEM, SM_SMEM_RESERVED, SM_THREADS = 233472, 1024, 2048
-
-
-class PretransposePlan(NamedTuple):
-    """A launch of csrc/pretranspose.cu: the bytes of a frame slot, the
-    block's shared memory, resident blocks per SM and the grid."""
-
-    slot: int
-    smem: int
-    per_sm: int
-    grid: int
-
-
-def frame_span(ph: int, nfft: int) -> tuple:
-    """How csrc/pretranspose.cu stages a frame whose first byte lies at
-    address & 15 == ph, byte i at slot[ph + i]: (head, nvec, tail) = the
-    bytes before the first 16-byte boundary (copied by threads), the
-    16-byte chunks after it (one bulk copy to slot + ph + head, a 16-byte
-    boundary) and the bytes after the last chunk (by threads)."""
-    head = min((16 - ph) % 16, nfft)
-    nvec = (nfft - head) // 16
-    return head, nvec, nfft - head - 16 * nvec
-
-
-def pretranspose_plan(nfft: int, ntile: int, bf16: bool,
-                      nsm: int) -> PretransposePlan:
-    """The launch for ntile tiles on nsm SMs: PRE_SLOTS slots of nfft + 15
-    bytes rounded up to 16, PRE_BUFS tile buffers and one mbarrier a
-    slot; as many blocks per SM as their shared memory and threads allow,
-    persistent (at most one per tile); block b walks tiles
-    [b ntile // grid, (b + 1) ntile // grid)."""
-    slot = -(-(nfft + 15) // 16) * 16
-    smem = (PRE_BUFS * LANE * LANE * (2 if bf16 else 1) + PRE_SLOTS * slot
-            + 8 * PRE_SLOTS)
-    per_sm = min(SM_THREADS // PRE_THREADS,
-                 SM_SMEM // (smem + SM_SMEM_RESERVED))
-    return PretransposePlan(slot, smem, per_sm, max(1, min(ntile,
-                                                           nsm * per_sm)))
-
-
 def pallas_pretranspose(raw: torch.Tensor, nfft: int, npol: int,
                         seg_per_sec: int,
                         out_dtype=torch.uint8) -> torch.Tensor:
@@ -211,15 +167,12 @@ def pallas_pretranspose(raw: torch.Tensor, nfft: int, npol: int,
     nsamp = raw.shape[-1]
     out = torch.empty((seg_per_sec, npol * ffts * LANE, LANE),
                       dtype=out_dtype, device=raw.device)
-    bf16 = out_dtype == torch.bfloat16
-    nsm = torch.cuda.get_device_properties(raw.device).multi_processor_count
-    plan = pretranspose_plan(nfft, seg_per_sec * npol * ffts, bf16, nsm)
     lib = _build.load("pretranspose")
     fn = lib.vf_pretranspose
     fn.argtypes = [ctypes.c_void_p] * 4
     fn.restype = ctypes.c_int
-    ip = (ctypes.c_longlong * 10)(npol, nsamp, nfft, n1, n2, seg_per_sec,
-                                  int(bf16), plan.slot, plan.grid, plan.smem)
+    ip = (ctypes.c_longlong * 7)(npol, nsamp, nfft, n1, n2, seg_per_sec,
+                                 int(out_dtype == torch.bfloat16))
     rc = fn(ctypes.cast(ip, ctypes.c_void_p), ctypes.c_void_p(raw.data_ptr()),
             ctypes.c_void_p(out.data_ptr()),
             ctypes.c_void_p(torch.cuda.current_stream(raw.device)
