@@ -68,11 +68,13 @@ Phases, each printing a line:
      chain_second_v2 at rfi_mode 0 from a fresh bandpass (the same
      tensor-core DFT on both sides), both timed;
  13. the roll+select dedispersion (ops/dedisperse_pallas.
-     dedisperse_pallas_rollsel): phase 3's gulp against its plain version
-     (bit-equal: the same adds in the same order) and against phase 3's
-     kernel (allclose on every output); then its path, the JAX package's
-     benchmarks/bench_ddp_fold_tpu.py A/B on the linear 1024-trial grid,
-     both kernels timed;
+     dedisperse_pallas_rollsel, csrc/dedisperse.cu's two stages with its
+     zero tail and chunked sums; ptxas's registers and spills of its
+     kernels first): phase 3's gulp against its plain version (bit-equal:
+     the same adds in the same order) and against phase 3's kernel
+     (allclose on every output), timed in all and by stage (C1, C2); then
+     its path, the JAX package's benchmarks/bench_ddp_fold_tpu.py A/B on
+     the linear 1024-trial grid, both kernels timed;
  14. the tile-transpose microbenchmark (benchmarks/transpose_prims:
      csrc/tile_bench.cu, the JAX package's
      benchmarks/bench_transpose_prims_tpu.py): its path, the script's
@@ -1035,14 +1037,30 @@ def phase_stage_b(dev) -> dict:
             "chain_second_v2_rfi0_ms": v2_ms}
 
 
+def ptxas_kernels(lib: str, word: str) -> dict:
+    """ptxas's report on the kernels of csrc/<lib>.cu whose name holds
+    `word`."""
+    from vlite_fast_tpu_torch import _build
+    log_path = _build.lib_path(lib).with_suffix(".log")
+    return {k: v for k, v in _build.ptxas_report(log_path).items()
+            if word in k}
+
+
 def phase_rollsel(dev) -> dict:
     """Kernels C1/C2 on phase 3's gulp against the plain version and the
-    fold kernel, then the A/B of bench_ddp_fold_tpu.py as their path."""
+    fold kernel, each stage timed alone, then the A/B of
+    bench_ddp_fold_tpu.py as their path."""
     from vlite_fast_tpu_torch import PipelineConfig, SearchConfig
     from vlite_fast_tpu_torch import constants as C
     from vlite_fast_tpu_torch.models import search
     from vlite_fast_tpu_torch.ops import dedisperse as dd
     from vlite_fast_tpu_torch.ops import dedisperse_pallas as ddp
+    ptxas = ptxas_kernels("dedisperse", "rollsel")
+    check(len(ptxas) == 3, f"ptxas reports {sorted(ptxas)}")
+    log("[13] ptxas, csrc/dedisperse.cu's roll+select kernels: " + "; ".join(
+        f"{k} {v['registers']} registers, spill stores/loads "
+        f"{v['spill_stores']}/{v['spill_loads']} bytes"
+        for k, v in ptxas.items()))
     cfg, scfg = PipelineConfig(), SearchConfig()
     eng = search.SinglePulseSearch(scfg, cfg.tsamp, cfg.freqs_mhz(),
                                    nsub=128, nbatch=128, device=dev)
@@ -1078,6 +1096,11 @@ def phase_rollsel(dev) -> dict:
     a = ddp.dedisperse_pallas_rollsel(lfb, lplan, lin.gulp_samps)
     torch.cuda.synchronize()
     launches = ddp.ROLLSEL_LAUNCHES
+    lwant = ddp.dedisperse_rollsel_plain(lfb, lplan, lin.gulp_samps)
+    lin_equal = torch.equal(a, lwant)
+    check(lin_equal, "linear grid: rollsel kernel differs from its plain "
+          f"version: max abs {float((a - lwant).abs().max())}")
+    del lwant
     b_ = ddp.dedisperse_pallas(lfb, lplan, lin.gulp_samps)
     ab_err = float((a - b_).abs().max())
     check(torch.allclose(a, b_, rtol=1e-5, atol=1e-4),
@@ -1091,23 +1114,32 @@ def phase_rollsel(dev) -> dict:
                    3)
     ms = cuda_ms(lambda: ddp.dedisperse_pallas_rollsel(fb, plan, ntime_out),
                  3)
+    # each stage alone (these launches are timings, not the path's)
+    ms_c1 = cuda_ms(lambda: ddp._rollsel_stage1(fb, plan, ntime_out), 3)
+    y = ddp._rollsel_stage1(fb, plan, ntime_out)
+    ms_c2 = cuda_ms(lambda: ddp._rollsel_stage2(y, plan, ntime_out, 16), 3)
+    del y
     b = dedisp_bound(fb, plan, ntime_out)
     ndm = len(plan.dms)
-    log(f"[13] dedisperse_pallas_rollsel kernels (C1 shared-memory subband "
-        f"tiles, C2 trials in registers) vs plain, phase 3's gulp ({full} x "
-        f"{cfg.nchanout}, {ndm} tol-grid trials): bit-equal {bit_equal}; vs "
-        f"phase 3's fold kernel max abs diff {fold_err:.3e} (allclose rtol "
-        f"1e-5 atol 1e-4); kernel {ms:.2f} ms (CUDA events, 3 reps), bound "
-        f"{b['bound_ms']:.3f} ms ({b['bound_by']}), plain {plain_ms:.0f} ms "
-        f"(wall); bench_ddp_fold_tpu.py A/B, linear 1024 trials, {lin.gulp_samps}"
-        f"-sample gulp: rollsel {ms_r:.2f} ms vs fold {ms_f:.2f} ms per gulp "
+    log(f"[13] dedisperse_pallas_rollsel kernels (csrc/dedisperse.cu: C1 "
+        f"the fold's stage 1 reading zeros past the gulp, C2 its stage 2 "
+        f"with chunk sums, 8 samples x 5 trials a thread) vs plain, phase "
+        f"3's gulp ({full} x {cfg.nchanout}, {ndm} tol-grid trials): "
+        f"bit-equal {bit_equal}; vs phase 3's fold kernel max abs diff "
+        f"{fold_err:.3e} (allclose rtol 1e-5 atol 1e-4); kernel {ms:.3f} ms "
+        f"(C1 {ms_c1:.3f} ms, C2 {ms_c2:.3f} ms alone; CUDA events, 3 "
+        f"reps), bound {b['bound_ms']:.3f} ms ({b['bound_by']}), plain "
+        f"{plain_ms:.0f} ms (wall); bench_ddp_fold_tpu.py A/B, linear 1024 "
+        f"trials, {lin.gulp_samps}-sample gulp: rollsel {ms_r:.3f} ms "
+        f"(bit-equal to plain {lin_equal}) vs fold {ms_f:.3f} ms per gulp "
         f"(bound {lb['bound_ms']:.3f} ms), max abs diff {ab_err:.3e}, "
         f"bit-equal {ab_equal}; {launches} launch on its path")
     return {"name": "dedisperse_pallas_rollsel", "route": "cuda",
-            "source": "vlite_fast_tpu_torch/csrc/dedisperse_rollsel.cu",
+            "source": "vlite_fast_tpu_torch/csrc/dedisperse.cu",
             "replaces": "vlite_fast_tpu/ops/dedisperse_pallas.py:129",
             "launches": launches, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "library_ms": None, **b,
+            "c1_ms": ms_c1, "c2_ms": ms_c2, "ptxas": ptxas,
             "max_abs_err_vs_fold": fold_err, "linear_1024_ms": ms_r,
             "linear_1024_fold_ms": ms_f}
 

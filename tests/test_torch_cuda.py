@@ -32,7 +32,8 @@ its stage A, and
 stage B (chain_second_plain) to the 2-bit bar and a bandpass within 1e-4
 relative; the roll+select dedispersion bit-equal to its plain version
 (the same adds in the same order) and allclose(rtol=1e-5, atol=1e-4) to
-the fold kernel.
+the fold kernel, whose planes (both entries) equal stored sha-256 digests
+of the kernel before the roll+select stages moved into its source.
 """
 
 import ctypes
@@ -901,27 +902,62 @@ def test_tensor_core_kernels_keep_their_bits(cuda):
     assert _tc_digests(cuda) == TC_SHA256
 
 
-@pytest.mark.parametrize("sub_chunk", [16, 3])
-@pytest.mark.parametrize("nsub", [8, 64])
-@pytest.mark.parametrize("mode", ["linear", "tol"])
-def test_rollsel_kernel_matches_plain(cuda, mode, nsub, sub_chunk):
+# (grid mode, nsub, sub_chunk, ndm, nbatch, ntime_out, the last batch's
+# in-subband delays raised by): 256 channels, 2 ms samples, DM 0-100
+ROLLSEL_CASES = [
+    *((mode, nsub, chunk, 64, 16, 300, 0) for mode in ("linear", "tol")
+      for nsub in (8, 64) for chunk in (16, 3)),
+    # 38 trials a batch, as at production (block of 40: one short); sc 16
+    # over two staging groups of 16 subbands; odd ntime_out and t1_len
+    ("linear", 8, 16, 76, 2, 777, 0),
+    ("linear", 32, 16, 76, 2, 777, 0),
+    # 39 trials a batch (one below a block), 41 (a block and one more)
+    ("linear", 8, 16, 78, 2, 777, 0),
+    ("linear", 32, 5, 82, 2, 777, 0),
+    # sc 4: neither a divisor nor a multiple of the 16 staged subbands
+    ("tol", 32, 5, 64, 16, 777, 0),
+    # stage 1 sums rows past the gulp's end (zeros), 32 and 4 channels a
+    # subband
+    ("tol", 8, 16, 64, 16, 701, 80),
+    ("tol", 64, 3, 64, 16, 701, 80),
+]
+
+
+@pytest.mark.parametrize(
+    "mode,nsub,sub_chunk,ndm,nbatch,ntime_out,raise_rel", ROLLSEL_CASES,
+    ids=["-".join(map(str, c)) for c in ROLLSEL_CASES])
+def test_rollsel_kernel_matches_plain(cuda, mode, nsub, sub_chunk, ndm,
+                                      nbatch, ntime_out, raise_rel):
+    """On a gulp of exactly ntime_out + max_delay rows."""
     freqs = np.linspace(400.0, 350.0, 256)
-    scfg = SearchConfig(dm_min=0.0, dm_max=100.0, ndm=64, dm_grid_mode=mode)
+    scfg = SearchConfig(dm_min=0.0, dm_max=100.0, ndm=ndm, dm_grid_mode=mode)
     dms = tsearch.make_dm_grid(scfg, 2e-3, freqs)
-    plan = tdd.make_plan(dms, freqs, 2e-3, nsub=nsub, nbatch=16,
+    plan = tdd.make_plan(dms, freqs, 2e-3, nsub=nsub, nbatch=nbatch,
                          zap_ranges=((0, 10),), device=cuda)
+    if raise_rel:
+        rel = plan.rel_delays.clone()
+        rel[-1] += raise_rel
+        plan = dataclasses.replace(plan, rel_delays=rel,
+                                   rel_delays_max=int(rel.max()))
+    ntime = ntime_out + plan.max_delay
+    t1_len = ntime_out + plan.max_sub_delay
+    if raise_rel:
+        assert t1_len + plan.rel_delays_max > ntime
+    if ntime_out % 2:
+        assert t1_len % 2
     rng = np.random.default_rng(nsub)
     fb = torch.from_numpy(rng.standard_normal(
-        (300 + plan.max_delay, 256)).astype(np.float32)).to(cuda)
+        (ntime, 256)).astype(np.float32)).to(cuda)
     before = tddp.ROLLSEL_LAUNCHES
-    got = tddp.dedisperse_pallas_rollsel(fb, plan, 300, sub_chunk)
-    want = tddp.dedisperse_rollsel_plain(fb, plan, 300, sub_chunk)
-    fold = tddp.dedisperse_pallas(fb, plan, 300)
+    got = tddp.dedisperse_pallas_rollsel(fb, plan, ntime_out, sub_chunk)
+    want = tddp.dedisperse_rollsel_plain(fb, plan, ntime_out, sub_chunk)
     torch.cuda.synchronize()
     assert tddp.ROLLSEL_LAUNCHES == before + 1
     assert torch.equal(got, want)
-    np.testing.assert_allclose(got.cpu().numpy(), fold.cpu().numpy(),
-                               rtol=1e-5, atol=1e-4)
+    if not raise_rel:      # the fold clamps where the engine reads zeros
+        fold = tddp.dedisperse_pallas(fb, plan, ntime_out)
+        np.testing.assert_allclose(got.cpu().numpy(), fold.cpu().numpy(),
+                                   rtol=1e-5, atol=1e-4)
 
 
 def _dd_plan(cuda, nsub):
@@ -930,6 +966,52 @@ def _dd_plan(cuda, nsub):
     dms = tsearch.make_dm_grid(scfg, 2e-3, freqs)
     return tdd.make_plan(dms, freqs, 2e-3, nsub=nsub, nbatch=16,
                          zap_ranges=((0, 10), (100, 120)), device=cuda)
+
+
+def _fold_digests(cuda) -> dict:
+    """sha-256 of the fold kernel's planes through both entries (f32 rows
+    and packed 2-bit rows) at two plans: nsub 8 (32 channels a subband,
+    the production width) and nsub 64 with its last batch's in-subband
+    delays raised by 80, so that stage 1 reads past the gulp's end (the
+    clamp); 701 samples out."""
+    out = {}
+    for nsub in (8, 64):
+        plan = _dd_plan(cuda, nsub)
+        if nsub == 64:
+            rel = plan.rel_delays.clone()
+            rel[-1] += 80
+            plan = dataclasses.replace(plan, rel_delays=rel,
+                                       rel_delays_max=int(rel.max()))
+        ntime_out = 701
+        ntime = ntime_out + plan.max_delay
+        rng = np.random.default_rng(100 + nsub)
+        fb = torch.from_numpy(rng.standard_normal(
+            (ntime, 256)).astype(np.float32)).to(cuda)
+        packed = torch.from_numpy(rng.integers(
+            0, 256, (ntime, 64), dtype=np.uint8)).to(cuda)
+        out[f"f32/nsub{nsub}"] = _sha256(
+            tddp.dedisperse_pallas(fb, plan, ntime_out))
+        out[f"packed/nsub{nsub}"] = _sha256(
+            tddp.dedisperse_pallas_packed(packed, 2, 256, plan, ntime_out))
+    return out
+
+
+# _fold_digests on an H100 with the fold kernel as it was before the
+# roll+select engine's stages moved into csrc/dedisperse.cu: both entries
+# must keep these bits
+FOLD_SHA256 = {
+    "f32/nsub8":
+        "da07d643d8a0cc3a635346838a61047aa39a4c807237513e9f57c3b63f26fadf",
+    "packed/nsub8":
+        "277c569a9811a404f306033bf0b7c7fef3fbedd4688166717791602d578071b2",
+    "f32/nsub64":
+        "6a9c297b6e90cc96c3eae9596cb9469c1aaac127697c71b4d086c6dfd95a3af1",
+    "packed/nsub64":
+        "b15404f9b15e6f9bc4e8af4f727bcb82e2f46569099cd09a507d7a7e1845d283"}
+
+
+def test_fold_kernel_keeps_its_bits(cuda):
+    assert _fold_digests(cuda) == FOLD_SHA256
 
 
 @pytest.mark.parametrize("row", [64, 66])

@@ -35,8 +35,8 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / \
     "vlite_fast_tpu_torch"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 # every library of the port, by csrc/<name>.cu
-LIBRARIES = ("chain", "dedisperse", "dedisperse_rollsel", "ema",
-             "pretranspose", "rfi_front", "stage_ab", "tile_bench")
+LIBRARIES = ("chain", "dedisperse", "ema", "pretranspose", "rfi_front",
+             "stage_ab", "tile_bench")
 
 _LIBS: dict = {}
 BUILD_SECONDS: dict = {}   # name -> wall seconds of the nvcc run (0 if cached)
@@ -115,6 +115,37 @@ def load_all(names=LIBRARIES) -> None:
         list(pool.map(build, names))
     for name in names:
         load(name)
+
+
+_PTXAS_ENTRY = re.compile(r"Compiling entry function '(\S+)'")
+_PTXAS_PROPS = re.compile(r"Function properties for (\S+)")
+_PTXAS_STACK = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores,"
+                          r" (\d+) bytes spill loads")
+_PTXAS_REGS = re.compile(r"Used (\d+) registers")
+
+
+def ptxas_report(log: Path) -> dict:
+    """Each kernel in a build's `.log` -> its registers, stack frame and
+    spill bytes, from nvcc's `-Xptxas -v` report.  Kernels by name and
+    template arguments where the toolchain has c++filt, else mangled."""
+    out, cur = {}, None
+    for line in Path(log).read_text().splitlines():
+        if m := _PTXAS_ENTRY.search(line):
+            cur = out.setdefault(m.group(1), {})
+        elif m := _PTXAS_PROPS.search(line):
+            cur = out.get(m.group(1))       # None: not a kernel
+        elif cur is not None and (m := _PTXAS_STACK.search(line)):
+            cur.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+        elif cur is not None and (m := _PTXAS_REGS.search(line)):
+            cur["registers"] = int(m.group(1))
+    names = list(out)
+    if names and shutil.which("c++filt"):
+        res = subprocess.run(["c++filt"], input="\n".join(names),
+                             capture_output=True, text=True, check=True)
+        names = [n.replace("(anonymous namespace)::", "").split("(")[0]
+                 .removeprefix("void ") for n in res.stdout.splitlines()]
+    return dict(zip(names, out.values()))
 
 
 def check(rc: int, what: str, lib: ctypes.CDLL) -> None:

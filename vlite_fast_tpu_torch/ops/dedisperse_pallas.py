@@ -23,11 +23,12 @@ PACKED_LAUNCHES those of them made through the packed entry.
 dedisperse_pallas_rollsel (bodies _stage1_kernel, _stage2_kernel), the
 roll+select engine that the JAX package keeps for an A/B
 (benchmarks/bench_ddp_fold_tpu.py): the same function in its own order
-of sums, csrc/dedisperse_rollsel.cu (C1 stages a subband's channels in
-shared memory for every DM batch, C2 holds several trials per thread in
-registers).  Its plain version, dedisperse_rollsel_plain, makes the same
-adds in the same order, so the two are bit-equal.  ROLLSEL_LAUNCHES
-counts its calls the same way.
+of sums, on the same two stages of csrc/dedisperse.cu (C entries
+vf_rollsel_stage1 and vf_rollsel_stage2): C1 reads zeros past the
+filterbank's end, and C2 sums each chunk of subbands from zero before it
+adds the chunk sums.  Its plain version, dedisperse_rollsel_plain, makes
+the same adds in the same order, so the two are bit-equal.
+ROLLSEL_LAUNCHES counts its calls the same way.
 """
 
 from __future__ import annotations
@@ -259,30 +260,64 @@ def dedisperse_pallas_rollsel(fb: torch.Tensor, plan: dd.DedispPlan,
     if int(plan.rel_delays.min()) < 0:
         raise ValueError("dedisperse_pallas_rollsel: negative in-subband "
                          "delays (make_plan's are >= 0)")
+    if plan.sub_spread < 0:
+        raise ValueError("dedisperse_pallas_rollsel: the plan has no "
+                         "sub_spread (make_plan's plans have)")
     per_batch = ndm // nbatch
     want = torch.arange(ndm, dtype=torch.int32, device=fb.device) // per_batch
     if not torch.equal(plan.batch_of_dm, want):
         raise ValueError("dedisperse_pallas_rollsel: plan.batch_of_dm is not "
                          "d // (ndm // nbatch)")
-    lib = _build.load("dedisperse_rollsel")
-    s1, s2 = lib.vf_rollsel_stage1, lib.vf_rollsel_stage2
-    i, p = ctypes.c_int, ctypes.c_void_p
-    s1.argtypes = [p, i, i, p, p, i, i, i, i, p, p]
-    s2.argtypes = [p, i, i, p, i, i, i, i, p, p]
-    s1.restype = s2.restype = ctypes.c_int
-    t1_len = ntime_out + plan.max_sub_delay
-    y = torch.empty((nbatch, nsub, t1_len), dtype=torch.float32,
-                    device=fb.device)
-    out = torch.empty((ndm, ntime_out), dtype=torch.float32,
-                      device=fb.device)
-    stream = p(torch.cuda.current_stream(fb.device).cuda_stream)
-    ptr = lambda t: p(t.data_ptr())
-    _build.check(s1(ptr(fb), ntime, nchan, ptr(plan.chan_weights),
-                    ptr(plan.rel_delays), nbatch, nsub,
-                    int(plan.rel_delays_max), t1_len, ptr(y), stream),
-                 "vf_rollsel_stage1", lib)
-    _build.check(s2(ptr(y), nsub, t1_len, ptr(plan.sub_delays), nbatch,
-                    per_batch, _sub_chunk(nsub, sub_chunk), ntime_out,
-                    ptr(out), stream), "vf_rollsel_stage2", lib)
+    out = _rollsel_stage2(_rollsel_stage1(fb, plan, ntime_out), plan,
+                          ntime_out, sub_chunk)
     ROLLSEL_LAUNCHES += 1
+    return out
+
+
+def _rollsel_lib():
+    lib = _build.load("dedisperse")
+    i, p = ctypes.c_int, ctypes.c_void_p
+    lib.vf_rollsel_stage1.argtypes = [p, i, i, p, p, i, i, i, i, p, p]
+    lib.vf_rollsel_stage2.argtypes = [p, i, i, p, i, i, i, i, i, p, p]
+    lib.vf_rollsel_stage1.restype = ctypes.c_int
+    lib.vf_rollsel_stage2.restype = ctypes.c_int
+    return lib
+
+
+def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def _stream(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def _rollsel_stage1(fb: torch.Tensor, plan: dd.DedispPlan,
+                    ntime_out: int) -> torch.Tensor:
+    """C1 alone on what dedisperse_pallas_rollsel has checked: the
+    (nbatch, nsub, t1_len) stage-1 rows."""
+    lib = _rollsel_lib()
+    (ntime, nchan), nbatch = fb.shape, plan.rel_delays.shape[0]
+    t1_len = ntime_out + plan.max_sub_delay
+    y = torch.empty((nbatch, plan.nsub, t1_len), dtype=torch.float32,
+                    device=fb.device)
+    _build.check(lib.vf_rollsel_stage1(
+        _ptr(fb), ntime, nchan, _ptr(plan.chan_weights),
+        _ptr(plan.rel_delays), nbatch, plan.nsub, int(plan.rel_delays_max),
+        t1_len, _ptr(y), _stream(fb)), "vf_rollsel_stage1", lib)
+    return y
+
+
+def _rollsel_stage2(y: torch.Tensor, plan: dd.DedispPlan, ntime_out: int,
+                    sub_chunk: int) -> torch.Tensor:
+    """C2 alone on C1's rows: the (ndm, ntime_out) plane."""
+    lib = _rollsel_lib()
+    nbatch, nsub, t1_len = y.shape
+    ndm = plan.sub_delays.shape[0]
+    out = torch.empty((ndm, ntime_out), dtype=torch.float32,
+                      device=y.device)
+    _build.check(lib.vf_rollsel_stage2(
+        _ptr(y), nsub, t1_len, _ptr(plan.sub_delays), nbatch, ndm // nbatch,
+        plan.sub_spread, _sub_chunk(nsub, sub_chunk), ntime_out, _ptr(out),
+        _stream(y)), "vf_rollsel_stage2", lib)
     return out
