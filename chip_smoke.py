@@ -5,7 +5,8 @@
 Phases, each printing a line:
   0. device: requires CUDA; the card's name and power limit (nvidia-smi);
   1. build: every CUDA library from vlite_fast_tpu_torch/csrc, one nvcc
-     each, all started together;
+     each, and the baseband ring's host library (g++), all started
+     together;
   2. the chain kernel (ops/megakernel.chain_second_v2: the front, the
      tensor-core DFT of every frame and of the kurtosis stream's blocks
      flagged in part, the two-phase EMA) against its plain version on the
@@ -25,7 +26,10 @@ Phases, each printing a line:
      every gulp through the dedispersion kernel's packed entry (launch
      counts); the first armed second within 2x of the second, the 'auto'
      twin's median span per second (CUDA events) within 1.3x of phase 2's
-     device time per data-second; peak device memory; then one gulp's
+     device time per data-second with the .fil files written (the drain
+     waits only for the previous second's copy), each of the right size
+     and the primary's rows equal to the blocks a tap received; the
+     host's ms a second by part; peak device memory; then one gulp's
      device time by pass (profiler), and the armed program (not armed)
      against the twin on 10 seconds of the smoke's noise, one seed each,
      both carrying their bandpass: 2-bit agreement >= 0.9999 each;
@@ -81,11 +85,24 @@ Phases, each printing a line:
      three modes at its shapes (320 steps x 128 tiles), each equal to its
      plain version and timed beside its bound (the adds; for 'mxu' the
      identity products it prescribes, at the bf16 peak);
+ 15. the array path: ArrayPipeline.run_streaming over N stations of host
+     seconds (N = 4 where /dev/shm and memory hold four 40-s rings with a
+     quarter to spare, else 2; both readings printed), 46 s so that the
+     rings wrap after the first trigger: the FRB in every beam, the coadd
+     candidate above every beam's, a trigger near DM 80 before the wrap
+     with one dump a station equal to the staged seconds it lists, every
+     dump equal to its seconds, each .fil of the right size, nothing
+     dropped, and the launches (the chain kernel once a twin second, the
+     armed kernels once an armed second, the dedispersion's packed entry
+     once a station gulp and its f32 entry once a coadd gulp); the
+     real-time factor, the wall a data-second before and after the wrap,
+     the host's ms a station-second by part, peak device memory;
 then the run's wall time, one JSON line of per-kernel results (each with
 its time, its plain version's, its bound from this run's shapes, the
 library call's time where one PyTorch call computes the function, and
-its launches on its path: [4] and [10] for kernels 1-8, [11]-[14] for
-the staged chain, the roll+select engine and tile_bench), the card's name
+its launches on its path: [4], [10] and [15] for kernels 1-8,
+[11]-[14] for the staged chain, the roll+select engine and tile_bench),
+the card's name
 and power
 limit, and last
 {"ok": true, "device": {...}}.  Any failure exits non-zero before that.
@@ -264,11 +281,11 @@ def phase_device() -> str:
 def phase_build() -> None:
     from vlite_fast_tpu_torch import _build
     t0 = time.perf_counter()
-    _build.load_all()
+    _build.load_all(_build.LIBRARIES + _build.HOST_LIBRARIES)
     took = ", ".join(f"{n} {s:.1f} s" if s else f"{n} already built"
                      for n, s in _build.BUILD_SECONDS.items())
     log(f"[1] build: {took} (in parallel, total "
-        f"{time.perf_counter() - t0:.1f} s, nvcc sm_90a)")
+        f"{time.perf_counter() - t0:.1f} s, nvcc sm_90a; the ring g++)")
 
 
 def levels_check(got, want, worst: dict, what: str) -> None:
@@ -569,14 +586,38 @@ TWIN_KERNELS = {"auto": ("chain_second_v2",),
                 "megakernel4": ("pallas_pretranspose", "chain_second_v4")}
 
 
+def check_fil(path: str, nrows: int, row_bytes: int, digest: str = None,
+              what: str = "") -> None:
+    """A .fil file holds its header and nrows rows of row_bytes, whose
+    sha-256 (when given) is digest."""
+    import os
+    from vlite_fast_tpu_torch.utils import sigproc
+    h = hashlib.sha256()
+    with open(path, "rb") as fp:
+        sigproc.read_header(fp)
+        header = fp.tell()
+        while chunk := fp.read(1 << 24):
+            h.update(chunk)
+    size = os.path.getsize(path)
+    check(size == header + nrows * row_bytes,
+          f"{what} {path}: {size} bytes, not {header} + {nrows} x "
+          f"{row_bytes}")
+    check(digest is None or h.hexdigest() == digest,
+          f"{what} {path}: its rows differ from the blocks the taps got")
+
+
 def phase_main_path(dev, twin: str = "auto", tag: str = "[4]",
-                    n_sec: int = 40, twin_device_ms: float = None) -> tuple:
+                    n_sec: int = 40, twin_device_ms: float = None,
+                    write_fil: bool = False) -> tuple:
     """The main path (twin_device_ms: the twin program's device ms per
     data-second, from phase 2, to hold the twin's spans against): its
-    kernel launches and its real-time factor."""
+    kernel launches and its real-time factor.  With write_fil, the .fil
+    files are written (production's default) and checked: their size, and
+    the primary's rows against the blocks a tap received."""
     from vlite_fast_tpu_torch import PipelineConfig, SearchConfig
     from vlite_fast_tpu_torch.models import baseband_dsp as dsp
-    from vlite_fast_tpu_torch.runtime.pipeline import (ObservationDocument,
+    from vlite_fast_tpu_torch.runtime.pipeline import (HOST_PARTS,
+                                                       ObservationDocument,
                                                        StationPipeline)
     cfg = PipelineConfig(inject_frb=True, twin_chain_impl=twin)
     scfg = SearchConfig()
@@ -590,6 +631,17 @@ def phase_main_path(dev, twin: str = "auto", tag: str = "[4]",
         pipe = StationPipeline(1, cfg, scfg, out_dir=out_dir,
                                keep_ring=False, write_cands=False,
                                device=dev)
+        rows = n_sec * cfg.seg_per_sec * cfg.out_samps_per_seg
+        row_bytes = cfg.nchanout * cfg.nbit // 8
+        tapped = {"rows": 0,
+                  "copy": np.empty((rows, row_bytes), np.uint8)}
+
+        def tap(sid, offset, block):    # a copy now, the digest after
+            check(offset == tapped["rows"], f"{tag} tap offset {offset}")
+            tapped["copy"][offset:offset + block.shape[0]] = block
+            tapped["rows"] += block.shape[0]
+        if write_fil:
+            pipe.block_taps.append(tap)
         t_pre = time.perf_counter()
         pipe.prewarm()                      # set-up: its launches not counted
         t_pre = time.perf_counter() - t_pre
@@ -597,7 +649,7 @@ def phase_main_path(dev, twin: str = "auto", tag: str = "[4]",
         torch.cuda.reset_peak_memory_stats(dev)
         _zero_counts()
         t0 = time.perf_counter()
-        pipe.begin_observation(od, write_fil=False)
+        pipe.begin_observation(od, write_fil=write_fil)
         for sec in range(n_sec):
             before = _counts()
             pipe.feed_second(1.7e9 + sec, staged[sec % 3])
@@ -607,6 +659,22 @@ def phase_main_path(dev, twin: str = "auto", tag: str = "[4]",
         wall = time.perf_counter() - t0
         launches = _counts()
         peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        host = {k: (1e3 * float(np.median(v)), 1e3 * float(np.max(v)))
+                for k, v in pipe.host_seconds.items()}
+        log(f"{tag} host ms per data-second (median, max): " + ", ".join(
+            f"{k} {host[k][0]:.3f} {host[k][1]:.3f}" for k in HOST_PARTS)
+            + f"; .fil written: {write_fil}")
+        fil_note = ""
+        if write_fil:
+            check(tapped["rows"] == rows, f"{tag} taps got {tapped['rows']} "
+                  f"rows, not {rows}")
+            check_fil(prod.fil_path, rows, row_bytes, hashlib.sha256(
+                tapped["copy"]).hexdigest(), tag)
+            check_fil(prod.fil_path.replace(".fil", "_plain.fil"), rows,
+                      row_bytes, what=tag)
+            fil_note = (f"; .fil and _plain.fil written ({rows} rows each, "
+                        f"the .fil's rows sha-256-equal to the tapped "
+                        f"blocks)")
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
     armed = pipe.feed_seconds["armed"]
@@ -664,7 +732,7 @@ def phase_main_path(dev, twin: str = "auto", tag: str = "[4]",
         f"device memory {peak:.2f} GiB; launches {launches} (each armed "
         f"second: rfi_front and both EMA kernels once; each twin second: "
         f"{' and '.join(twin_kernels)} once; each gulp: the dedispersion "
-        f"kernel's packed entry once)")
+        f"kernel's packed entry once){fil_note}")
     for c in sorted(prod.candidates, key=lambda c: -c.snr)[:5]:
         log(f"{tag}   candidate DM {c.dm:.2f} S/N {c.snr:.2f} at "
             f"{c.peak_time:.3f} s, width 2^{c.tfilt}, {c.ngiant} crossings")
@@ -1182,6 +1250,202 @@ def phase_tile_bench(dev) -> dict:
             "bound_ms_by_impl": {k: v["bound_ms"] for k, v in b.items()}}
 
 
+RING_SECONDS = 40
+
+
+def shm_and_memory() -> tuple:
+    """(bytes /dev/shm has free, bytes of memory available), as df and
+    /proc/meminfo give them."""
+    st = shutil.disk_usage("/dev/shm")
+    with open("/proc/meminfo") as fp:
+        avail = next(int(line.split()[1]) * 1024 for line in fp
+                     if line.startswith("MemAvailable:"))
+    return st.free, avail
+
+
+def phase_array(dev, n_sec: int = 46) -> dict:
+    """The array path: ArrayPipeline.run_streaming over N stations of host
+    seconds (numpy, three staged seconds per station from seeds of its
+    own, cycled), every station with its 40-s ring, its .fil and its
+    block tap into the coadd search, at PipelineConfig(inject_frb=True)
+    and SearchConfig(); N = 4 where /dev/shm and memory hold four rings
+    with a quarter to spare, else 2.  Long enough for the rings to wrap,
+    with the first trigger before they do.  Returns its kernel launches."""
+    import os
+    from vlite_fast_tpu_torch import PipelineConfig, SearchConfig
+    from vlite_fast_tpu_torch.config import (AntennaConfig, ArrayConfig,
+                                             TriggerConfig)
+    from vlite_fast_tpu_torch.runtime.pipeline import (ArrayPipeline,
+                                                       HOST_PARTS,
+                                                       ObservationDocument)
+    cfg = PipelineConfig(inject_frb=True)
+    scfg = SearchConfig()
+    sec_bytes = cfg.npol_in * cfg.sample_rate
+    need = RING_SECONDS * sec_bytes            # one station's ring
+    shm_free, mem_avail = shm_and_memory()
+    room = min(shm_free, mem_avail)
+    nant = 4 if room >= 1.25 * 4 * need else 2
+    readings = (f"/dev/shm free {shm_free / 1e9:.1f} GB, memory available "
+                f"{mem_avail / 1e9:.1f} GB, {need / 1e9:.2f} GB of ring a "
+                f"station; {tempfile.gettempdir()} (the .fil files and "
+                f"dumps) free "
+                f"{shutil.disk_usage(tempfile.gettempdir()).free / 1e9:.1f}"
+                f" GB")
+    check(room >= 1.25 * nant * need, f"[15] no room for {nant} rings: "
+          f"{readings}")
+    acfg = ArrayConfig(
+        antennas=tuple(AntennaConfig(station_id=i + 1, name=f"ea{i + 1:02d}")
+                       for i in range(nant)),
+        pipeline=cfg, search=scfg, trigger=TriggerConfig(min_dm=20.0))
+    staged = {}
+    for a in acfg.antennas:
+        gen = torch.Generator(device=dev).manual_seed(1000 + a.station_id)
+        staged[a.station_id] = [
+            (torch.randn((cfg.npol_in, cfg.sample_rate), generator=gen,
+                         device=dev) / 0.05914 + 128.5).clamp(0, 255)
+            .to(torch.uint8).cpu().numpy() for _ in range(3)]
+    t0_unix = 1.7e9
+    fed = []                # host clock when each data-second was first fed
+
+    def seconds(secs):
+        for k in range(n_sec):
+            if len(fed) == k:
+                fed.append(time.perf_counter())
+            yield t0_unix + k, secs[k % 3]
+    per_ant = {sid: seconds(secs) for sid, secs in staged.items()}
+    out_dir = tempfile.mkdtemp(prefix="vfast_array_")
+    ap = ArrayPipeline(acfg, out_dir=out_dir, device=dev)
+    try:
+        t_pre = time.perf_counter()
+        ap.prewarm()                        # set-up: its launches not counted
+        t_pre = time.perf_counter() - t_pre
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        _zero_counts()
+        t0 = time.perf_counter()
+        res = ap.run_streaming(per_ant, ObservationDocument(
+            name="SMOKE_ARRAY", start_time=t0_unix, scan_no=2))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _counts()
+        peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        # wall a data-second, before and after the rings wrap, and the
+        # tail (the last drains, the flush gulps, the last dumps)
+        fed.append(t0 + wall)
+        walls = {"before": (fed[RING_SECONDS] - t0) / RING_SECONDS,
+                 "after": (fed[n_sec - 1] - fed[RING_SECONDS])
+                 / (n_sec - 1 - RING_SECONDS),
+                 "tail": fed[n_sec] - fed[n_sec - 1]}
+        rows = n_sec * cfg.seg_per_sec * cfg.out_samps_per_seg
+        row_bytes = cfg.nchanout * cfg.nbit // 8
+        near = lambda c: abs(c.dm - cfg.inject_dm) <= 0.1 * cfg.inject_dm
+        beams = {}
+        for st in ap.stations:
+            prod = res["products"][st.station_id]
+            check(prod.seconds == n_sec and prod.dropped == 0,
+                  f"[15] station {st.station_id}: {prod.seconds} seconds, "
+                  f"{prod.dropped} dropped")
+            check_fil(prod.fil_path, rows, row_bytes,
+                      what=f"[15] station {st.station_id}")
+            frb = [c for c in prod.candidates if near(c)]
+            best = max(frb, key=lambda c: c.snr) if frb else None
+            check(best is not None and best.snr >= 10.0,
+                  f"[15] station {st.station_id}: FRB not recovered ({best})")
+            beams[st.station_id] = best
+        co = [c for c in res["coadd_candidates"] if near(c)]
+        co_best = max(co, key=lambda c: c.snr) if co else None
+        beam_max = max(b.snr for b in beams.values())
+        beam_mean = float(np.mean([b.snr for b in beams.values()]))
+        check(co_best is not None and co_best.snr > beam_max,
+              f"[15] coadd candidate near DM {cfg.inject_dm} {co_best} not "
+              f"above every beam's (max {beam_max:.2f})")
+        for t, at in zip(res["triggers"], res["trigger_seconds"]):
+            log(f"[15]   trigger DM {t.dm:.2f} S/N {t.sn:.2f} window "
+                f"[{t.t0 - t0_unix:.3f}, {t.t1 - t0_unix:.3f}] s ({t.meta}), "
+                f"raised after {at} data seconds")
+        frb_trig = [(t, at) for t, at in zip(res["triggers"],
+                                             res["trigger_seconds"])
+                    if abs(t.dm - cfg.inject_dm) <= 0.1 * cfg.inject_dm]
+        check(bool(frb_trig), f"[15] no trigger near DM {cfg.inject_dm}: "
+              f"{res['triggers']}")
+        first, first_at = min(frb_trig, key=lambda x: x[1])
+        check(first_at < RING_SECONDS, f"[15] the first trigger came after "
+              f"{first_at} s, when the rings had wrapped")
+        # every dump holds the staged seconds it lists; the first DM-80
+        # trigger has one dump per station, holding the burst's second
+        frb_dumps = {}
+        for rec in res["dumps"]:
+            sid = int(os.path.basename(rec.path).split("_ea")[1][:2])
+            with open(rec.path, "rb") as fp:
+                got = fp.read()
+            want = b"".join(staged[sid][int(sec - t0_unix) % 3].tobytes()
+                            for sec in rec.seconds)
+            check(got == want, f"[15] dump {rec.path} ({rec.seconds}) differs "
+                  f"from the staged seconds it lists")
+            if rec.t0 == first.t0:
+                frb_dumps.setdefault(sid, []).append(rec)
+        burst_sec = int(t0_unix + first.peak_time)
+        check(sorted(frb_dumps) == sorted(staged) and all(
+            len(v) == 1 and burst_sec in v[0].seconds
+            for v in frb_dumps.values()),
+            f"[15] dumps of the DM-{cfg.inject_dm:g} trigger by station "
+            f"{frb_dumps}")
+        others = len(res["triggers"]) - 1
+        twin = sum(len(st.feed_seconds["twin"]) for st in ap.stations)
+        armed = sum(len(st.feed_seconds["armed"]) for st in ap.stations)
+        gulps = sum(int(st.metrics.get("vfast_gulps_searched"))
+                    for st in ap.stations)
+        f32 = launches["dedisperse_pallas"] - \
+            launches["dedisperse_pallas_packed"]
+        check(twin + armed == nant * n_sec
+              and launches["chain_second_v2"] == twin
+              and all(launches[k] == armed for k in ARMED_KERNELS)
+              and launches["dedisperse_pallas_packed"] == gulps >= nant
+              and f32 == ap.coadd.gulps >= 1,
+              f"[15] launches {launches} vs {twin} twin and {armed} armed "
+              f"station-seconds, {gulps} station gulps, {ap.coadd.gulps} "
+              f"coadd gulps")
+        host = {}
+        for when, lo, hi in (("before", 0, RING_SECONDS),
+                             ("after", RING_SECONDS, n_sec)):
+            host[when] = {k: 1e3 * float(np.mean(
+                [t for st in ap.stations for t in st.host_seconds[k][lo:hi]]))
+                for k in HOST_PARTS}
+    finally:
+        ap.close()
+        shutil.rmtree(out_dir, ignore_errors=True)
+    rtf = n_sec / wall
+    co_ms = {k: 1e3 * v / n_sec for k, v in ap.coadd.host_seconds.items()}
+    log(f"[15] array path: {nant} stations x {n_sec} s "
+        f"(ArrayPipeline.run_streaming, rings of {RING_SECONDS} s, .fil, "
+        f"coadd search; {readings}) in {wall:.1f} s wall (prewarm "
+        f"{t_pre:.1f} s before it): real-time factor {rtf:.3f} "
+        f"(data-seconds over wall), {nant * rtf:.3f} antenna-seconds a "
+        f"second; wall a data-second {1e3 * walls['before']:.1f} ms before "
+        f"the rings wrap ({nant / walls['before']:.3f} antenna-seconds a "
+        f"second), {1e3 * walls['after']:.1f} ms after "
+        f"({nant / walls['after']:.3f}), then a tail of "
+        f"{walls['tail']:.1f} s (last drains, flush gulps, last dumps); "
+        f"coadd host ms a data-second: sum {co_ms['sum']:.2f}, search "
+        f"{co_ms['search']:.2f}; host ms per station-second before the "
+        f"rings wrap "
+        + ", ".join(f"{k} {v:.2f}" for k, v in host["before"].items())
+        + "; after "
+        + ", ".join(f"{k} {v:.2f}" for k, v in host["after"].items())
+        + f"; peak device memory {peak:.2f} GiB; FRB per beam S/N "
+        + ", ".join(f"{b.snr:.2f} (DM {b.dm:.2f})" for b in beams.values())
+        + f"; coadd S/N {co_best.snr:.2f} at DM {co_best.dm:.2f}, "
+        f"{co_best.snr / beam_mean:.3f}x the beams' mean (sqrt(N) "
+        f"{math.sqrt(nant):.3f}); first DM-{cfg.inject_dm:g} trigger raised "
+        f"after {first_at} data seconds, one dump a station holding second "
+        f"{burst_sec - int(t0_unix)}; {others} other trigger(s); "
+        f"{len(res['dumps'])} dumps, each equal to its staged seconds; "
+        f"{ap.coadd.gulps} coadd gulps "
+        f"through the f32 entry, {gulps} station gulps through the packed "
+        f"entry; launches {launches}")
+    return launches
+
+
 def main() -> None:
     t_start = time.perf_counter()
     smi = phase_device()
@@ -1196,7 +1460,8 @@ def main() -> None:
     k_chain, v2_gots, wants = phase_chain(dev, raws)
     k_dedisp = phase_dedisperse(dev)
     torch.cuda.empty_cache()
-    launches, _ = phase_main_path(dev, twin_device_ms=k_chain["ms"])
+    launches, _ = phase_main_path(dev, twin_device_ms=k_chain["ms"],
+                                  write_fil=True)
     torch.cuda.empty_cache()
     phase_gulp_passes(dev)
     phase_twin_agreement(dev)
@@ -1229,6 +1494,13 @@ def main() -> None:
     staged.append(phase_rollsel(dev))
     torch.cuda.empty_cache()
     staged.append(phase_tile_bench(dev))
+    torch.cuda.empty_cache()
+    # the array path runs the main path's kernels: its launches add to theirs
+    got = phase_array(dev)
+    for k in (k_chain, k_dedisp, k_rfi, *k_ema):
+        k["launches"] += got[k["name"]]
+    k_dedisp["launches_f32_entry"] = got["dedisperse_pallas"] - \
+        got["dedisperse_pallas_packed"]
     kernels = [k_chain, k_dedisp, k_rfi, *k_ema, k_pre, *k_ct, *staged]
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} never launched on its path")

@@ -1,5 +1,6 @@
 """The port's own copies of the JAX package's jax-free host modules
-(vlite_fast_tpu_torch.constants, .config) held equal to the originals:
+(vlite_fast_tpu_torch.constants, .config, .runtime.control) held equal
+to the originals:
 the same constants, the same dataclass fields and defaults, the same
 derived properties and the same validation errors over a small grid of
 configurations.  Tests that feed both packages build the port's config
@@ -124,3 +125,33 @@ def test_validation_errors_equal(i):
     with pytest.raises(ValueError) as te:
         tcfg.PipelineConfig.tiny(**BAD[i])
     assert str(te.value) == str(je.value)
+
+
+def test_control_copy_equal():
+    """runtime/control.py: the same observation document (fields, JSON,
+    the ring's ASCII header), commands, thresholds and scan decisions."""
+    from vlite_fast_tpu.runtime import control as jctl
+    from vlite_fast_tpu_torch.runtime import control as tctl
+    assert [f.name for f in dataclasses.fields(tctl.ObservationDocument)] \
+        == [f.name for f in dataclasses.fields(jctl.ObservationDocument)]
+    assert [(c.name, c.value) for c in tctl.Command] == \
+        [(c.name, c.value) for c in jctl.Command]
+    assert (tctl.POINTING_TOL_RAD, tctl.MAX_INTEGRATION_S) == \
+        (jctl.POINTING_TOL_RAD, jctl.MAX_INTEGRATION_S)
+    kw = dict(name="J0534+2200", ra=1.459, dec=0.384, start_time=1.7e9 + 0.25,
+              scan_no=7, subscan_no=2, datasetId="x")
+    t, j = tctl.ObservationDocument(**kw), jctl.ObservationDocument(**kw)
+    assert t.to_json() == j.to_json()
+    assert tctl.ObservationDocument.from_json(j.to_json()) == t
+    assert t.to_ascii_header(3) == j.to_ascii_header(3)
+    docs = [dict(name="A", ra=1.0, dec=0.5, scan_no=2),
+            dict(name="A", ra=1.0 + 1e-4, dec=0.5, scan_no=3),
+            dict(name="B", ra=2.0, dec=0.9, scan_no=4),
+            dict(name="B", ra=2.0, dec=0.9, scan_no=5),
+            dict(name="x", scan_no=1), dict(name="FINISH")]
+    times = [0.0, 100.0, 200.0, 681.0, 700.0, 800.0]
+    sm_t, sm_j = tctl.ScanStateMachine(), jctl.ScanStateMachine()
+    for d, now in zip(docs, times):
+        got = sm_t.feed(tctl.ObservationDocument(**d), now=now)
+        want = sm_j.feed(jctl.ObservationDocument(**d), now=now)
+        assert [c.value for c in got] == [c.value for c in want]

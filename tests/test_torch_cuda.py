@@ -781,6 +781,46 @@ def test_pipeline_megakernel4_matches_cpu(cuda, tmp_path):
                                [c.snr for c in cands[0]], rtol=1e-3)
 
 
+def test_pipeline_fil_drain_on_card(cuda, tmp_path):
+    """write_fil=True on the card: the .fil rows (and _plain.fil's) equal
+    the programs' outputs called directly on the card on the same seconds
+    and arm schedule, and the blocks a tap kept, read after the run, still
+    hold them (each second's pinned host copy is its own)."""
+    cfg = PipelineConfig.tiny(nbit=2, inject_frb=True, inject_dm=30.0,
+                              inject_amp=2.0, inject_width_s=8e-3)
+    rng = np.random.default_rng(19)
+    secs = [np.clip(rng.standard_normal((2, cfg.sample_rate)) / 0.05914
+                    + 128.5, 0, 255).astype(np.uint8) for _ in range(5)]
+    pipe = StationPipeline(1, cfg, SearchConfig.tiny(), out_dir=str(tmp_path),
+                           write_cands=False, device=cuda)
+    kept = []
+    pipe.block_taps.append(lambda sid, off, blk: kept.append(blk))
+    prod = pipe.run_observation(
+        ((1.6e9 + s, b) for s, b in enumerate(secs)),
+        ObservationDocument(name="FIL", start_time=1.6e9))
+    pipe.close()
+    window = tdsp.inject_window_seconds(cfg)
+    st = tdsp.init_state(cfg, cuda)
+    twin, twin_cfg = tdsp.twin_program(cfg), tdsp.twin_config(cfg)
+    kur, plain = [], []
+    for s, buf in enumerate(secs):
+        arm = s % C.INJECT_PERIOD_S == 0
+        raw = torch.from_numpy(buf).to(cuda)
+        out, st = (tdsp.process_second(cfg, raw, st, arm) if s < window
+                   else twin(twin_cfg, raw, st, arm))
+        kur.append(out.packed_kur.cpu().numpy())
+        plain.append(out.packed.cpu().numpy())
+    assert len(kept) == len(secs)
+    for got, want in zip(kept, kur):
+        np.testing.assert_array_equal(got, want)
+    from vlite_fast_tpu_torch.utils import sigproc
+    for path, want in ((prod.fil_path, kur),
+                       (prod.fil_path.replace(".fil", "_plain.fil"), plain)):
+        with open(path, "rb") as fp:
+            sigproc.read_header(fp)
+            assert fp.read() == np.concatenate(want, axis=0).tobytes()
+
+
 def _uniform(npol, nsamp, seed):
     rng = np.random.default_rng(seed)
     return rng.integers(1, 256, size=(npol, nsamp), dtype=np.uint8)
@@ -1148,7 +1188,8 @@ gen = torch.Generator(device=dev).manual_seed(3)
 secs = [(torch.randn((cfg.npol_in, cfg.sample_rate), generator=gen,
                      device=dev) / 0.05914 + 128.5).clamp(0, 255)
         .to(torch.uint8) for _ in range(3)]
-pipe = StationPipeline(1, cfg, SearchConfig(), write_cands=False, device=dev)
+pipe = StationPipeline(1, cfg, SearchConfig(), keep_ring=False,
+                       write_cands=False, device=dev)
 pipe.run_observation(((1.7e9 + s, b) for s, b in enumerate(secs)),
                      ObservationDocument(name="COLD"), write_fil=False)
 print(json.dumps(pipe.feed_seconds))

@@ -7,8 +7,9 @@ makes any import of either fail), imports vlite_fast_tpu_torch with every
 submodule, and runs one tiny second through the armed program and
 through each chain kernel's entry point (the relayout, chain_second in
 its three modes, chain_second_v4), resolves every twin program, runs the
-staged chain's stages A and B and the roll+select dedispersion, and runs
-one tiny gulp search, all on the CPU.
+staged chain's stages A and B and the roll+select dedispersion, runs
+one tiny gulp search, and runs two tiny antennas with their rings through
+ArrayPipeline.run_streaming, all on the CPU.
 """
 
 import os
@@ -77,6 +78,27 @@ dmt = ddp.dedisperse_pallas_rollsel(fb, plan, 200)
 assert torch.allclose(dmt, dd.dedisperse(fb, plan, 200), rtol=1e-5, atol=1e-4)
 assert mk.LAUNCHES["dft_detect_power"] == mk.LAUNCHES["chain_second_plain"] \
     == ddp.ROLLSEL_LAUNCHES == 0
+import os, tempfile
+from vlite_fast_tpu_torch.config import ArrayConfig
+from vlite_fast_tpu_torch.runtime.pipeline import (ArrayPipeline,
+                                                   ObservationDocument)
+acfg = ArrayConfig.tiny(nant=2)
+with tempfile.TemporaryDirectory() as out_dir:
+    ap = ArrayPipeline(acfg, out_dir=out_dir, device="cpu")
+    shm = ["/dev/shm" + st.ring.name for st in ap.stations]
+    try:
+        res = ap.run_streaming(
+            {a.station_id: [(1.7e9 + k, raw) for k in range(3)]
+             for a in acfg.antennas},
+            ObservationDocument(name="NOJAX", start_time=1.7e9),
+            coincide_every_s=1)
+        assert all(os.path.exists(p) for p in shm)
+    finally:
+        ap.close()
+    assert not any(os.path.exists(p) for p in shm)
+    assert [(p.seconds, p.dropped) for p in res["products"].values()] == \
+        [(3, 0), (3, 0)]
+    assert ap.coadd.gulps >= 1
 loaded = {m.split(".")[0] for m, mod in sys.modules.items() if mod is not None}
 assert not loaded & {"jax", "vlite_fast_tpu"}, loaded
 print("OK", len(names))

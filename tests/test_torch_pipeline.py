@@ -23,6 +23,8 @@ from vlite_fast_tpu.runtime.pipeline import StationPipeline as JPipe
 from vlite_fast_tpu_torch import config as tconfig
 from vlite_fast_tpu_torch.models import baseband_dsp as tdsp
 from vlite_fast_tpu_torch.ops import megakernel as tmk
+from vlite_fast_tpu_torch.runtime.pipeline import ArrayPipeline as TArray
+from vlite_fast_tpu_torch.runtime.pipeline import CoaddSearcher as TCoadd
 from vlite_fast_tpu_torch.runtime.pipeline import ObservationDocument as TDoc
 from vlite_fast_tpu_torch.runtime.pipeline import StationPipeline as TPipe
 
@@ -128,6 +130,32 @@ def test_cold_start_candidates_match_jax(tmp_path, seg_per_sec):
         assert bool(early) == (seg_per_sec == 100), r.candidates
 
 
+def test_flush_gulp_candidates_match_jax(tmp_path):
+    """6 s of pure noise whose last gulp is mostly padding (600 rows of
+    2400 + 453, padded with the near-zero level): both packages give the
+    same candidates, and in both the padded gulp raises spurious ones at
+    its start (a fault shared with the reference: ROADMAP Queue 3 #3)."""
+    cfg = PipelineConfig.tiny(nbit=2)
+    scfg = SearchConfig.tiny(gulp_samps=2400)
+    secs = _seconds(cfg, 6)
+    results = []
+    for pipe_cls, doc in ((JPipe, JDoc), (TPipe, TDoc)):
+        pipe = _pipe(pipe_cls, cfg, scfg,
+                     out_dir=str(tmp_path / doc.__module__),
+                     keep_ring=False, write_cands=False)
+        results.append(pipe.run_observation(
+            ((1.6e9 + s, buf) for s, buf in enumerate(secs)),
+            doc(name="FLUSH", start_time=1.6e9), write_fil=False))
+        pipe.close()
+    key = lambda r: sorted((c.dmi, c.peak_idx, c.tfilt, c.i0, c.i1)
+                           for c in r.candidates if c.snr > scfg.snr_thresh
+                           + 0.5)
+    assert key(results[1]) == key(results[0])
+    flush_start = scfg.gulp_samps
+    assert any(c.i0 == flush_start and c.snr > 12.0
+               for c in results[1].candidates)
+
+
 def test_feed_seconds_one_entry_per_second_per_program(tmp_path):
     """feed_seconds holds one positive time per fed second, under the
     program that ran it (on a card they come from CUDA events, read once
@@ -146,10 +174,47 @@ def test_feed_seconds_one_entry_per_second_per_program(tmp_path):
     assert all(t > 0 for ts in pipe.feed_seconds.values() for t in ts)
 
 
-def test_keep_ring_not_ported():
-    with pytest.raises(NotImplementedError, match="ring"):
-        TPipe(1, _t(PipelineConfig.tiny()), _t(SearchConfig.tiny()),
-              keep_ring=True, device="cpu")
+def test_fil_rows_equal_the_programs_outputs(tmp_path):
+    """write_fil=True (the default), rfi_mode 2: the drain writes each
+    second's rows from the host copy started at its dispatch, so the
+    .fil holds the excised stream's packed rows and _plain.fil the plain
+    stream's, equal to those of process_second and the twin called
+    directly on the same seconds with the same arm schedule; every fed
+    second has its span and its host time by part."""
+    from vlite_fast_tpu_torch import constants as tC
+    from vlite_fast_tpu_torch.runtime.pipeline import HOST_PARTS
+    from vlite_fast_tpu_torch.utils import sigproc
+    cfg = tconfig.PipelineConfig.tiny(inject_frb=True, nbit=2)
+    assert cfg.rfi_mode == 2
+    pipe = TPipe(1, cfg, tconfig.SearchConfig.tiny(), out_dir=str(tmp_path),
+                 write_cands=False, device="cpu")
+    secs = _seconds(cfg, 4)
+    prod = pipe.run_observation(
+        ((1.6e9 + s, buf) for s, buf in enumerate(secs)),
+        TDoc(name="FIL", start_time=1.6e9))
+    pipe.close()
+    window = tdsp.inject_window_seconds(cfg)
+    assert prod.seconds == 4 and 1 <= window < 4
+    assert len(pipe.feed_seconds["armed"]) == window
+    assert len(pipe.feed_seconds["twin"]) == 4 - window
+    assert all(len(pipe.host_seconds[k]) == 4 for k in HOST_PARTS)
+    st = tdsp.init_state(cfg, "cpu")
+    twin, twin_cfg = tdsp.twin_program(cfg), tdsp.twin_config(cfg)
+    kur, plain = [], []
+    for s, buf in enumerate(secs):
+        arm = s % tC.INJECT_PERIOD_S == 0
+        raw = torch.from_numpy(buf)
+        out, st = (tdsp.process_second(cfg, raw, st, arm) if s < window
+                   else twin(twin_cfg, raw, st, arm))
+        kur.append(out.packed_kur.numpy())
+        plain.append(out.packed.numpy())
+    for path, want in ((prod.fil_path, kur),
+                       (prod.fil_path.replace(".fil", "_plain.fil"), plain)):
+        with open(path, "rb") as fp:
+            hdr = sigproc.read_header(fp)
+            rows = fp.read()
+        assert hdr.nchans == cfg.nchanout and hdr.nbits == 2
+        assert rows == np.concatenate(want, axis=0).tobytes()
 
 
 def test_entry_points_default_to_the_card(tmp_path):
@@ -165,6 +230,10 @@ def test_entry_points_default_to_the_card(tmp_path):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         TPipe(1, cfg, scfg, out_dir=str(tmp_path))
     with pytest.raises(RuntimeError, match="device='cpu'"):
+        TArray(tconfig.ArrayConfig.tiny(nant=2), out_dir=str(tmp_path))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TCoadd([1, 2], cfg, scfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
         tsearch.SinglePulseSearch(scfg, cfg.tsamp, freqs)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tdsp.init_state(cfg)
@@ -176,3 +245,6 @@ def test_entry_points_default_to_the_card(tmp_path):
         interop.state_from_jax(z, z, 0, z, z)
     assert TPipe(1, cfg, scfg, out_dir=str(tmp_path),
                  device="cpu").device == torch.device("cpu")
+    assert TArray(tconfig.ArrayConfig.tiny(nant=2), out_dir=str(tmp_path),
+                  keep_rings=False, device="cpu").coadd.device == \
+        torch.device("cpu")

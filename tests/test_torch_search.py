@@ -167,3 +167,85 @@ def test_filterbank_from_packed_matches(nbit):
     assert np.array_equal(
         tsearch.filterbank_from_packed(packed, nbit, nchanout),
         jsearch.filterbank_from_packed(packed, nbit, nchanout))
+
+
+def _engines(**kw):
+    """The same SearchConfig's engine in each package (the port's on the
+    CPU), at the tests' small geometry."""
+    scfg = SearchConfig(dm_min=0.0, dm_max=100.0, ndm=64, gulp_samps=256,
+                        boxcar_max=16, zap_ranges=((0, 10),),
+                        snr_thresh=6.0, **kw)
+    tcfg = tconfig.SearchConfig(**dataclasses.asdict(scfg))
+    return (tsearch.SinglePulseSearch(tcfg, TSAMP, FREQS, nsub=64,
+                                      nbatch=16, device="cpu"),
+            jsearch.SinglePulseSearch(scfg, TSAMP, FREQS, nsub=64,
+                                      nbatch=16))
+
+
+def _pulsed(eng, ntime, seed, at=(120, 700), dm_index=40):
+    """Seeded noise with dispersed pulses at the plan's delays of one
+    trial, so that candidates clear the threshold."""
+    rng = np.random.default_rng(seed)
+    fb = rng.standard_normal((ntime, NCHAN)).astype(np.float32)
+    delays = tdd.delay_table(eng.dms[dm_index:dm_index + 1], FREQS,
+                             TSAMP)[0]
+    for t0 in at:
+        rows = t0 + np.asarray(delays, dtype=np.int64)
+        keep = rows < ntime
+        fb[rows[keep], np.arange(NCHAN)[keep]] += 3.0
+    return fb
+
+
+def _same(got, want):
+    key = lambda cs: sorted((c.dmi, c.peak_idx, c.tfilt, c.i0, c.i1)
+                            for c in cs)
+    assert want and key(got) == key(want)
+    np.testing.assert_allclose(sorted(c.snr for c in got),
+                               sorted(c.snr for c in want), rtol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [np.float16, np.float32])
+def test_search_gulp_matches_jax(dtype):
+    """search_gulp on a float gulp (the coadd stream's float16, or f32),
+    short of a full gulp so that both pad it: the same candidates."""
+    te, je = _engines()
+    fb = _pulsed(te, te.scfg.gulp_samps + te.overlap - 40, 41).astype(dtype)
+    got = te.search_gulp(fb, t_offset=100)
+    assert tddp.LAUNCHES == 0                 # CPU: the plain version
+    _same(got, je.search_gulp(fb, t_offset=100))
+    assert te.last_gulp_stats == je.last_gulp_stats
+
+
+def test_snr_cube_matches_jax():
+    te, je = _engines()
+    fb = _pulsed(te, te.scfg.gulp_samps + te.overlap, 42)
+    got = te.snr_cube(fb)
+    assert isinstance(got, torch.Tensor) and got.device.type == "cpu"
+    want = np.asarray(je.snr_cube(fb))
+    assert got.shape == want.shape == (len(te.widths), len(te.dms),
+                                       te.scfg.gulp_samps)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-4)
+
+
+def test_search_stream_matches_jax():
+    """A filterbank of several gulps and a ragged tail."""
+    te, je = _engines()
+    fb = _pulsed(te, 3 * te.scfg.gulp_samps + 150, 43,
+                 at=(100, 400, 650, 900))
+    _same(te.search_stream(fb), je.search_stream(fb))
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("nant", [2, 3, 8])
+def test_coadd_matches_jax(nant, weighted):
+    from vlite_fast_tpu.models import coadd as jcoadd
+    from vlite_fast_tpu_torch.models import coadd as tcoadd
+    rng = np.random.default_rng(nant)
+    fbs = rng.standard_normal((nant, 64, 48)).astype(np.float32)
+    w = rng.uniform(0.2, 2.0, nant).astype(np.float32) if weighted else None
+    got = tcoadd.coadd(torch.from_numpy(fbs),
+                       None if w is None else torch.from_numpy(w))
+    want = np.asarray(jcoadd.coadd(jnp.asarray(fbs),
+                                   None if w is None else jnp.asarray(w)))
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6)

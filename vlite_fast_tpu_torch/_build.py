@@ -8,9 +8,15 @@ takes seconds, not minutes):
          -Xcompiler -fPIC -Xptxas -v \
          -o build/vlite_fast_tpu_torch/lib<name>-<hash>.so
 
-The library lands in `build/vlite_fast_tpu_torch/` at the repo root, named
-by a hash of its source and of every `csrc/` header it includes, so an
-edited kernel or header is rebuilt and a stale one is never loaded.
+The host library of the baseband ring, `csrc/ringbuffer.cpp` (no CUDA),
+is built the same way by g++:
+
+    g++ -O2 -fPIC -shared -std=c++17 -o ... ringbuffer.cpp -lrt
+
+A library lands in `build/vlite_fast_tpu_torch/` at the repo root, named
+by a hash of its source, its compiler's flags and every `csrc/` header
+it includes, so an edited kernel or header is rebuilt and a stale one is
+never loaded.
 nvcc's output (the `-Xptxas -v` register and shared memory report) is
 kept beside it as `.log`.  Nothing here runs at import time: the first
 call of `load` builds (`load_all` builds several at once, one nvcc
@@ -34,9 +40,12 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / \
     "vlite_fast_tpu_torch"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
-# every library of the port, by csrc/<name>.cu
+HOST_FLAGS = ["-O2", "-fPIC", "-shared", "-std=c++17"]
+# every CUDA library of the port, by csrc/<name>.cu
 LIBRARIES = ("chain", "dedisperse", "ema", "pretranspose", "rfi_front",
              "stage_ab", "tile_bench")
+# the host libraries, by csrc/<name>.cpp
+HOST_LIBRARIES = ("ringbuffer",)
 
 _LIBS: dict = {}
 BUILD_SECONDS: dict = {}   # name -> wall seconds of the nvcc run (0 if cached)
@@ -54,9 +63,14 @@ def nvcc_path() -> str:
     return found
 
 
+def _is_host(name: str) -> bool:
+    return name in HOST_LIBRARIES
+
+
 def sources(name: str) -> list:
-    """csrc/<name>.cu and the csrc headers it includes, transitively."""
-    found, todo = [], [CSRC / f"{name}.cu"]
+    """csrc/<name>.cu (csrc/<name>.cpp for a host library) and the csrc
+    headers it includes, transitively."""
+    found, todo = [], [CSRC / f"{name}.{'cpp' if _is_host(name) else 'cu'}"]
     while todo:
         path = todo.pop()
         if path in found:
@@ -70,37 +84,45 @@ def sources(name: str) -> list:
 
 
 def lib_path(name: str) -> Path:
-    h = hashlib.sha1(" ".join(ARCH_FLAGS).encode())
+    h = hashlib.sha1(" ".join(HOST_FLAGS if _is_host(name)
+                              else ARCH_FLAGS).encode())
     for src in sources(name):
         h.update(src.name.encode() + b"\0" + src.read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def build(name: str) -> Path:
-    """Compile csrc/<name>.cu unless a library of this exact source
-    exists; returns its path."""
+    """Compile csrc/<name>.cu (nvcc) or, for a host library,
+    csrc/<name>.cpp (g++) unless a library of this exact source exists;
+    returns its path."""
     out = lib_path(name)
     if out.exists():
         BUILD_SECONDS.setdefault(name, 0.0)
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-           "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(tmp),
-           str(CSRC / f"{name}.cu")]
+    if _is_host(name):
+        cmd = ["g++", *HOST_FLAGS, "-o", str(tmp), str(sources(name)[0]),
+               "-lrt"]
+    else:
+        cmd = [nvcc_path(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
+               "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(tmp),
+               str(sources(name)[0])]
     t0 = time.perf_counter()
     res = subprocess.run(cmd, capture_output=True, text=True)
     BUILD_SECONDS[name] = time.perf_counter() - t0
     out.with_suffix(".log").write_text(
         " ".join(cmd) + "\n" + res.stdout + res.stderr)
     if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name}.cu:\n{res.stderr}")
+        raise RuntimeError(f"{cmd[0]} failed for {sources(name)[0].name}:"
+                           f"\n{res.stderr}")
     os.replace(tmp, out)
     return out
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library for csrc/<name>.cu, built on first use."""
+    """The loaded library for csrc/<name>.cu or .cpp, built on first
+    use."""
     lib = _LIBS.get(name)
     if lib is None:
         lib = ctypes.CDLL(str(build(name)))

@@ -3,8 +3,10 @@
 Port of vlite_fast_tpu/models/search.py.  One gulp on the device:
 dedisperse the packed rows (ops/dedisperse_pallas.dedisperse_pallas_packed:
 the CUDA kernel on a CUDA tensor, dequantize and the gather engine on a
-CPU one) -> boxcar S/N -> top-k per DM band; only the packed crossings come back to the host, which clusters
-them into candidates.
+CPU one) or a float filterbank (the coadd's float16 stream, cast to f32
+on the device: the same kernel's f32 entry, dedisperse_pallas) -> boxcar
+S/N -> top-k per DM band; only the packed crossings come back to the
+host, which clusters them into candidates.
 """
 
 from __future__ import annotations
@@ -94,14 +96,18 @@ def decode_crossings(packed: np.ndarray, nw: int, ndm: int, ntime: int,
     return v, hits, n_crossings, saturated
 
 
-def _device_gulp(packed: torch.Tensor, plan: dd.DedispPlan, *,
+def _device_gulp(fb: torch.Tensor, plan: dd.DedispPlan, *,
                  widths: tuple, k: int, nbit: int, nchan: int, nbands: int,
                  thresh: float) -> torch.Tensor:
-    """One gulp on the packed rows' device: dedisperse the packed rows
-    (the kernel dequantizes and zaps as it stages them) -> boxcar S/N ->
-    banded top-k crossings."""
-    ntime_out = packed.shape[0] - plan.max_delay
-    dmt = ddp.dedisperse_pallas_packed(packed, nbit, nchan, plan, ntime_out)
+    """One gulp on fb's device: dedisperse -> boxcar S/N -> banded top-k
+    crossings.  fb is packed rows (time, nbytes) when nbit > 0 (the
+    kernel dequantizes and zaps as it stages them), else a float
+    filterbank (time, nchan) of any float dtype, cast to f32 here."""
+    ntime_out = fb.shape[0] - plan.max_delay
+    if nbit:
+        dmt = ddp.dedisperse_pallas_packed(fb, nbit, nchan, plan, ntime_out)
+    else:
+        dmt = ddp.dedisperse_pallas(fb.to(torch.float32), plan, ntime_out)
     snr = dd.boxcar_snr(dmt, plan.nchan_eff, widths)
     return pack_topk_banded(snr, k, nbands, thresh)
 
@@ -133,13 +139,23 @@ class SinglePulseSearch:
         """Lookahead samples a gulp needs beyond its own span."""
         return self.plan.max_delay
 
-    def _top_crossings(self, packed_dev: torch.Tensor, nbit: int):
+    def snr_cube(self, fb_block) -> torch.Tensor:
+        """(gulp + overlap, nchan) float32 -> (nwidth, ndm, gulp) S/N on
+        the search's device."""
+        fb = torch.as_tensor(np.asarray(fb_block, dtype=np.float32),
+                             device=self.device)
+        ntime_out = fb.shape[0] - self.plan.max_delay
+        dmt = ddp.dedisperse_pallas(fb, self.plan, ntime_out)
+        return dd.boxcar_snr(dmt, self.plan.nchan_eff, self.widths)
+
+    def _top_crossings(self, fb_dev: torch.Tensor, nbit: int = 0):
+        """fb_dev: packed rows when nbit > 0, else a float filterbank."""
         k = self.scfg.topk or min(16 * self.scfg.max_candidates, 20000)
         packed = _device_gulp(
-            packed_dev, self.plan, widths=self.widths, k=k, nbit=nbit,
+            fb_dev, self.plan, widths=self.widths, k=k, nbit=nbit,
             nchan=len(self.freqs_mhz), nbands=self.nbands,
             thresh=float(self.scfg.snr_thresh))
-        ntime_out = packed_dev.shape[0] - self.plan.max_delay
+        ntime_out = fb_dev.shape[0] - self.plan.max_delay
         return packed, (len(self.widths), len(self.dms), ntime_out)
 
     def _cands_from_crossings(self, packed, shape, t_offset, nvalid
@@ -155,6 +171,22 @@ class SinglePulseSearch:
             t_offset=t_offset, max_cands=self.scfg.max_candidates)
         limit = t_offset + nvalid      # drop anything inside the padding
         return [c for c in cands if c.peak_idx < limit]
+
+    def search_gulp(self, fb_block: np.ndarray,
+                    t_offset: int = 0) -> List[dd.Candidate]:
+        """Search one gulp of a float filterbank (time, nchan), zero-padded
+        to gulp + overlap rows.  The caller's dtype ships as it is (the
+        coadd stream's float16: half the bytes of f32) and is cast to f32
+        on the device."""
+        full = self.scfg.gulp_samps + self.overlap
+        nvalid = fb_block.shape[0] - self.overlap
+        if fb_block.shape[0] < full:
+            pad = np.zeros((full - fb_block.shape[0], fb_block.shape[1]),
+                           fb_block.dtype)
+            fb_block = np.concatenate([fb_block, pad], axis=0)
+        crossings, shape = self._top_crossings(
+            torch.as_tensor(fb_block, device=self.device))
+        return self._cands_from_crossings(crossings, shape, t_offset, nvalid)
 
     def search_gulp_packed(self, packed_block: np.ndarray, nbit: int,
                            t_offset: int = 0) -> List[dd.Candidate]:
@@ -181,6 +213,19 @@ class SinglePulseSearch:
             raise ValueError(f"device gulp must be padded to {full} rows")
         crossings, shape = self._top_crossings(packed_dev, nbit=nbit)
         return self._cands_from_crossings(crossings, shape, t_offset, nvalid)
+
+    def search_stream(self, fb: np.ndarray) -> List[dd.Candidate]:
+        """Search a long (ntime, nchan) filterbank in overlapping gulps."""
+        gulp = self.scfg.gulp_samps
+        cands: List[dd.Candidate] = []
+        t = 0
+        while t < fb.shape[0]:
+            block = fb[t:t + gulp + self.overlap]
+            if block.shape[0] <= self.overlap + max(self.widths):
+                break
+            cands.extend(self.search_gulp(block, t_offset=t))
+            t += gulp
+        return cands
 
 
 def filterbank_from_packed(packed: np.ndarray, nbit: int,

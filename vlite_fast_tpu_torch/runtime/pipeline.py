@@ -1,11 +1,15 @@
-"""Host-side orchestration of one antenna stream on a torch device.
+"""Host-side orchestration of antenna streams on a torch device.
 
 Port of vlite_fast_tpu/runtime/pipeline.py (GulpStream, DeviceGulpStream,
-ObservationProducts, StationPipeline):
+ObservationProducts, StationPipeline, CoaddSearcher, ArrayPipeline):
 
-  seconds -> DSP chain (models/baseband_dsp) -> .fil file
+  seconds -> baseband ring (C++ shm, for triggered dumps)
+          -> DSP chain (models/baseband_dsp) -> .fil file, block taps
           -> packed filterbank kept on the device -> gulp search
           (models/search) -> candidates
+
+and an ArrayPipeline fans N stations on one device into the coadd
+search, the coincidencer and the triggered dumper.
 
 Host gating of the FRB injection is the JAX pipeline's: for the
 inject_window_seconds after each minute's arm the armed program
@@ -14,9 +18,16 @@ runs the injection-free twin, resolved once at construction from
 chain_impl and twin_chain_impl as the JAX pipeline resolves them
 (baseband_dsp.twin_config / twin_program: a fused chain kernel through
 twin_second, or process_second with injection off).  A configuration the
-resolution refuses raises ValueError here, not at its first second.  The
-baseband ring (keep_ring) and the coadd/trigger/dumper roles are not
-ported yet.
+resolution refuses raises ValueError here, not at its first second.
+
+Nothing in the per-second loop waits for the device except the drain of
+the previous second: at dispatch each second's packed rows (and the plain
+stream's in rfi_mode 2) start an asynchronous copy into a pinned host
+tensor of their own, followed by an event; the next second's drain waits
+on that event only, then writes the .fil and feeds the block taps from
+those bytes.  Each second gets a fresh pinned tensor, never a reused
+one: the coadd and the host gulp stream keep a second's bytes after its
+drain.
 """
 
 from __future__ import annotations
@@ -25,32 +36,32 @@ import os
 import tempfile
 import time
 from dataclasses import dataclass
-from typing import Iterable, List, Optional
+from typing import Dict, Iterable, List, Optional
 
 import numpy as np
 import torch
 
 from vlite_fast_tpu_torch import _build, devices
 from vlite_fast_tpu_torch import constants as C
-from vlite_fast_tpu_torch.config import PipelineConfig, SearchConfig
+from vlite_fast_tpu_torch.config import (ArrayConfig, PipelineConfig,
+                                         SearchConfig)
 from vlite_fast_tpu_torch.models import baseband_dsp as dsp
 from vlite_fast_tpu_torch.models import search as search_mod
 from vlite_fast_tpu_torch.ops import dedisperse as dd
 from vlite_fast_tpu_torch.ops import quantize as q_ops
+from vlite_fast_tpu_torch.runtime import trigger as trig
+# ObservationDocument is imported from here too (chip_smoke, the tests)
+from vlite_fast_tpu_torch.runtime.control import ObservationDocument
+from vlite_fast_tpu_torch.runtime.dumper import TriggeredDumper
+from vlite_fast_tpu_torch.runtime.ring import FLAG_OBS_START, RingBuffer
 from vlite_fast_tpu_torch.utils import sigproc
 from vlite_fast_tpu_torch.utils.log import Metrics, RTMonitor, make_logger
 
-
-@dataclass
-class ObservationDocument:
-    """The scan metadata the filterbank header needs (the fields of
-    vlite_fast_tpu.runtime.control.ObservationDocument that
-    StationPipeline reads)."""
-
-    name: str = ""
-    ra: float = 0.0              # radians
-    dec: float = 0.0             # radians
-    start_time: float = 0.0      # unix seconds
+# the port's baseband rings are /vfast_torch_bb_<station>_<pid>: never a
+# name the JAX package's rings (/vfast_bb_<station>) take, since creating
+# a ring unlinks any segment of its name, and never the name of a ring of
+# another process
+RING_PREFIX = "/vfast_torch_bb"
 
 
 class GulpStream:
@@ -161,21 +172,29 @@ class ObservationProducts:
     candidates: List[dd.Candidate]
     seconds: int
     rt_factor: float
+    dropped: int = 0
     start_unix: float = 0.0   # unix time of the first processed second
 
 
+# the host's work of each fed second, by part (StationPipeline.host_seconds)
+HOST_PARTS = ("ring", "staging", "copy", "wait", "drain", "search")
+
+
 class StationPipeline:
-    """One antenna stream end to end on `device`."""
+    """One antenna stream end to end on `device`.
+
+    ring_seconds of baseband stay in a shared-memory ring for triggered
+    dumps (keep_ring): it must exceed the gulp-bound candidate latency,
+    or a dump always misses the event (40 s of production baseband is
+    10.24 GB of /dev/shm).  A pipeline with a ring takes each second as
+    host bytes (a numpy array or a CPU tensor), which the ring holds;
+    without one a second may also be a tensor already on the device."""
 
     def __init__(self, station_id: int, cfg: PipelineConfig,
                  scfg: SearchConfig, out_dir: Optional[str] = None,
-                 keep_ring: bool = False, write_cands: bool = True,
+                 ring_seconds: int = 40, keep_ring: bool = True,
+                 write_cands: bool = True, write_kurto: bool = False,
                  device="cuda"):
-        if keep_ring:
-            raise NotImplementedError(
-                "keep_ring=True needs the baseband ring "
-                "(vlite_fast_tpu.runtime.ring), which imports jax; the "
-                "port does not have it yet")
         self.station_id = station_id
         self.cfg = cfg
         self.scfg = scfg
@@ -185,11 +204,19 @@ class StationPipeline:
         os.makedirs(self.out_dir, exist_ok=True)
         self.log = make_logger(f"station{station_id:02d}")
         self.metrics = Metrics()
+        self.ring: Optional[RingBuffer] = None
+        if keep_ring:
+            self.ring = RingBuffer(
+                f"{RING_PREFIX}_{station_id:02d}_{os.getpid()}",
+                bufsz=cfg.npol_in * cfg.sample_rate, nbufs=ring_seconds,
+                create=True)
         self.search = search_mod.SinglePulseSearch(
             scfg, cfg.tsamp, cfg.freqs_mhz(),
             nsub=min(128, cfg.nchanout), nbatch=min(scfg.ndm, 128),
             device=self.device)
         self.write_cands = write_cands
+        self.write_kurto = write_kurto   # WRITE_KURTO role (weights dump)
+        self._weights_accum: List[torch.Tensor] = []
         self.state = dsp.init_state(cfg, self.device)
         # the injection-free twin runs outside the window after each arm
         self._cfg_noinject = dsp.twin_config(cfg)
@@ -209,6 +236,16 @@ class StationPipeline:
         # read from CUDA events once they have completed; on the CPU, the
         # host's wall time of feed_second
         self.feed_seconds = {"armed": [], "twin": []}
+        # the host's seconds of each fed second by part (HOST_PARTS): the
+        # ring write, the pinned staging of a host second, the start of the
+        # copies of its products to the host, the wait for the previous
+        # second's bytes, the drain (.fil and block taps) and the gulp
+        # searches the drain started
+        self.host_seconds = {k: [] for k in HOST_PARTS}
+        self._clock = dict.fromkeys(HOST_PARTS, 0.0)
+        # taps: callables (station_id, abs_offset, packed_block) called on
+        # every drained block (the coadd-ring writer role)
+        self.block_taps: List = []
 
     def _fil_header(self, od: ObservationDocument,
                     tstart_unix: float) -> sigproc.FilterbankHeader:
@@ -238,7 +275,9 @@ class StationPipeline:
         self.state = dsp.init_state(self.cfg, self.device)
         self._fb, self._searched_to = GulpStream(), 0
         self._fb_dev = DeviceGulpStream()
+        self._taps_offset = 0
         self._pending = None
+        self._weights_accum = []
         self._times = []
         self._od = od
         self._write_fil = write_fil
@@ -252,7 +291,10 @@ class StationPipeline:
         self._t0_unix = None
         self._inject_until = -1
         self.feed_seconds = {"armed": [], "twin": []}
+        self.host_seconds = {k: [] for k in HOST_PARTS}
         self.prewarm()
+        if self.ring is not None:
+            self.ring.set_obs_header(od.to_ascii_header(self.station_id))
 
     def prewarm(self) -> None:
         """Before the first second is fed (once per pipeline;
@@ -281,6 +323,16 @@ class StationPipeline:
             torch.full((gulp + self.search.overlap, row),
                        q_ops.NEAR_ZERO_FILL[cfg.nbit], dtype=torch.uint8,
                        device=self.device), cfg.nbit, 0, gulp)
+        # the pinned host blocks of the seconds' rows that the stream
+        # holds at once (the host gulp window, and a few in flight to the
+        # .fil and the taps), allocated once here: the caching host
+        # allocator keeps them when they are freed, so that no second
+        # pays for pinning fresh pages
+        rows = out.packed.shape[0]
+        held = 2 * (-(-(gulp + self.search.overlap) // rows) + 4)
+        blocks = [torch.empty(out.packed.shape, dtype=torch.uint8,
+                              pin_memory=True) for _ in range(held)]
+        del blocks
         torch.cuda.synchronize(self.device)
         self._prewarmed = True
 
@@ -306,6 +358,19 @@ class StationPipeline:
         self._staging.append(slot)
         return raw
 
+    @staticmethod
+    def _to_host(t: torch.Tensor) -> torch.Tensor:
+        """t's bytes on the host: a CPU tensor as it is; a device tensor
+        into a pinned host tensor of its own by an asynchronous copy (the
+        caller records an event after it).  The caching host allocator
+        hands a freed block out again only once the copies that used it
+        have completed."""
+        if t.device.type == "cpu":
+            return t
+        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        host.copy_(t, non_blocking=True)
+        return host
+
     def _read_times(self, wait: bool = False) -> None:
         """Move the spans of seconds whose end event has completed (every
         one with wait, after a synchronize) into feed_seconds, in order."""
@@ -317,6 +382,14 @@ class StationPipeline:
         """Run one second; returns candidates that became final while it
         was processed."""
         cfg = self.cfg
+        if self.ring is not None and isinstance(buf, torch.Tensor) \
+                and buf.device.type != "cpu":
+            raise ValueError(
+                f"station {self.station_id}: a pipeline with a ring takes "
+                "each second as host bytes (a numpy array or a CPU tensor), "
+                f"not a tensor on {buf.device}: the ring holds the host's "
+                "bytes, and copying a device second back would cost a "
+                "device-to-host copy of every second")
         t_start = time.perf_counter()
         on_card = self.device.type == "cuda"
         if on_card:
@@ -338,7 +411,18 @@ class StationPipeline:
                     self._fil_plain = sigproc.FilterbankWriter(
                         self._fil_path.replace(".fil", "_plain.fil"),
                         self._fil_header(self._od, self._t0_unix))
+        clock = self._clock = dict.fromkeys(HOST_PARTS, 0.0)
+        t = time.perf_counter()
+        if self.ring is not None:
+            host = buf.numpy() if isinstance(buf, torch.Tensor) \
+                else np.asarray(buf)
+            self.ring.write(host.reshape(-1), timestamp=float(sec),
+                            flags=FLAG_OBS_START if self._nsec == 0 else 0,
+                            overwrite=True)
+        clock["ring"] = time.perf_counter() - t
+        t = time.perf_counter()
         raw = self._to_device(buf)
+        clock["staging"] = time.perf_counter() - t
         arm = bool(cfg.inject_frb and self._nsec % C.INJECT_PERIOD_S == 0)
         if arm:
             self._inject_until = self._nsec + dsp.inject_window_seconds(cfg)
@@ -355,14 +439,31 @@ class StationPipeline:
         plain_new = (out.packed if (cfg.rfi_mode == 2
                                     and self._fil_plain is not None)
                      else None)
+        host_new = plain_host = done = None
+        t = time.perf_counter()
+        if self._fil is not None or self.block_taps:
+            # the copies start now, behind this second's kernels; the next
+            # second's drain waits for them, not for the device's queue
+            host_new = self._to_host(pending_new)
+            if plain_new is not None:
+                plain_host = self._to_host(plain_new)
+            if on_card:
+                done = torch.cuda.Event()
+                done.record()
+        if self.write_kurto:
+            # read after end_observation's synchronize
+            self._weights_accum.append(self._to_host(out.weights))
+        clock["copy"] = time.perf_counter() - t
         before = len(self._cands)
         if self._pending is not None:
             self._drain(*self._pending)
-        self._pending = (pending_new, plain_new)
+        self._pending = (pending_new, host_new, plain_host, done)
         self._nsec += 1
         deficit = self._rt.add(1.0)
         if deficit is not None:
             self.log.warning("falling behind real time by %.2f s", deficit)
+        for k, v in clock.items():
+            self.host_seconds[k].append(v)
         kind = "armed" if armed else "twin"
         if on_card:
             end = torch.cuda.Event(enable_timing=True)
@@ -393,25 +494,50 @@ class StationPipeline:
             with open(fil_path.replace(".fil", ".cand"), "w") as fp:
                 for c in cands:
                     fp.write(c.to_line() + "\n")
+        if fil_path and self.write_kurto and self._weights_accum:
+            np.savez_compressed(fil_path.replace(".fil", "_kurto.npz"),
+                                weights=np.concatenate(
+                                    [w.numpy() for w in self._weights_accum],
+                                    axis=-1))
+        self._weights_accum = []
         return ObservationProducts(
             fil_path=fil_path, candidates=cands, seconds=self._nsec,
             rt_factor=self._rt.realtime_factor,
+            dropped=self.ring.dropped if self.ring else 0,
             start_unix=self._t0_unix or 0.0)
 
     def _drain(self, packed_dev: torch.Tensor,
-               plain_dev: Optional[torch.Tensor] = None) -> None:
+               packed_host: Optional[torch.Tensor] = None,
+               plain_host: Optional[torch.Tensor] = None,
+               done: Optional[torch.cuda.Event] = None) -> None:
+        """The previous second's products: its device rows join the
+        search's stream; its host bytes (copied at its dispatch) go to
+        the .fil files and the block taps once its copy has completed."""
+        clock = self._clock
         if self._search_live:
             # kept on the device only while a search will consume it
             self._fb_dev.append(packed_dev)
-        if self._fil is not None:
-            packed = packed_dev.cpu().numpy()
-            self._fil.write_block(packed)
-            if plain_dev is not None and self._fil_plain is not None:
-                self._fil_plain.write_block(plain_dev.cpu().numpy())
+        if packed_host is not None:
+            t = time.perf_counter()
+            if done is not None:
+                done.synchronize()
+            t1 = time.perf_counter()
+            clock["wait"] = t1 - t
+            packed = packed_host.numpy()
+            if self._fil is not None:
+                self._fil.write_block(packed)
+            if plain_host is not None and self._fil_plain is not None:
+                self._fil_plain.write_block(plain_host.numpy())
             if self._search_live:
                 self._fb.append(packed)
+            for tap in self.block_taps:
+                tap(self.station_id, self._taps_offset, packed)
+            self._taps_offset += packed.shape[0]
+            clock["drain"] = time.perf_counter() - t1
         if self._search_live:
+            t = time.perf_counter()
             self._cands.extend(self._search_ready())
+            clock["search"] = time.perf_counter() - t
 
     def _search_ready(self, flush: bool = False) -> List[dd.Candidate]:
         """Search every complete gulp accumulated since the last call."""
@@ -455,3 +581,329 @@ class StationPipeline:
             if flush and total - self._searched_to <= overlap + 64:
                 break
         return out
+
+    def close(self) -> None:
+        """Unlink the ring's shared memory."""
+        if self.ring is not None:
+            self.ring.close(unlink=True)
+
+
+COADD_BEAM = -1   # pseudo-beam id of the coadded stream
+
+
+class CoaddSearcher:
+    """Search the coadded filterbank stream in the host runtime.
+
+    The reference's sqrt(N) sensitivity path (agdadacoadd reduces every
+    antenna's coadd ring and agtriggerhook searches the sum): the
+    stations' block taps feed packed blocks; once every station has
+    delivered a sample range, the dequantized sum, scaled by 1/sqrt(N)
+    and stored as float16, enters a gulp search identical to the
+    per-beam one, on `device` through the dedispersion kernel's f32
+    entry.  Candidates carry beam COADD_BEAM.  The host sum is the JAX
+    package's numpy, so the float16 stream is bit-equal to its own.
+    """
+
+    def __init__(self, station_ids: List[int], cfg: PipelineConfig,
+                 scfg: SearchConfig, nsub: int = 0, nbatch: int = 0,
+                 device="cuda"):
+        self.cfg, self.scfg = cfg, scfg
+        self._all_station_ids = list(station_ids)
+        self.station_ids = list(station_ids)
+        self.search = search_mod.SinglePulseSearch(
+            scfg, cfg.tsamp, cfg.freqs_mhz(),
+            nsub=nsub or min(128, cfg.nchanout),
+            nbatch=nbatch or min(scfg.ndm, 128), device=device)
+        self.device = self.search.device
+        self.log = make_logger("coadd")
+        self._prewarmed = False
+        self.reset()
+
+    def reset(self) -> None:
+        self.station_ids = list(self._all_station_ids)  # un-retire
+        self._pending: Dict[int, list] = {sid: [] for sid in self.station_ids}
+        self._next_offset = {sid: 0 for sid in self.station_ids}
+        self._co, self._searched_to = GulpStream(), 0
+        self.cands: List[dd.Candidate] = []
+        self.gulps = 0          # gulps searched since the last reset
+        # the host's seconds since the last reset: dequantizing and
+        # summing the stations' blocks, and the gulp searches
+        self.host_seconds = {"sum": 0.0, "search": 0.0}
+
+    def prewarm(self) -> None:
+        """Once, before the first block: one near-zero float16 gulp through
+        the search on the card (the dedispersion kernel's f32 entry), its
+        crossings discarded, so that the first gulp is not a cold one."""
+        if self.device.type != "cuda" or self._prewarmed:
+            return
+        full = self.scfg.gulp_samps + self.search.overlap
+        self.search._top_crossings(torch.full(
+            (full, self.cfg.nchanout), 1e-3, dtype=torch.float16,
+            device=self.device))
+        torch.cuda.synchronize(self.device)
+        self._prewarmed = True
+
+    def tap(self, station_id: int, offset: int, packed: np.ndarray) -> None:
+        """StationPipeline block tap: collect, and coadd whatever sample
+        range every station has now delivered.  Blocks of retired stations
+        are dropped.
+
+        Lockstep is checked: each station's `offset` must continue where
+        its last block ended.  A gap is zero-filled in filterbank space,
+        so every later coadd still sums aligned time ranges; a rewind or a
+        duplicate keeps the first-arrival samples only."""
+        if station_id not in self._pending:
+            return
+        exp = self._next_offset[station_id]
+        end = offset + packed.shape[0]
+        if offset > exp:
+            self.log.warning(
+                "coadd: station %d jumped %d->%d; zero-filling %d samples "
+                "to keep the coadd time-aligned", station_id, exp, offset,
+                offset - exp)
+            self._pending[station_id].append(("pad", offset - exp))
+        elif offset < exp:
+            overlap = exp - offset
+            if overlap >= packed.shape[0]:
+                self.log.warning(
+                    "coadd: station %d re-delivered [%d,%d) already "
+                    "consumed; dropped", station_id, offset,
+                    offset + packed.shape[0])
+                return
+            self.log.warning(
+                "coadd: station %d overlapped %d samples; keeping the "
+                "first-arrival range", station_id, overlap)
+            packed = packed[overlap:]
+        self._pending[station_id].append(packed)
+        self._next_offset[station_id] = end
+        self._advance()
+
+    def retire(self, station_id: int) -> None:
+        """A station's stream ended: drop it from the lockstep set, so the
+        coadd keeps covering new data with the stations that remain (the
+        per-gulp noise estimate absorbs the sqrt(N) scale change)."""
+        if station_id in self.station_ids:
+            self.station_ids.remove(station_id)
+            self._pending.pop(station_id, None)
+            self.log.info("coadd: station %d retired (%d remain)",
+                          station_id, len(self.station_ids))
+            if self.station_ids:
+                self._advance()
+
+    @staticmethod
+    def _blk_len(b) -> int:
+        return b[1] if isinstance(b, tuple) else b.shape[0]
+
+    @staticmethod
+    def _blk_split(b, n: int):
+        """(first n samples, remainder or None) of a packed/pad entry."""
+        if isinstance(b, tuple):
+            rest = b[1] - n
+            return ("pad", n), (("pad", rest) if rest > 0 else None)
+        return b[:n], (b[n:] if b.shape[0] > n else None)
+
+    def _blk_fb(self, b) -> np.ndarray:
+        """Dequantize a packed entry; a pad is zero filterbank (zero adds
+        nothing to the sum)."""
+        if isinstance(b, tuple):
+            return np.zeros((b[1], self.cfg.nchanout), np.float32)
+        return search_mod.filterbank_from_packed(
+            b, self.cfg.nbit, self.cfg.nchanout)
+
+    def _advance(self) -> None:
+        while self.station_ids and all(
+                self._pending[sid] for sid in self.station_ids):
+            blocks = [self._pending[sid].pop(0) for sid in self.station_ids]
+            n = min(self._blk_len(b) for b in blocks)
+            if any(self._blk_len(b) != n for b in blocks):
+                # ragged blocks: consume the common prefix and requeue the
+                # remainders, so the streams stay sample-aligned
+                self.log.warning("ragged coadd blocks: %s",
+                                 [self._blk_len(b) for b in blocks])
+                head = []
+                for sid, b in zip(self.station_ids, blocks):
+                    first, rest = self._blk_split(b, n)
+                    if rest is not None:
+                        self._pending[sid].insert(0, rest)
+                    head.append(first)
+                blocks = head
+            t = time.perf_counter()
+            fbs = np.stack([self._blk_fb(b) for b in blocks])
+            co = fbs.sum(axis=0) * np.float32(1.0 / np.sqrt(len(fbs)))
+            # float16 halves the window's bytes, on the host and on their
+            # way to the device; values are O(10) sums of levels
+            self._co.append(co.astype(np.float16))
+            self.host_seconds["sum"] += time.perf_counter() - t
+            self.cands.extend(self._search_ready())
+
+    def _search_ready(self, flush: bool = False) -> List[dd.Candidate]:
+        gulp = self.scfg.gulp_samps
+        overlap = self.search.overlap
+        total = self._co.total
+        out: List[dd.Candidate] = []
+        while total - self._searched_to >= gulp + overlap or (
+                flush and total - self._searched_to > overlap + 64):
+            stop = min(self._searched_to + gulp + overlap, total)
+            t = time.perf_counter()
+            block = self._co.window(self._searched_to, stop)
+            out.extend(self.search.search_gulp(
+                block, t_offset=self._searched_to))
+            self.host_seconds["search"] += time.perf_counter() - t
+            self.gulps += 1
+            self._searched_to += min(gulp, block.shape[0] - overlap)
+            self._co.prune(self._searched_to)
+            if flush and total - self._searched_to <= overlap + 64:
+                break
+        return out
+
+    def finish(self) -> List[dd.Candidate]:
+        self.cands.extend(self._search_ready(flush=True))
+        return self.cands
+
+
+class ArrayPipeline:
+    """N stations on one device, the coadd search, the coincidencer and the
+    triggered dumps (the cluster roles of messenger, trigger.py and the
+    dumper on one host).  Every station's work goes to the device's one
+    stream."""
+
+    def __init__(self, acfg: ArrayConfig, out_dir: Optional[str] = None,
+                 keep_rings: bool = True, search_coadd: bool = True,
+                 device="cuda"):
+        self.acfg = acfg
+        self.out_dir = out_dir or os.path.join(tempfile.gettempdir(),
+                                               "vfast")
+        self.stations = [
+            StationPipeline(a.station_id, acfg.pipeline, acfg.search,
+                            out_dir=self.out_dir, keep_ring=keep_rings,
+                            device=device)
+            for a in acfg.antennas]
+        self.tcfg = acfg.trigger
+        self.log = make_logger("array")
+        self.coadd: Optional[CoaddSearcher] = None
+        if search_coadd and len(self.stations) >= 2:
+            self.coadd = CoaddSearcher(
+                [st.station_id for st in self.stations], acfg.pipeline,
+                acfg.search, device=device)
+            for st in self.stations:
+                st.block_taps.append(self.coadd.tap)
+
+    def prewarm(self) -> None:
+        """Each station's programs and the coadd's search, once (the
+        observation's start does it too; a caller may do it before)."""
+        for st in self.stations:
+            st.prewarm()
+        if self.coadd is not None:
+            self.coadd.prewarm()
+
+    def run_streaming(self, per_ant_seconds: Dict[int, Iterable],
+                      od: ObservationDocument,
+                      coincide_every_s: int = 8) -> dict:
+        """Interleaved serving: every data-second is dispatched for all
+        stations before any of them drains (the device's queue overlaps
+        the antennas), and coincidence and triggering run every
+        `coincide_every_s` seconds instead of at the observation's end.
+        The result's "trigger_seconds" holds, for each trigger, the data
+        seconds fed when it was raised."""
+        iters = {st.station_id: iter(per_ant_seconds[st.station_id])
+                 for st in self.stations}
+        if self.coadd is not None:
+            self.coadd.reset()
+            self.coadd.prewarm()
+        for st in self.stations:
+            st.begin_observation(od)
+        dumpers = {st.station_id: TriggeredDumper(
+            st.ring, os.path.join(self.out_dir, "dumps"),
+            station_id=st.station_id, max_dump_s=self.tcfg.max_dump_s)
+            for st in self.stations if st.ring is not None}
+        triggers: List[trig.Trigger] = []
+        dumps, at = [], []
+        sent = set()
+        nsec = 0
+        live = dict(iters)
+        while live:
+            for st in self.stations:
+                if st.station_id not in live:
+                    continue
+                try:
+                    sec, buf = next(live[st.station_id])
+                except StopIteration:
+                    del live[st.station_id]
+                    if self.coadd is not None:
+                        self.coadd.retire(st.station_id)
+                    continue
+                st.feed_second(sec, buf)
+            nsec += 1
+            if nsec % coincide_every_s == 0:
+                self._coincide_and_dump(od, triggers, dumps, dumpers, sent)
+                at += [nsec] * (len(triggers) - len(at))
+        products = {st.station_id: st.end_observation()
+                    for st in self.stations}
+        if self.coadd is not None:
+            self.coadd.finish()
+        self._coincide_and_dump(od, triggers, dumps, dumpers, sent)
+        at += [nsec] * (len(triggers) - len(at))
+        return {"products": products, "triggers": triggers, "dumps": dumps,
+                "coadd_candidates": list(self.coadd.cands)
+                if self.coadd else [], "trigger_seconds": at}
+
+    def _coincide_and_dump(self, od, triggers, dumps, dumpers, sent):
+        utc0 = min((st._t0_unix or od.start_time for st in self.stations),
+                   default=od.start_time)
+        per_beam = {st.station_id: list(st._cands) for st in self.stations}
+        if self.coadd is not None:
+            per_beam[COADD_BEAM] = list(self.coadd.cands)
+        coincided = trig.coincidence(per_beam, self.acfg.pipeline.tsamp,
+                                     delta_dm=self.tcfg.delta_dm,
+                                     delta_w=self.tcfg.delta_w)
+        for t in trig.make_triggers(coincided, utc0, self.tcfg,
+                                    coadd_beam=COADD_BEAM):
+            key = (round(t.t0, 3), round(t.dm, 2))
+            if key in sent:
+                continue
+            sent.add(key)
+            triggers.append(t)
+            for d in dumpers.values():
+                rec = d.dump(t)
+                if rec:
+                    dumps.append(rec)
+
+    def run_observation(self, per_ant_seconds: Dict[int, Iterable],
+                        od: ObservationDocument) -> dict:
+        """The stations one after another, then coincidence, triggers and
+        dumps over the whole observation."""
+        if self.coadd is not None:
+            self.coadd.reset()
+            self.coadd.prewarm()
+        products = {}
+        for st in self.stations:
+            products[st.station_id] = st.run_observation(
+                per_ant_seconds[st.station_id], od)
+        per_beam = {sid: p.candidates for sid, p in products.items()}
+        if self.coadd is not None:
+            per_beam[COADD_BEAM] = self.coadd.finish()
+        coincided = trig.coincidence(per_beam, self.acfg.pipeline.tsamp,
+                                     delta_dm=self.tcfg.delta_dm,
+                                     delta_w=self.tcfg.delta_w)
+        # dump windows are referenced to the observation's start time
+        triggers = trig.make_triggers(coincided, od.start_time, self.tcfg,
+                                      coadd_beam=COADD_BEAM)
+        dumps = []
+        for st in self.stations:
+            if st.ring is None:
+                continue
+            dmp = TriggeredDumper(st.ring, os.path.join(self.out_dir,
+                                                        "dumps"),
+                                  station_id=st.station_id,
+                                  max_dump_s=self.tcfg.max_dump_s)
+            for t in triggers:
+                rec = dmp.dump(t)
+                if rec:
+                    dumps.append(rec)
+        return {"products": products, "triggers": triggers, "dumps": dumps,
+                "coadd_candidates": list(self.coadd.cands)
+                if self.coadd else []}
+
+    def close(self) -> None:
+        for st in self.stations:
+            st.close()
