@@ -97,10 +97,27 @@ Phases, each printing a line:
      once a station gulp and its f32 entry once a coadd gulp); the
      real-time factor, the wall a data-second before and after the wrap,
      the host's ms a station-second by part, peak device memory;
+ 16. the entry points a deployment starts, each in processes of its own,
+     on one 24-s VDIF file at the reference geometry (three noise seconds
+     from torch seeds, framed by the port's utils/vdif, cycled by the
+     header's second): [16a] `python -m vlite_fast_tpu_torch.cli process
+     FILE -i`, the FRB and a .fil of 24 s, its replay's wall; [16b] `cli
+     launch --fake` of two station daemons on the same file: both
+     connect, a trigger near DM 80, each station's .fil and dumps equal
+     to the file's seconds, each daemon's wall a data-second and peak
+     device memory; [16c] one daemon on live UDP, the leader in this
+     process, 12 s of the file's frames restamped to the wall clock and
+     blasted by the port's netcap udp_blast at the wire rate (51,200
+     frames/s), the pace halved after an abort (the wall-clock check off
+     below the wire rate): the sender exits 0 having sent every frame
+     (no fewer than the daemon received and skipped), no abort, >= 10
+     whole seconds, the FRB among the candidates the leader received;
+     the frames sent, received and skipped, the socket's buffer, the
+     host's ms a second by part (median and largest);
 then the run's wall time, one JSON line of per-kernel results (each with
 its time, its plain version's, its bound from this run's shapes, the
 library call's time where one PyTorch call computes the function, and
-its launches on its path: [4], [10] and [15] for kernels 1-8,
+its launches on its path: [4], [10], [15] and [16] for kernels 1-8,
 [11]-[14] for the staged chain, the roll+select engine and tile_bench),
 the card's name
 and power
@@ -124,6 +141,8 @@ import time
 
 import numpy as np
 import torch
+
+from vlite_fast_tpu_torch import launches as kernel_launches
 
 
 def log(msg: str) -> None:
@@ -549,31 +568,6 @@ def phase_ct_chains(dev, raws, v2_gots, wants, plain_ms) -> list:
                        ms_bf16=ms["chain_second_v4[bf16]"])]
 
 
-def _counts() -> dict:
-    from vlite_fast_tpu_torch.benchmarks import transpose_prims as tp
-    from vlite_fast_tpu_torch.ops import dedisperse_pallas as ddp
-    from vlite_fast_tpu_torch.ops import megakernel as mk
-    from vlite_fast_tpu_torch.ops import pallas_kernels as pk
-    from vlite_fast_tpu_torch.ops import rfi_pallas
-    return {**mk.LAUNCHES, "dedisperse_pallas": ddp.LAUNCHES,
-            "dedisperse_pallas_packed": ddp.PACKED_LAUNCHES,
-            "dedisperse_pallas_rollsel": ddp.ROLLSEL_LAUNCHES,
-            "rfi_front": rfi_pallas.LAUNCHES, **pk.LAUNCHES,
-            "tile_bench": tp.LAUNCHES}
-
-
-def _zero_counts() -> None:
-    from vlite_fast_tpu_torch.benchmarks import transpose_prims as tp
-    from vlite_fast_tpu_torch.ops import dedisperse_pallas as ddp
-    from vlite_fast_tpu_torch.ops import megakernel as mk
-    from vlite_fast_tpu_torch.ops import pallas_kernels as pk
-    from vlite_fast_tpu_torch.ops import rfi_pallas
-    ddp.LAUNCHES = ddp.PACKED_LAUNCHES = ddp.ROLLSEL_LAUNCHES = 0
-    rfi_pallas.LAUNCHES = tp.LAUNCHES = 0
-    for counts in (mk.LAUNCHES, pk.LAUNCHES):
-        counts.update(dict.fromkeys(counts, 0))
-
-
 ARMED_KERNELS = ("rfi_front", "normalize_ema_pallas",
                  "normalize_ema_weighted_pallas")
 CHAIN_KERNELS = ("chain_second_v2", "pallas_pretranspose", "chain_second",
@@ -647,17 +641,17 @@ def phase_main_path(dev, twin: str = "auto", tag: str = "[4]",
         t_pre = time.perf_counter() - t_pre
         od = ObservationDocument(name="SMOKE", start_time=1.7e9)
         torch.cuda.reset_peak_memory_stats(dev)
-        _zero_counts()
+        kernel_launches.zero()
         t0 = time.perf_counter()
         pipe.begin_observation(od, write_fil=write_fil)
         for sec in range(n_sec):
-            before = _counts()
+            before = kernel_launches.counts()
             pipe.feed_second(1.7e9 + sec, staged[sec % 3])
-            per_sec.append({k: v - before[k] for k, v in _counts().items()})
+            per_sec.append(kernel_launches.since(before))
         prod = pipe.end_observation()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = _counts()
+        launches = kernel_launches.counts()
         peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
         host = {k: (1e3 * float(np.median(v)), 1e3 * float(np.max(v)))
                 for k, v in pipe.host_seconds.items()}
@@ -1007,7 +1001,7 @@ def phase_stage_a(dev) -> dict:
     from vlite_fast_tpu_torch.ops import unpack as unpack_ops
     cfg, raws = staged_inputs(dev)
     args = (cfg.nfft, cfg.npol_in, cfg.seg_per_sec)
-    _zero_counts()
+    kernel_launches.zero()
     got = [mk.dft_detect_power(raw, *args) for raw in raws]
     torch.cuda.synchronize()
     launches = mk.LAUNCHES["dft_detect_power"]
@@ -1051,7 +1045,7 @@ def phase_stage_b(dev) -> dict:
     args = (cfg.nfft, cfg.npol_in, cfg.seg_per_sec, cfg.nscrunch,
             float(cfg.bp_scale), cfg.chanmin, cfg.chanmax)
     bp0 = torch.zeros((cfg.npol_in, cfg.nchan), device=dev)
-    _zero_counts()
+    kernel_launches.zero()
     got, bp = [], bp0
     for raw in raws:
         packed, bp = mk.chain_second_plain(raw, bp, *args)
@@ -1160,7 +1154,7 @@ def phase_rollsel(dev) -> dict:
     lfb = torch.from_numpy(rng.standard_normal(
         (lin.gulp_samps + lplan.max_delay, C.NCHANOUT)).astype(
             np.float32)).to(dev)
-    _zero_counts()
+    kernel_launches.zero()
     a = ddp.dedisperse_pallas_rollsel(lfb, lplan, lin.gulp_samps)
     torch.cuda.synchronize()
     launches = ddp.ROLLSEL_LAUNCHES
@@ -1218,7 +1212,7 @@ def phase_tile_bench(dev) -> dict:
     plain version on the card."""
     from vlite_fast_tpu_torch.benchmarks import transpose_prims as tp
     rng = np.random.default_rng(7)
-    _zero_counts()
+    kernel_launches.zero()
     runs = {impl: tp.tile_bench(impl, dev, 10, rng) for impl in tp.IMPLS}
     torch.cuda.synchronize()
     launches = tp.LAUNCHES
@@ -1321,13 +1315,13 @@ def phase_array(dev, n_sec: int = 46) -> dict:
         t_pre = time.perf_counter() - t_pre
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
-        _zero_counts()
+        kernel_launches.zero()
         t0 = time.perf_counter()
         res = ap.run_streaming(per_ant, ObservationDocument(
             name="SMOKE_ARRAY", start_time=t0_unix, scan_no=2))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = _counts()
+        launches = kernel_launches.counts()
         peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
         # wall a data-second, before and after the rings wrap, and the
         # tail (the last drains, the flush gulps, the last dumps)
@@ -1446,6 +1440,527 @@ def phase_array(dev, n_sec: int = 46) -> dict:
     return launches
 
 
+# [16]: the entry points a deployment starts, each in processes of its own
+ENTRY_SECONDS = 24        # the file: one full gulp (21.3 s) and the flush
+LIVE_SECONDS = 12         # [16c]: data-seconds blasted at the daemon
+
+# [16c]'s daemon below the wire rate: station_main's own command line,
+# without the capture's packet-time check (writer.c's clock abort): a
+# replay paced below the wire rate falls behind the wall clock by design
+PACED_DAEMON = """
+from vlite_fast_tpu_torch.runtime import capture, station_main
+capture.SecondAssembler._check_wallclock = lambda self, seconds: None
+station_main.main()
+"""
+
+# [16c]'s sender: frames from the file, restamped to the wall clock's
+# seconds (data-second j carries the second it is sent in at the wire
+# rate), sent through the port's netcap udp_blast at `pace` frames a
+# second; prints one JSON line
+SENDER = r"""
+import ctypes, json, socket, sys, time
+import numpy as np
+from vlite_fast_tpu_torch import constants as C
+from vlite_fast_tpu_torch.runtime.capture import netcap_lib
+from vlite_fast_tpu_torch.utils import vdif
+path, port, nsec, pace, per_sec, t_first = sys.argv[1], int(sys.argv[2]), \
+    int(sys.argv[3]), float(sys.argv[4]), int(sys.argv[5]), \
+    float(sys.argv[6])
+fb = C.VDIF_FRAME_BYTES
+frames = np.fromfile(path, np.uint8, count=nsec * per_sec * fb).reshape(-1, fb)
+words = frames.view(np.uint32)
+lib = netcap_lib()
+tx = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+tx.setsockopt(socket.SOL_SOCKET, socket.SO_SNDBUF, 64 << 20)
+tx.connect(("127.0.0.1", port))
+epoch = vdif.default_ref_epoch(t_first)
+sec0 = int(t_first) - int(vdif._epoch_unix(epoch))
+for j in range(nsec):
+    w = words[j * per_sec:(j + 1) * per_sec]
+    w[:, 0] = (w[:, 0] & np.uint32(0xC0000000)) | np.uint32(sec0 + j)
+    w[:, 1] = (w[:, 1] & np.uint32(0xC0FFFFFF)) | np.uint32(epoch << 24)
+while time.time() < t_first:
+    time.sleep(0.001)
+late = time.time() - t_first
+t0, sent, stalls, n = time.perf_counter(), 0, 0, len(frames)
+while sent < n:
+    k = lib.udp_blast(tx.fileno(), frames[sent:].ctypes.data_as(
+        ctypes.c_void_p), fb, min(512, n - sent))
+    if k <= 0:
+        stalls += 1
+        time.sleep(0.0005)
+        continue
+    sent += k
+    ahead = sent / pace - (time.perf_counter() - t0)
+    if ahead > 0.002:
+        time.sleep(ahead)
+dt = time.perf_counter() - t0
+print(json.dumps({"sent": sent, "seconds": dt, "rate": sent / dt,
+                  "stalls": stalls, "late_s": late}))
+"""
+
+
+def _env() -> dict:
+    """The environment of [16]'s processes: this checkout's package."""
+    import os
+    env = dict(os.environ)
+    root = os.path.dirname(os.path.abspath(__file__))
+    env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+    return env
+
+
+def _free_ports(n: int, kind: int = None, consecutive: bool = False) -> list:
+    """n ports free on loopback right now (bound, then released);
+    consecutive from a free base when asked."""
+    import socket
+    kind = kind or socket.SOCK_STREAM
+    while True:
+        socks = []
+        try:
+            for k in range(n):
+                s = socket.socket(socket.AF_INET, kind)
+                socks.append(s)
+                s.bind(("127.0.0.1", socks[0].getsockname()[1] + k
+                        if consecutive and k else 0))
+            return [s.getsockname()[1] for s in socks]
+        except OSError:
+            continue
+        finally:
+            for s in socks:
+                s.close()
+
+
+def _array_config(sources: list, cfg, scfg):
+    from vlite_fast_tpu_torch.config import (AntennaConfig, ArrayConfig,
+                                             TriggerConfig)
+    import socket
+    cmd, coinc = _free_ports(2)
+    trig = _free_ports(len(sources) + 1, socket.SOCK_DGRAM, True)[0]
+    return ArrayConfig(
+        antennas=tuple(AntennaConfig(station_id=i + 1, name=f"ea{i + 1:02d}",
+                                     source=src)
+                       for i, src in enumerate(sources)),
+        pipeline=cfg, search=scfg, trigger=TriggerConfig(min_dm=20.0),
+        command_port=cmd, coincidencer_port=coinc, trigger_port_base=trig)
+
+
+def _summaries(text: str) -> list:
+    """The station daemons' observation summary lines, parsed."""
+    from vlite_fast_tpu_torch.runtime.station_main import SUMMARY
+    return [json.loads(line.split(SUMMARY, 1)[1]) for line in
+            text.splitlines() if SUMMARY in line]
+
+
+def wire_rate(cfg) -> int:
+    """Frames a second of one antenna, both pols (51,200: 256 MB/s)."""
+    from vlite_fast_tpu_torch import constants as C
+    return cfg.npol_in * cfg.sample_rate // C.VDIF_DATA_BYTES
+
+
+def _gib(x) -> str:
+    return "n/a" if x is None else f"{x:.2f} GiB"
+
+
+def _frb(cands, cfg):
+    """The strongest candidate within 10% of the injected DM, or None."""
+    near = [c for c in cands
+            if abs(c.dm - cfg.inject_dm) <= 0.1 * cfg.inject_dm]
+    return max(near, key=lambda c: c.snr) if near else None
+
+
+def _add(total: dict, got: dict) -> None:
+    for k, v in got.items():
+        total[k] = total.get(k, 0) + v
+
+
+def _bound_udp(port: int) -> bool:
+    """Whether a socket of this machine holds UDP `port`."""
+    with open("/proc/net/udp") as fp:
+        return any(line.split()[1].endswith(f":{port:04X}")
+                   for line in list(fp)[1:])
+
+
+def entry_file(dev, cfg) -> tuple:
+    """[16]'s input: ENTRY_SECONDS of VDIF at the reference geometry, three
+    noise seconds made on the card from torch seeds, framed by the port's
+    utils/vdif and cycled by advancing the header's second, written under
+    the temporary directory, which must hold it and [16]'s products.
+    Returns (path, the three seconds' samples, the first second's unix
+    time, readings)."""
+    import os
+    from vlite_fast_tpu_torch import constants as C
+    from vlite_fast_tpu_torch.runtime.capture import to_unix
+    from vlite_fast_tpu_torch.utils import vdif
+    sec_bytes = cfg.npol_in * cfg.sample_rate
+    size = ENTRY_SECONDS * sec_bytes // C.VDIF_DATA_BYTES * C.VDIF_FRAME_BYTES
+    # the file, two .fil pairs, and dumps of at most 2 + 11 s a station
+    need = size + 2 * 13 * sec_bytes + 4 * ENTRY_SECONDS * 2 ** 20
+    shm_free, mem_avail = shm_and_memory()
+    rings = 2 * RING_SECONDS * sec_bytes          # [16b]'s two daemons
+    where = tempfile.gettempdir()
+    free = shutil.disk_usage(where).free
+    readings = (f"{where} free {free / 1e9:.1f} GB, /dev/shm free "
+                f"{shm_free / 1e9:.1f} GB, memory available "
+                f"{mem_avail / 1e9:.1f} GB; the file {size / 1e9:.2f} GB, "
+                f"[16]'s products up to {(need - size) / 1e9:.2f} GB, "
+                f"[16b]'s rings {rings / 1e9:.2f} GB")
+    check(free >= 1.25 * need and shm_free >= 1.25 * rings,
+          f"[16] no room: {readings}")
+    gen = torch.Generator(device=dev).manual_seed(2001)
+    secs = [(torch.randn((cfg.npol_in, cfg.sample_rate), generator=gen,
+                         device=dev) / 0.05914 + 128.5).clamp(0, 255)
+            .to(torch.uint8).cpu().numpy() for _ in range(3)]
+    epoch, sec0 = 40, 1000
+    frames = [vdif.streams_to_frames(x, epoch, sec0, station_id=1,
+                                     sample_rate=cfg.sample_rate)
+              for x in secs]
+    out_dir = tempfile.mkdtemp(prefix="vfast_entry_", dir=where)
+    path = os.path.join(out_dir, "entry.vdif")
+    t0 = time.perf_counter()
+    with open(path, "wb") as fp:
+        for j in range(ENTRY_SECONDS):
+            fr = frames[j % 3].copy()
+            w = fr.reshape(-1, C.VDIF_FRAME_BYTES).view(np.uint32)
+            w[:, 0] = (w[:, 0] & np.uint32(0xC0000000)) | np.uint32(sec0 + j)
+            fp.write(memoryview(fr))
+    check(os.path.getsize(path) == size, f"[16] {path} is not {size} bytes")
+    readings += f"; written in {time.perf_counter() - t0:.1f} s"
+    return path, secs, to_unix(sec0, epoch), readings
+
+
+def phase_process(cfg, path: str, out_dir: str, device: str = "cuda",
+                  extra: tuple = ()) -> dict:
+    """[16a] `python -m vlite_fast_tpu_torch.cli process FILE -i`: the FRB
+    and a .fil of ENTRY_SECONDS.  Returns its kernel launches."""
+    from vlite_fast_tpu_torch.ops.dedisperse import Candidate
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "vlite_fast_tpu_torch.cli", "--device", device,
+         "process", path, "-i", "-o", out_dir, *extra], capture_output=True,
+        text=True, env=_env(), timeout=600)
+    took = time.perf_counter() - t0
+    check(res.returncode == 0, f"[16a] cli process exited "
+          f"{res.returncode}:\n{res.stderr[-3000:]}")
+    got = json.loads(res.stdout.strip().splitlines()[-1])
+    cands = [Candidate.from_line(c) for c in got["candidates"]]
+    best = _frb(cands, cfg)
+    check(best is not None and best.snr >= 10.0,
+          f"[16a] FRB not recovered: {best}")
+    rows = ENTRY_SECONDS * cfg.seg_per_sec * cfg.out_samps_per_seg
+    check(got["seconds"] == ENTRY_SECONDS, f"[16a] {got['seconds']} seconds")
+    check_fil(got["fil"], rows, cfg.nchanout * cfg.nbit // 8, what="[16a]")
+    launched = got["launches"]
+    armed = launched.get("rfi_front", 0)
+    check(armed >= 1 and all(launched.get(k) == armed for k in ARMED_KERNELS)
+          and launched.get("chain_second_v2", 0) + armed == ENTRY_SECONDS
+          and launched.get("dedisperse_pallas_packed", 0) >= 2,
+          f"[16a] launches {launched}")
+    strongest = max(cands, key=lambda c: c.snr)
+    log(f"[16a] cli process of {ENTRY_SECONDS} s: exit 0 in {took:.1f} s "
+        f"(the process, start-up and prewarm included); rt_factor "
+        f"{got['rt_factor']}, wall {got['wall_s']:.2f} s "
+        f"({1e3 * got['wall_s'] / ENTRY_SECONDS:.1f} ms a data-second), of "
+        f"which replay_file and the assembler {got['replay_s']:.2f} s "
+        f"({1e3 * got['replay_s'] / ENTRY_SECONDS:.1f} ms a data-second); "
+        f"peak device memory {_gib(got['peak_device_gib'])}; FRB S/N "
+        f"{best.snr:.2f} at DM {best.dm:.2f}, {best.peak_time:.3f} s; "
+        f"{len(cands)} candidates, the strongest S/N {strongest.snr:.2f} at "
+        f"DM {strongest.dm:.2f}; .fil {rows} rows; launches {launched}")
+    return launched
+
+
+def _check_dumps(dumps: list, secs: list, t0_unix: float, what: str) -> None:
+    """Every dump holds the file's seconds it is named from, in order."""
+    import os
+    sec_bytes = secs[0].nbytes
+    for path in dumps:
+        first = int(os.path.basename(path).rsplit("_", 1)[1][:-5])
+        size = os.path.getsize(path)
+        check(size > 0 and size % sec_bytes == 0,
+              f"{what} dump {path}: {size} bytes")
+        with open(path, "rb") as fp:
+            for k in range(size // sec_bytes):
+                want = secs[int(first + k - t0_unix) % 3]
+                check(fp.read(sec_bytes) == want.tobytes(),
+                      f"{what} dump {path}: second {first + k} differs from "
+                      f"the file's")
+
+
+def phase_launch(cfg, scfg, path: str, secs: list, t0_unix: float,
+                 out_dir: str, device: str = "cuda") -> dict:
+    """[16b] `cli launch --fake` of two stations (the same file: source for
+    both), the leader in the CLI's process, each daemon a process of its
+    own on the one card: both connect, a trigger near the injected DM,
+    each station's .fil and its dumps equal to the file's seconds.
+    Returns the daemons' kernel launches."""
+    import glob
+    import os
+    acfg = _array_config([f"file:{path}"] * 2, cfg, scfg)
+    cfg_path = os.path.join(out_dir, "array.json")
+    acfg.save(cfg_path)
+    products = os.path.join(out_dir, "launch")
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "vlite_fast_tpu_torch.cli", "launch",
+         cfg_path, "--out-dir", products, "--fake", "--fake-duration", "300",
+         "--startup-timeout", "240", "--device", device],
+        capture_output=True, text=True, env=_env(), timeout=720)
+    took = time.perf_counter() - t0
+    check(res.returncode == 0, f"[16b] cli launch exited {res.returncode}:"
+          f"\n{res.stdout[-2000:]}\n{res.stderr[-4000:]}")
+    out = res.stdout.strip().splitlines()
+    check("array up: 2 stations connected" in out,
+          f"[16b] the array did not come up: {out[-5:]}")
+    got = json.loads(out[-1])
+    check(got["exit_codes"] == [0, 0], f"[16b] daemons exited "
+          f"{got['exit_codes']}:\n{res.stderr[-4000:]}")
+    summ = {s["station"]: s for s in _summaries(res.stderr)}
+    check(sorted(summ) == [1, 2], f"[16b] observation summaries of "
+          f"stations {sorted(summ)}:\n{res.stderr[-4000:]}")
+    trig = got["trigger_list"]
+    frb = [t for t in trig if abs(t["dm"] - cfg.inject_dm)
+           <= 0.1 * cfg.inject_dm]
+    check(got["triggers"] >= 1 and bool(frb),
+          f"[16b] no trigger near DM {cfg.inject_dm}: {trig}")
+    rows = ENTRY_SECONDS * cfg.seg_per_sec * cfg.out_samps_per_seg
+    launched = {}
+    for sid, s in sorted(summ.items()):
+        check(s["seconds"] == ENTRY_SECONDS and s["dropped"] == 0,
+              f"[16b] station {sid}: {s['seconds']} seconds, "
+              f"{s['dropped']} dropped")
+        check_fil(s["fil"], rows, cfg.nchanout * cfg.nbit // 8,
+                  what=f"[16b] station {sid}")
+        check(os.path.exists(s["fil"].replace(".fil", "_plain.fil")),
+              f"[16b] station {sid}: no plain .fil")
+        _add(launched, s["launches"])
+    dumps = glob.glob(os.path.join(products, "dumps", "*.vdif"))
+    by_station = {sid: [d for d in dumps if f"_ea{sid:02d}_" in d]
+                  for sid in summ}
+    check(all(by_station.values()), f"[16b] dumps by station {by_station}")
+    _check_dumps(dumps, secs, t0_unix, "[16b]")
+    armed = launched.get("rfi_front", 0)
+    check(all(launched.get(k) == armed >= 2 for k in ARMED_KERNELS)
+          and launched.get("chain_second_v2", 0) + armed
+          == 2 * ENTRY_SECONDS
+          and launched.get("dedisperse_pallas_packed", 0) >= 4,
+          f"[16b] launches {launched}")
+    for t in trig:
+        log(f"[16b]   trigger DM {t['dm']:.2f} S/N {t['sn']:.2f} window "
+            f"[{t['t0'] - t0_unix:.3f}, {t['t1'] - t0_unix:.3f}] s "
+            f"({t['meta']}), raised {t['fired_s']:.1f} s after FAKE_START")
+    flush = [t for t in trig if t not in frb]
+    log(f"[16b] cli launch --fake, 2 stations on the same {ENTRY_SECONDS}-s "
+        f"file: exit 0 in {took:.1f} s; array up, {got['triggers']} "
+        f"trigger(s), {len(frb)} near DM {cfg.inject_dm:g}, "
+        f"{len(flush)} other (the flush gulp's, expected: ROADMAP Queue 3 "
+        f"#3); per station: "
+        + "; ".join(
+            f"{sid}: wall {s['wall_s']:.1f} s, {1e3 * s['wall_per_data_s']:.1f}"
+            f" ms a data-second (rt_factor {s['rt_factor']:.3f}), peak device"
+            f" memory {_gib(s['peak_device_gib'])}, host ms a second "
+            "(median) " + ", ".join(
+                f"{k} {v:.2f}" for k, v in s["host_ms_median"].items())
+            + f", {len(by_station[sid])} dump(s)"
+            for sid, s in sorted(summ.items()))
+        + f"; {len(dumps)} dumps, each equal to the file's seconds; "
+        f"launches {launched}")
+    return launched
+
+
+def _live_attempt(cfg, scfg, path: str, out_dir: str, pace: float,
+                  device: str = "cuda") -> dict:
+    """One daemon on udp:PORT, the leader in this process, FAKE_START,
+    LIVE_SECONDS of the file's frames blasted at `pace` frames a second,
+    FAKE_STOP, QUIT.  Below the wire rate the daemon runs as PACED_DAEMON.
+    Returns its summary, the candidates the leader's coincidencer
+    received from it and the sender's reading."""
+    import os
+    from vlite_fast_tpu_torch.runtime.leader_main import Leader
+    port = _free_ports(1)[0]
+    acfg = _array_config([f"udp:{port}"], cfg, scfg)
+    cfg_path = os.path.join(out_dir, f"live_{int(pace)}.json")
+    acfg.save(cfg_path)
+    products = os.path.join(out_dir, f"live_{int(pace)}")
+    log_path = products + ".log"
+    wire = wire_rate(cfg)
+    cmd = [sys.executable, *(
+        ["-m", "vlite_fast_tpu_torch.runtime.station_main"] if pace >= wire
+        else ["-c", PACED_DAEMON]),
+        "--station", "1", "--config", cfg_path, "--source", f"udp:{port}",
+        "--out-dir", products, "--command-port", str(acfg.command_port),
+        "--coincidencer", f"127.0.0.1:{acfg.coincidencer_port}",
+        "--trigger-port", str(acfg.trigger_port_base + 1),
+        "--device", device]
+    leader = Leader(acfg, products)
+    sender = None
+    with open(log_path, "w") as log_fp:
+        daemon = subprocess.Popen(cmd, stdout=log_fp, stderr=subprocess.STDOUT,
+                                  env=_env())
+        try:
+            check(leader.wait_for_stations(1, timeout=180),
+                  f"[16c] the daemon did not connect (exit "
+                  f"{daemon.poll()}):\n{open(log_path).read()[-3000:]}")
+            leader.fake_observation(settle_s=0.0)
+            deadline = time.time() + 120
+            while not _bound_udp(port) and time.time() < deadline \
+                    and daemon.poll() is None:
+                time.sleep(0.05)
+            check(_bound_udp(port), f"[16c] the daemon never bound "
+                  f"udp:{port}:\n{open(log_path).read()[-3000:]}")
+            # the first frame leaves at a whole wall second, time enough
+            # ahead for the sender to read and restamp its frames
+            t_first = float(int(time.time()) + 6)
+            sender = subprocess.Popen(
+                [sys.executable, "-c", SENDER, path, str(port),
+                 str(LIVE_SECONDS), str(pace), str(wire), str(t_first)],
+                stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True, env=_env())
+            # FAKE_STOP as the last data-second starts: the daemon reads
+            # commands between seconds, so it ends after the one before
+            # (the last never completes: no frame of a next second comes)
+            t_stop = t_first + (LIVE_SECONDS - 1) * wire / pace + 0.5
+            while time.time() < t_stop and sender.poll() is None \
+                    and not _summaries(open(log_path).read()):
+                time.sleep(0.1)
+            leader.stop_observation()
+            deadline = time.time() + 120
+            while time.time() < deadline and \
+                    not _summaries(open(log_path).read()):
+                time.sleep(0.2)
+            summ = _summaries(open(log_path).read())
+            check(len(summ) == 1, f"[16c] {len(summ)} observation "
+                  f"summaries:\n{open(log_path).read()[-3000:]}")
+            # the daemon shipped its last batch before its summary line:
+            # wait for the coincidencer to take in every candidate
+            deadline = time.time() + 30
+            while time.time() < deadline and len(
+                    _received(leader)) < summ[0]["candidates"]:
+                time.sleep(0.1)
+            cands = _received(leader)
+            # the sender ends on its own schedule (frames sent after an
+            # abort or the stop count as sent)
+            try:
+                sout, serr = sender.communicate(
+                    timeout=max(t_first + LIVE_SECONDS * wire / pace
+                                - time.time(), 0) + 60)
+            except subprocess.TimeoutExpired:
+                sender.kill()
+                sout, serr = sender.communicate()
+        finally:
+            leader.shutdown()
+            try:
+                daemon.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                daemon.kill()
+                daemon.wait()
+            if sender is not None and sender.poll() is None:
+                sender.kill()
+                sender.wait()
+    text = open(log_path).read()
+    check(daemon.returncode == 0, f"[16c] the daemon exited "
+          f"{daemon.returncode}:\n{text[-3000:]}")
+    lines = sout.strip().splitlines()
+    check(sender.returncode == 0 and bool(lines), f"[16c] the sender exited "
+          f"{sender.returncode}; its output {sout[-500:]!r}, its errors "
+          f"{serr[-2000:]!r}")
+    sent = json.loads(lines[-1])
+    cap = summ[0]["capture"]
+    check(sent["sent"] == LIVE_SECONDS * wire
+          and sent["sent"] >= cap["frames"] + cap["skipped"],
+          f"[16c] the sender sent {sent['sent']} of {LIVE_SECONDS * wire} "
+          f"frames; the daemon received {cap['frames']} and skipped "
+          f"{cap['skipped']}")
+    check(len(cands) == summ[0]["candidates"], f"[16c] the coincidencer "
+          f"received {len(cands)} of {summ[0]['candidates']} candidates")
+    return {"summary": summ[0], "candidates": cands, "sender": sent,
+            "pace": pace, "check_clock": pace >= wire}
+
+
+def _received(leader) -> list:
+    """Every candidate the leader's coincidencer took in from station 1."""
+    with leader.coincidencer._lock:
+        return [c for beams in leader.coincidencer.utc_groups.values()
+                for c in beams.get(1, [])]
+
+
+def phase_live(cfg, scfg, path: str, out_dir: str,
+               device: str = "cuda") -> dict:
+    """[16c] one station daemon on live UDP at the wire rate, the pace
+    halved after each attempt the capture aborts (at most twice): no
+    abort, at least 10 whole seconds, the FRB among the candidates the
+    leader received.  Returns the launches of every attempt."""
+    attempts, launched = [], {}
+    wire = wire_rate(cfg)
+    pace = float(wire)
+    for _ in range(3):
+        att = _live_attempt(cfg, scfg, path, out_dir, pace, device)
+        attempts.append(att)
+        _add(launched, att["summary"]["launches"])
+        s, cap, snd = att["summary"], att["summary"]["capture"], att["sender"]
+        total = cap["frames"] + cap["skipped"]
+        drop = cap["skipped"] / total if total else float("nan")
+        host = ", ".join(
+            f"{k} {s['host_ms_median'][k]:.1f} (max {s['host_ms_max'][k]:.1f})"
+            for k in ("ring", "staging", "drain"))
+        log(f"[16c] live UDP at {pace:.0f} frames/s ("
+            f"{pace / wire:.3g}x the wire rate; wall-clock check "
+            f"{'on' if att['check_clock'] else 'off'}): sender exit 0, "
+            f"{snd['sent']} frames in {snd['seconds']:.3f} s, "
+            f"{snd['rate']:.1f}/s, {snd['stalls']} stalls (started "
+            f"{snd['late_s']:.3f} s after its second); daemon received "
+            f"{cap['frames']}, skipped {cap['skipped']}, anomalous "
+            f"{cap['anomalous']} (drop share {drop:.4f}); rcvbuf "
+            f"{cap['rcvbuf']}; clock skew {cap['clock_skew_s']:.3f} s; abort "
+            f"{cap['abort_reason']}; {s['seconds']} whole seconds processed "
+            f"in {s['wall_s']:.1f} s; peak device memory "
+            f"{_gib(s['peak_device_gib'])}; host ms a second, median: "
+            f"{host}; {len(att['candidates'])} candidates at the leader; "
+            f"launches {s['launches']}")
+        if cap["abort_reason"] is None:
+            break
+        pace /= 2
+    att = attempts[-1]
+    s = att["summary"]
+    check(s["capture"]["abort_reason"] is None,
+          f"[16c] the capture aborted at every pace down to {pace:.0f} "
+          f"frames/s: {s['capture']['abort_reason']}")
+    check(s["seconds"] >= 10, f"[16c] {s['seconds']} whole seconds")
+    best = _frb(att["candidates"], cfg)
+    check(best is not None and best.snr >= 10.0,
+          f"[16c] FRB not recovered: {best}")
+    log(f"[16c] held at {pace:.0f} frames/s ({pace / wire:.3g}x the "
+        f"wire rate) after {len(attempts)} attempt(s): FRB S/N "
+        f"{best.snr:.2f} at DM {best.dm:.2f}")
+    return launched
+
+
+def phase_entry_points(dev) -> dict:
+    """[16] the entry points on the card: [16a] cli process, [16b] cli
+    launch --fake with two daemons, [16c] one daemon on live UDP.  Every
+    process's exit code and output are checked.  Returns the kernel
+    launches the three made, summed."""
+    from vlite_fast_tpu_torch import PipelineConfig, SearchConfig
+    cfg = PipelineConfig(inject_frb=True)
+    scfg = SearchConfig()
+    t0 = time.perf_counter()
+    path, secs, t0_unix, readings = entry_file(dev, cfg)
+    log(f"[16] input: {path}, {ENTRY_SECONDS} s of VDIF at the reference "
+        f"geometry (three noise seconds from torch seeds 2001, cycled); "
+        f"{readings}")
+    import os
+    out_dir = os.path.dirname(path)
+    launched = {}
+    try:
+        _add(launched, phase_process(cfg, path, out_dir))
+        _add(launched, phase_launch(cfg, scfg, path, secs, t0_unix, out_dir))
+        _add(launched, phase_live(cfg, scfg, path, out_dir))
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    log(f"[16] entry points passed in {time.perf_counter() - t0:.1f} s; "
+        f"launches {launched}")
+    return launched
+
+
 def main() -> None:
     t_start = time.perf_counter()
     smi = phase_device()
@@ -1501,6 +2016,11 @@ def main() -> None:
         k["launches"] += got[k["name"]]
     k_dedisp["launches_f32_entry"] = got["dedisperse_pallas"] - \
         got["dedisperse_pallas_packed"]
+    torch.cuda.empty_cache()
+    # the entry points' processes run the main path's kernels too
+    got = phase_entry_points(dev)
+    for k in (k_chain, k_dedisp, k_rfi, *k_ema):
+        k["launches"] += got.get(k["name"], 0)
     kernels = [k_chain, k_dedisp, k_rfi, *k_ema, k_pre, *k_ct, *staged]
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} never launched on its path")

@@ -5,7 +5,10 @@ the same constants, the same dataclass fields and defaults, the same
 derived properties and the same validation errors over a small grid of
 configurations.  Tests that feed both packages build the port's config
 from the JAX one's fields (PortCfg(**dataclasses.asdict(jax_cfg)), held
-equal here).
+equal here).  The port's verbatim copies of host modules and of the C++
+ring and capture helper are held to their originals text for text; the
+adapted ones (capture, station_main, leader_main, cli) are held by
+behaviour in their own tests.
 """
 
 import dataclasses
@@ -155,3 +158,39 @@ def test_control_copy_equal():
         got = sm_t.feed(tctl.ObservationDocument(**d), now=now)
         want = sm_j.feed(jctl.ObservationDocument(**d), now=now)
         assert [c.value for c in got] == [c.value for c in want]
+
+
+# the port's verbatim copies: (the port's file, the JAX package's file)
+COPIES = [(f"vlite_fast_tpu_torch/{p}", f"vlite_fast_tpu/{p}") for p in (
+    "utils/log.py", "utils/sigproc.py", "utils/vdif.py",
+    "runtime/control.py", "runtime/trigger.py", "runtime/dumper.py",
+    "runtime/vla_xml.py", "runtime/sources.py",
+    "runtime/candidate_server.py", "runtime/messenger.py",
+    "runtime/recorder.py", "runtime/watchdog.py", "models/synthesis.py")]
+COPIES += [("vlite_fast_tpu_torch/csrc/netcap.cpp", "csrc/netcap.cpp"),
+           ("vlite_fast_tpu_torch/csrc/ringbuffer.cpp", "csrc/ringbuffer.cpp")]
+
+
+def _body(path: str) -> str:
+    """The file's text after its leading docstring or comment block (the
+    port's copies say there whose copy they are)."""
+    import ast
+    import pathlib
+    text = (pathlib.Path(__file__).resolve().parent.parent / path).read_text()
+    if path.endswith(".py"):
+        doc = ast.parse(text).body[0]
+        assert isinstance(doc, ast.Expr) and isinstance(doc.value,
+                                                        ast.Constant)
+        return "\n".join(text.splitlines()[doc.end_lineno:])
+    lines = text.splitlines()
+    start = next(i for i, ln in enumerate(lines)
+                 if not ln.startswith("//") and ln.strip())
+    return "\n".join(lines[start:])
+
+
+@pytest.mark.parametrize("port,ref", COPIES, ids=[p for p, _ in COPIES])
+def test_verbatim_copy_equal(port, ref):
+    """Each copy is its original, text for text past the header, once
+    vlite_fast_tpu is read as vlite_fast_tpu_torch."""
+    want = _body(ref).replace("vlite_fast_tpu", "vlite_fast_tpu_torch")
+    assert _body(port) == want

@@ -8,8 +8,9 @@ takes seconds, not minutes):
          -Xcompiler -fPIC -Xptxas -v \
          -o build/vlite_fast_tpu_torch/lib<name>-<hash>.so
 
-The host library of the baseband ring, `csrc/ringbuffer.cpp` (no CUDA),
-is built the same way by g++:
+The host libraries (no CUDA) are built the same way by g++: the
+baseband ring, `csrc/ringbuffer.cpp`, and the capture plane's batched
+UDP receive and send, `csrc/netcap.cpp`:
 
     g++ -O2 -fPIC -shared -std=c++17 -o ... ringbuffer.cpp -lrt
 
@@ -45,7 +46,7 @@ HOST_FLAGS = ["-O2", "-fPIC", "-shared", "-std=c++17"]
 LIBRARIES = ("chain", "dedisperse", "ema", "pretranspose", "rfi_front",
              "stage_ab", "tile_bench")
 # the host libraries, by csrc/<name>.cpp
-HOST_LIBRARIES = ("ringbuffer",)
+HOST_LIBRARIES = ("ringbuffer", "netcap")
 
 _LIBS: dict = {}
 BUILD_SECONDS: dict = {}   # name -> wall seconds of the nvcc run (0 if cached)

@@ -237,6 +237,12 @@ class Candidate(NamedTuple):
                 f"{self.tfilt}\t{self.dmi}\t{self.dm:.3f}\t{self.ngiant}\t"
                 f"{self.i0}\t{self.i1}")
 
+    @classmethod
+    def from_line(cls, line: str) -> "Candidate":
+        f = line.split()
+        return cls(float(f[0]), int(f[1]), float(f[2]), int(f[3]),
+                   int(f[4]), float(f[5]), int(f[6]), int(f[7]), int(f[8]))
+
 
 class _UnionFind:
     def __init__(self, n: int):

@@ -79,8 +79,9 @@ def _release(lib, handle, unlink: int) -> None:
 
 class RingBuffer:
     """One named shm ring.  Slot-oriented: one slot = one second of
-    baseband.  A ring this object created is unlinked when it is closed,
-    or when the object is collected without being closed."""
+    baseband.  A ring this object created is unlinked when it is closed
+    (unless close is told unlink=False), or when the object is collected
+    without being closed."""
 
     def __init__(self, name: str, bufsz: int = 0, nbufs: int = 0,
                  create: bool = False):
@@ -168,10 +169,15 @@ class RingBuffer:
         seq = self._lib.rb_get_obs_header(self._h, buf, 4096)
         return buf.value.decode(), seq
 
-    def close(self, unlink: bool = False) -> None:
+    def close(self, unlink: Optional[bool] = None) -> None:
+        """Unmap the ring; unlink its segment if `unlink`, or by default
+        if this object created it (unlink=False leaves a created ring for
+        others to attach, as `cli scrub-ring` does)."""
         if self._h:
             self._finalizer.detach()
-            self._lib.rb_close(self._h, 1 if (unlink or self._owner) else 0)
+            if unlink is None:
+                unlink = self._owner
+            self._lib.rb_close(self._h, int(unlink))
             self._h = None
 
     def __enter__(self):
