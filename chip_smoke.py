@@ -114,11 +114,34 @@ Phases, each printing a line:
      whole seconds, the FRB among the candidates the leader received;
      the frames sent, received and skipped, the socket's buffer, the
      host's ms a second by part (median and largest);
+ 17. the options one station honours beside the main path: [17a]
+     PipelineConfig(channelizer='pfb', inject_frb=True, do_histo=True)
+     (the streaming WOLA polyphase channelizer on the armed program's
+     kernels, DOHISTO) and SearchConfig() over 72 staged seconds through
+     StationPipeline.run_observation(profile_dir=...) after prewarm, with
+     .fils: every second through rfi_front and both EMA kernels and each
+     gulp through the dedispersion kernel, the FRB armed at second 60
+     near DM 80 at S/N >= 20 (the one armed at second 0 lies under the
+     start-up transient), the first two seconds (the pipeline's rows and
+     process_second in full) against process_second_plain at the chain
+     bar, the _histo.npz
+     equal to numpy's bincount of the staged seconds, the trace holding
+     the pipeline's ranges (and whether the CUDA libraries' kernels are in
+     it); one second's device ms by part, the real-time factor, peak
+     device memory; [17b] the 'fourier' search engine on [17a]'s gulps
+     and [3]'s production gulp: the FRB at the fold kernel's trial +-1
+     with its S/N within 2%, the DM-time planes' difference, the gulp's
+     time and peak memory; [17c] the config matrix (config.CONFIG_MATRIX,
+     the JAX package's benchmarks/smoke_config_matrix_tpu.py VARIANTS) at
+     the reference geometry, one second each through the port's program
+     (the twin for an injection-free variant) against
+     process_second_plain at the chain bar;
 then the run's wall time, one JSON line of per-kernel results (each with
 its time, its plain version's, its bound from this run's shapes, the
 library call's time where one PyTorch call computes the function, and
-its launches on its path: [4], [10], [15] and [16] for kernels 1-8,
-[11]-[14] for the staged chain, the roll+select engine and tile_bench),
+its launches on its path: [4], [10], [15], [16] and [17] for kernels
+1-8, [11]-[14] for the staged chain, the roll+select engine and
+tile_bench),
 the card's name
 and power
 limit, and last
@@ -277,9 +300,9 @@ def timed_wall(fn):
     return out, (time.perf_counter() - t0) * 1e3
 
 
-def levels(packed: torch.Tensor) -> np.ndarray:
+def levels(packed: torch.Tensor, nbit: int = 2) -> np.ndarray:
     from vlite_fast_tpu_torch.ops import quantize as q
-    return q.unpack_bits(packed.cpu(), 2).numpy().astype(np.int16)
+    return q.unpack_bits(packed.cpu(), nbit).numpy().astype(np.int16)
 
 
 def phase_device() -> str:
@@ -600,6 +623,20 @@ def check_fil(path: str, nrows: int, row_bytes: int, digest: str = None,
           f"{what} {path}: its rows differ from the blocks the taps got")
 
 
+_MAIN_PATH_SECONDS = []
+
+
+def main_path_seconds(dev, cfg) -> list:
+    """The main path's three staged seconds (seeded numpy noise), made on
+    the first call and kept on the card for the later runs."""
+    if not _MAIN_PATH_SECONDS:
+        rng = np.random.default_rng(0)
+        _MAIN_PATH_SECONDS.extend(torch.from_numpy(np.clip(
+            rng.standard_normal((cfg.npol_in, cfg.sample_rate)) / 0.05914
+            + 128.5, 0, 255).astype(np.uint8)).to(dev) for _ in range(3))
+    return _MAIN_PATH_SECONDS
+
+
 def phase_main_path(dev, twin: str = "auto", tag: str = "[4]",
                     n_sec: int = 40, twin_device_ms: float = None,
                     write_fil: bool = False) -> tuple:
@@ -615,10 +652,7 @@ def phase_main_path(dev, twin: str = "auto", tag: str = "[4]",
                                                        StationPipeline)
     cfg = PipelineConfig(inject_frb=True, twin_chain_impl=twin)
     scfg = SearchConfig()
-    rng = np.random.default_rng(0)
-    staged = [torch.from_numpy(np.clip(
-        rng.standard_normal((cfg.npol_in, cfg.sample_rate)) / 0.05914
-        + 128.5, 0, 255).astype(np.uint8)).to(dev) for _ in range(3)]
+    staged = main_path_seconds(dev, cfg)
     out_dir = tempfile.mkdtemp(prefix="vfast_smoke_")
     per_sec = []                # kernel launches in each fed second
     try:
@@ -788,10 +822,7 @@ def phase_twin_agreement(dev, nseeds: int = 10) -> None:
     st_a = st_t = dsp.init_state(cfg, dev)
     agree, dlev = [], 0
     for seed in range(nseeds):
-        gen = torch.Generator(device=dev).manual_seed(seed)
-        raw = (torch.randn((cfg.npol_in, cfg.sample_rate), generator=gen,
-                           device=dev) / 0.05914 + 128.5).clamp(0, 255) \
-            .to(torch.uint8)
+        raw = noise_on_card(dev, cfg.npol_in, cfg.sample_rate, seed)
         out_a, st_a = dsp.process_second(cfg, raw, st_a, False)
         out_t, st_t = twin(twin_cfg, raw, st_t, False)
         res = [agreement(getattr(out_a, f), getattr(out_t, f))
@@ -1961,6 +1992,403 @@ def phase_entry_points(dev) -> dict:
     return launched
 
 
+# ---------------------------------------------------------------------------
+# [17] every option one station honours: the polyphase channelizer, the
+# Fourier search engine, DOHISTO, the profile, the config matrix
+# ---------------------------------------------------------------------------
+
+# [17a]: two arms, at seconds 0 and 60 (C.INJECT_PERIOD_S), and 12 s after
+# the second, so that the gulps (12 s + the DM-1000 overlap, 9.3 s) search
+# it; the first arm's FRB lies under the start-up transient (see [17a])
+PFB_SECONDS = 72
+PFB_FRB_S = 60
+# the CUDA kernels of the armed program and the search, by a word of their
+# names, to find in a torch.profiler trace
+CTYPES_KERNELS = ("rfi_front_kernel", "bandpass_kernel", "ema_out_kernel",
+                  "stage1_kernel", "stage2_kernel")
+
+
+def noise_on_card(dev, npol: int, nsamp: int, seed: int) -> torch.Tensor:
+    """Gaussian 8-bit voltages made on the card from a torch seed."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return (torch.randn((npol, nsamp), generator=gen, device=dev) / 0.05914
+            + 128.5).clamp(0, 255).to(torch.uint8)
+
+
+def burst_on_card(raw: torch.Tensor, at: int) -> torch.Tensor:
+    """with_burst on the card: a sinusoidal burst in pol 0."""
+    t = torch.arange(3000, device=raw.device, dtype=torch.float32)
+    out = raw.to(torch.int16)
+    out[0, at:at + 3000] += (60 * torch.sin(0.3 * t)).to(torch.int16)
+    return out.clamp(0, 255).to(torch.uint8)
+
+
+def compare_seconds(cfg, got, st_g, want, st_w, what: str) -> dict:
+    """The chain bar at cfg.nbit between two programs' outputs and
+    states: >= 0.9999 of levels agree in both streams, weights within
+    1e-6 relative, dag_frac within 1e-6, bandpasses within 1e-4 relative;
+    histograms and carried tails equal.  Returns the worst readings."""
+    agree = 1.0
+    for f in ("packed", "packed_kur"):
+        lg = levels(getattr(got, f), cfg.nbit)
+        lw = levels(getattr(want, f), cfg.nbit)
+        check(lg.shape == lw.shape, f"{what}: {f} shapes {lg.shape} vs "
+              f"{lw.shape}")
+        agree = min(agree, float((lg == lw).mean()))
+    check(agree >= 0.9999, f"{what}: level agreement {agree}")
+    w_rel = rel_err(got.weights, want.weights, 1e-6)
+    check(w_rel <= 1e-6, f"{what}: weights off by {w_rel} relative")
+    dag = abs(float(got.dag_frac) - float(want.dag_frac))
+    check(dag <= 1e-6, f"{what}: dag_frac off by {dag}")
+    bp_rel = max(rel_err(getattr(st_g, f), getattr(st_w, f), 1e-6)
+                 for f in ("bp", "bp_kur"))
+    check(bp_rel < 1e-4, f"{what}: bandpass off by {bp_rel} relative")
+    check(torch.equal(got.histo, want.histo), f"{what}: histograms differ")
+    check(torch.equal(st_g.tail, st_w.tail) and
+          torch.equal(st_g.wtail, st_w.wtail), f"{what}: WOLA tails differ")
+    return {"agree": agree, "weights_rel": w_rel, "dag": dag,
+            "bp_rel": bp_rel}
+
+
+def pfb_parts(dev, cfg, raw) -> dict:
+    """Device ms of each part of one pfb second of the armed program,
+    each timed alone (CUDA events, 3 reps) on the second's own
+    intermediates: both streams where the program runs both."""
+    from vlite_fast_tpu_torch.ops import channelize as ch_ops
+    from vlite_fast_tpu_torch.ops import kurtosis as kur_ops
+    from vlite_fast_tpu_torch.ops import normalize as norm_ops
+    from vlite_fast_tpu_torch.ops import pallas_kernels as pk
+    from vlite_fast_tpu_torch.ops import rfi_pallas
+    from vlite_fast_tpu_torch.ops import unpack as unpack_ops
+    from vlite_fast_tpu_torch.models import baseband_dsp as dsp
+    tl = (cfg.pfb_ntap - 1) * cfg.nfft
+    tail = torch.zeros((cfg.npol_in, tl), device=dev)
+    bp = torch.zeros((cfg.npol_in, cfg.nchan), device=dev)
+    args = (cfg.nkurto, cfg.nfft, cfg.dag_thresh, cfg.dag_fb_thresh)
+    x = unpack_ops.convert_uint8(raw)
+    x_kur, weights, _ = rfi_pallas.rfi_front(raw, *args)
+    frames = ch_ops.wola(x_kur, cfg.nfft, cfg.pfb_ntap, tail)
+    spec = ch_ops.matmul_rfft(frames, cfg.nfft)
+    power = norm_ops.detect(spec)
+    out, _ = pk.normalize_ema_weighted_pallas(power, weights, bp,
+                                              cfg.bp_scale,
+                                              time_tile=cfg.ffts_per_seg)
+    parts = {
+        "rfi_front": cuda_ms(lambda: rfi_pallas.rfi_front(raw, *args), 3),
+        "convert": cuda_ms(lambda: unpack_ops.convert_uint8(raw), 3),
+        "WOLA x2": 2 * cuda_ms(lambda: ch_ops.wola(
+            x_kur, cfg.nfft, cfg.pfb_ntap, tail), 3),
+        "DFT GEMMs x2": 2 * cuda_ms(lambda: ch_ops.matmul_rfft(
+            frames, cfg.nfft), 3),
+        "detect x2": 2 * cuda_ms(lambda: norm_ops.detect(spec), 3),
+        "normalize_ema_pallas": cuda_ms(lambda: pk.normalize_ema_pallas(
+            power, bp, cfg.bp_scale, time_tile=cfg.ffts_per_seg), 3),
+        "normalize_ema_weighted_pallas": cuda_ms(
+            lambda: pk.normalize_ema_weighted_pallas(
+                power, weights, bp, cfg.bp_scale,
+                time_tile=cfg.ffts_per_seg), 3),
+        "scrunch and pack x2": cuda_ms(
+            lambda: dsp._finish_stream(cfg, out, None), 3)
+        + cuda_ms(lambda: dsp._finish_stream(cfg, out, weights), 3),
+        "pfb_weights": cuda_ms(lambda: ch_ops.pfb_weights(
+            weights, cfg.pfb_ntap, cfg.nfft), 3),
+        "histogram": cuda_ms(lambda: kur_ops.sample_histogram(raw), 3)}
+    return parts
+
+
+def phase_pfb(dev) -> tuple:
+    """[17a] the polyphase channelizer's observation, DOHISTO and the
+    profile: PFB_SECONDS staged seconds through run_observation with a
+    profile_dir, after prewarm.  The FRB is held to the second arm's: at
+    the first, the WOLA's zero tail (a fresh state's, as the JAX
+    package's) lowers the bandpass seed and the start-up transient covers
+    the FRB.  Returns (its kernel launches, the packed
+    rows the block tap received, by second)."""
+    import os
+    from vlite_fast_tpu_torch import PipelineConfig, SearchConfig
+    from vlite_fast_tpu_torch.models import baseband_dsp as dsp
+    from vlite_fast_tpu_torch.runtime.pipeline import (PROFILE_RANGES,
+                                                       ObservationDocument,
+                                                       StationPipeline)
+    from vlite_fast_tpu_torch.utils import sigproc
+    cfg = PipelineConfig(channelizer="pfb", inject_frb=True, do_histo=True)
+    scfg = SearchConfig()
+    staged = [noise_on_card(dev, cfg.npol_in, cfg.sample_rate, 1700 + i)
+              for i in range(3)]
+    staged[2] = burst_on_card(staged[2], cfg.sample_rate * 5 // 16)
+    out_dir = tempfile.mkdtemp(prefix="vfast_pfb_")
+    blocks = []
+    try:
+        pipe = StationPipeline(1, cfg, scfg, out_dir=out_dir,
+                               keep_ring=False, write_cands=False,
+                               device=dev)
+        check(pipe._twin is dsp.process_second and
+              pipe._cfg_noinject.chain_impl == "xla",
+              f"[17a] the pfb twin resolved to {pipe._twin.__name__} "
+              f"{pipe._cfg_noinject.chain_impl}")
+        pipe.block_taps.append(lambda sid, off, blk: blocks.append(blk.copy()))
+        t_pre = time.perf_counter()
+        pipe.prewarm()
+        t_pre = time.perf_counter() - t_pre
+        od = ObservationDocument(name="SMOKE_PFB", start_time=1.7e9)
+        seconds = lambda: ((1.7e9 + s, staged[s % 3])
+                           for s in range(PFB_SECONDS))
+        torch.cuda.reset_peak_memory_stats(dev)
+        kernel_launches.zero()
+        t0 = time.perf_counter()
+        prod = pipe.run_observation(seconds(), od, profile_dir=os.path.join(
+            out_dir, "profile"))
+        torch.cuda.synchronize()
+        wall_prof = time.perf_counter() - t0
+        launches = kernel_launches.counts()
+        peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        armed = list(pipe.feed_seconds["armed"])
+        twin_s = list(pipe.feed_seconds["twin"])
+        gulps = int(pipe.metrics.get("vfast_gulps_searched"))
+        with open(pipe.profile_path) as fp:
+            events = json.load(fp)["traceEvents"]
+        trace_mb = os.path.getsize(pipe.profile_path) / 2 ** 20
+        names = {e.get("name") for e in events}
+        kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+        seen = sorted({w for w in CTYPES_KERNELS
+                       if any(w in k for k in kernels)})
+        check(set(PROFILE_RANGES) <= names, f"[17a] the trace lacks "
+              f"{set(PROFILE_RANGES) - names}")
+        hist = np.load(prod.fil_path.replace(".fil", "_histo.npz"))[
+            "histogram"]
+        rows = cfg.seg_per_sec * cfg.out_samps_per_seg
+        row_bytes = cfg.nchanout * cfg.nbit // 8
+        with open(prod.fil_path.replace(".fil", "_plain.fil"), "rb") as fp:
+            sigproc.read_header(fp)
+            plain_rows = np.frombuffer(fp.read(2 * rows * row_bytes),
+                                       np.uint8).reshape(2 * rows,
+                                                         row_bytes).copy()
+        # the same observation without the profiler, for its wall
+        t0 = time.perf_counter()
+        pipe.run_observation(seconds(), od, write_fil=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    # every second through the armed program's kernels, each gulp through
+    # the dedispersion kernel's packed entry, never a chain kernel
+    check(prod.seconds == PFB_SECONDS and len(armed) + len(twin_s)
+          == PFB_SECONDS, f"[17a] {prod.seconds} seconds")
+    check(all(launches[k] == PFB_SECONDS for k in ARMED_KERNELS)
+          and not any(launches[k] for k in CHAIN_KERNELS),
+          f"[17a] launches {launches} vs {PFB_SECONDS} seconds")
+    check(gulps >= 1 and launches["dedisperse_pallas_packed"] == gulps,
+          f"[17a] dedispersion launches {launches} vs {gulps} gulps")
+    def frb(at):          # the best candidate near DM 80 within 1.5 s of at
+        near = [c for c in prod.candidates
+                if abs(c.dm - cfg.inject_dm) <= 0.1 * cfg.inject_dm
+                and at <= c.peak_time <= at + 1.5]
+        return max(near, key=lambda c: c.snr) if near else None
+    best, first = frb(PFB_FRB_S), frb(0.0)
+    top = max(prod.candidates, key=lambda c: c.snr) \
+        if prod.candidates else None
+    check(best is not None and best.snr >= 20.0,
+          f"[17a] FRB armed at {PFB_FRB_S} s not recovered at S/N >= 20: "
+          f"best near DM 80 {best}, top {top}")
+    # DOHISTO: the product is the staged seconds' bincount, every sample
+    per_sec = [np.stack([np.bincount(r, minlength=256) for r in
+                         s.cpu().numpy()]) for s in staged]
+    want_hist = sum(per_sec[s % 3] for s in range(PFB_SECONDS))
+    check(np.array_equal(hist, want_hist) and int(hist.sum())
+          == cfg.npol_in * cfg.sample_rate * PFB_SECONDS,
+          f"[17a] _histo.npz differs from the staged seconds' bincount "
+          f"(sum {int(hist.sum())})")
+    # the first two seconds against the plain program, and the kernel
+    # program against the plain one in full
+    st_k = st_p = dsp.init_state(cfg, dev)
+    worst, same, t_plain = {}, [], []
+    for sec in range(2):
+        got, st_k = dsp.process_second(cfg, staged[sec], st_k, sec == 0)
+        (want, st_p), ms = timed_wall(lambda: dsp.process_second_plain(
+            cfg, staged[sec], st_p, sec == 0))
+        t_plain.append(ms)
+        r = compare_seconds(cfg, got, st_k, want, st_p,
+                            f"[17a] pfb second {sec}")
+        worst = {k: (min if k == "agree" else max)(worst.get(k, v), v)
+                 for k, v in r.items()}
+        pipe_kur = torch.from_numpy(blocks[sec])
+        pipe_plain = torch.from_numpy(plain_rows[sec * rows:(sec + 1) * rows])
+        for mine, theirs, f in ((pipe_kur, want.packed_kur, ".fil"),
+                                (pipe_plain, want.packed, "_plain.fil")):
+            a, _ = agreement(mine, theirs)
+            check(a >= 0.9999, f"[17a] second {sec}'s {f} rows vs "
+                  f"process_second_plain: agreement {a}")
+            worst["agree"] = min(worst["agree"], a)
+        same.append(torch.equal(pipe_kur, got.packed_kur.cpu()))
+    ms = cuda_ms(lambda: dsp.process_second(cfg, staged[0], st_k, False), 3)
+    parts = pfb_parts(dev, cfg, staged[2])
+    spans = armed + twin_s
+    log(f"[17a] pfb observation (PipelineConfig(channelizer='pfb', "
+        f"inject_frb=True, do_histo=True), SearchConfig()): {prod.seconds} s "
+        f"in {wall:.2f} s wall, real-time factor {PFB_SECONDS / wall:.3f} "
+        f"({wall_prof:.2f} s profiled, the trace's export included; "
+        f"prewarm {t_pre:.2f} s before); span per data-second (CUDA events) "
+        f"armed {', '.join(f'{1e3 * a:.1f}' for a in armed)} ms, twin "
+        f"(process_second, injection off) median "
+        f"{1e3 * float(np.median(twin_s)):.2f} ms x{len(twin_s)}, summed "
+        f"{sum(spans):.2f} s; {gulps} gulps; the FRB armed at {PFB_FRB_S} s "
+        f"at DM {best.dm:.2f} S/N {best.snr:.2f}, {best.peak_time:.3f} s; "
+        f"the one armed at 0 s: best near DM 80 in its 1.5 s {first} (top "
+        f"candidate DM {top.dm:.2f} S/N {top.snr:.2f} at "
+        f"{top.peak_time:.3f} s, {len(prod.candidates)} candidates); peak "
+        f"device memory "
+        f"{peak:.2f} GiB; launches {launches}")
+    log(f"[17a] first 2 seconds vs process_second_plain: the pipeline's "
+        f".fil and _plain.fil rows and process_second's outputs, level "
+        f"agreement >= {worst['agree']:.6f} (bar 0.9999), weights rel "
+        f"{worst['weights_rel']:.2e}, dag_frac diff {worst['dag']:.2e}, "
+        f"bandpass rel {worst['bp_rel']:.2e}, histograms and WOLA tails "
+        f"equal; the pipeline's .fil rows bit-equal to process_second's: "
+        f"{same}; process_second {ms:.2f} ms per second (CUDA events, 3 "
+        f"reps), plain {t_plain[0]:.0f} / {t_plain[1]:.0f} ms (wall)")
+    log(f"[17a] one pfb second's device ms by part (each alone, CUDA events, "
+        f"3 reps): " + ", ".join(f"{k} {v:.3f}" for k, v in parts.items())
+        + f"; sum {sum(parts.values()):.2f} against process_second's "
+        f"{ms:.2f}")
+    log(f"[17a] _histo.npz: {hist.shape} int{8 * hist.itemsize}, sum "
+        f"{int(hist.sum())} = 2 x {cfg.sample_rate} x {PFB_SECONDS}, equal "
+        f"to numpy's bincount of the staged seconds; trace "
+        f"{trace_mb:.1f} MiB, {len(events)} events, ranges "
+        f"{sorted(PROFILE_RANGES)} present, {len(kernels)} kernel events, "
+        f"the CUDA libraries' kernels in it: {seen or 'none'}")
+    return launches, blocks
+
+
+def phase_fourier(dev, blocks) -> None:
+    """[17b] the 'fourier' engine on [17a]'s gulps (the pfb observation's
+    packed rows: its first gulp, and one over the FRB armed at
+    PFB_FRB_S) and on [3]'s production gulp, against the fold kernel."""
+    from vlite_fast_tpu_torch import PipelineConfig, SearchConfig
+    from vlite_fast_tpu_torch.models import search
+    from vlite_fast_tpu_torch.ops import dedisperse_pallas as ddp
+    from vlite_fast_tpu_torch.ops import quantize as q
+    cfg, scfg = PipelineConfig(), SearchConfig()
+    kw = dict(nsub=min(128, cfg.nchanout), nbatch=min(scfg.ndm, 128),
+              device=dev)
+    fold = search.SinglePulseSearch(scfg, cfg.tsamp, cfg.freqs_mhz(), **kw)
+    four = search.SinglePulseSearch(
+        dataclasses.replace(scfg, engine="fourier"), cfg.tsamp,
+        cfg.freqs_mhz(), **kw)
+    plan, nchan = fold.plan, cfg.nchanout
+    full = scfg.gulp_samps + fold.overlap
+    ntime_out = full - plan.max_delay
+    rows = np.concatenate(blocks)
+    per_sec = cfg.seg_per_sec * cfg.out_samps_per_seg
+    rel = []
+
+    def dmt_err(src, nbit):
+        want = ddp.dedisperse_pallas_packed(src, nbit, nchan, plan,
+                                            ntime_out) if nbit else \
+            ddp.dedisperse_pallas(src, plan, ntime_out)
+        got = search.dedisperse(src, plan, ntime_out, engine="fourier",
+                                nbit=nbit, nchan=nchan)
+        return float((got - want).abs().max() / want.pow(2).mean().sqrt())
+
+    gulp_readings = []
+    # the observation's first gulp, and one from a second before the FRB
+    # armed at PFB_FRB_S to the end (padded as the flush gulp is)
+    for start in (0, (PFB_FRB_S - 1) * per_sec):
+        nrows = min(full, rows.shape[0] - start)
+        win = np.full((full, rows.shape[1]), q.NEAR_ZERO_FILL[cfg.nbit],
+                      np.uint8)
+        win[:nrows] = rows[start:start + nrows]
+        win = torch.from_numpy(win).to(dev)
+        found = [eng.search_gulp_device(win, cfg.nbit, start,
+                                        nrows - fold.overlap)
+                 for eng in (fold, four)]
+        rel.append(dmt_err(win, cfg.nbit))
+        near = [max((c for c in cs if abs(c.dm - cfg.inject_dm)
+                     <= 0.1 * cfg.inject_dm and PFB_FRB_S <= c.peak_time
+                     <= PFB_FRB_S + 1.5),
+                    key=lambda c: c.snr, default=None) for cs in found]
+        gulp_readings.append((start, [len(cs) for cs in found], near))
+    (_, _, (bf, bq)) = gulp_readings[1]
+    check(bf is not None and bq is not None and abs(bf.dmi - bq.dmi) <= 1
+          and abs(bq.snr - bf.snr) <= 0.02 * bf.snr,
+          f"[17b] the FRB: fold {bf}, fourier {bq}")
+    torch.cuda.reset_peak_memory_stats(dev)
+    k = scfg.topk or min(16 * scfg.max_candidates, 20000)
+    gulp = lambda engine: search._device_gulp(
+        win, plan, widths=fold.widths, k=k, nbit=cfg.nbit, nchan=nchan,
+        nbands=fold.nbands, thresh=float(scfg.snr_thresh), engine=engine)
+    ms_four = cuda_ms(lambda: gulp("fourier"), 1)
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    ms_fold = cuda_ms(lambda: gulp("auto"), 3)
+    rng = np.random.default_rng(11)                        # [3]'s gulp
+    fb = torch.from_numpy(rng.standard_normal(
+        (full, nchan)).astype(np.float32)).to(dev)
+    rel3 = dmt_err(fb, 0)
+    check(max(rel + [rel3]) < 1e-2, f"[17b] the Fourier DM-time planes off "
+          f"the fold kernel's by {rel} (pfb gulps), {rel3} ([3]'s gulp) of "
+          f"their rms")
+    log(f"[17b] 'fourier' engine vs the fold kernel ({len(plan.dms)} "
+        f"tol-grid trials, {full} rows): the FRB at DM {bq.dm:.2f} trial "
+        f"{bq.dmi} S/N {bq.snr:.2f} against DM {bf.dm:.2f} trial {bf.dmi} "
+        f"S/N {bf.snr:.2f} (bar: trial +-1, S/N within 2%); candidates "
+        f"(fold, fourier) per gulp: " + ", ".join(
+            f"from {s / per_sec:.0f} s: {n}" for s, n, _ in gulp_readings)
+        + f"; DM-time max |diff| / fold rms: pfb gulps "
+        f"{', '.join(f'{r:.2e}' for r in rel)}, [3]'s f32 gulp {rel3:.2e}; "
+        f"gulp device {ms_four:.1f} ms fourier (CUDA events, 1 rep), "
+        f"{ms_fold:.2f} ms fold (3 reps); peak device memory {peak:.2f} GiB "
+        f"(batch_chunk 8)")
+
+
+def phase_matrix(dev, raw) -> dict:
+    """[17c] the config matrix (config.CONFIG_MATRIX) at the reference
+    geometry, one second each from a fresh state, through the port's
+    program (the armed one where the variant injects, else the twin the
+    pipeline resolves) against process_second_plain.  Returns the
+    launches of the port's programs."""
+    from vlite_fast_tpu_torch.config import CONFIG_MATRIX, PipelineConfig
+    from vlite_fast_tpu_torch.models import baseband_dsp as dsp
+    launched, lines = {}, []
+    t0 = time.perf_counter()
+    for name, kw in CONFIG_MATRIX:
+        cfg = PipelineConfig(**kw)
+        arm = cfg.inject_frb
+        prog, pcfg = (dsp.process_second, cfg) if arm else \
+            (dsp.twin_program(cfg), dsp.twin_config(cfg))
+        fresh = lambda: dsp.init_state(cfg, dev)
+        prog(pcfg, raw, fresh(), arm)                # first use, not timed
+        before = kernel_launches.counts()
+        (got, st_g), ms = timed_wall(lambda: prog(pcfg, raw, fresh(), arm))
+        n = kernel_launches.since(before)
+        _add(launched, n)
+        want, st_w = dsp.process_second_plain(cfg, raw, fresh(), arm)
+        r = compare_seconds(cfg, got, st_g, want, st_w, f"[17c] {name}")
+        ran = [k for k, v in n.items() if v]
+        check(ran, f"[17c] {name}: no kernel launched")
+        lines.append(f"{name}: {pcfg.chain_impl} ({', '.join(ran)}) "
+                     f"{ms:.1f} ms, agreement {r['agree']:.6f}")
+        del got, want, st_g, st_w
+    log(f"[17c] config matrix, {len(CONFIG_MATRIX)} variants at the "
+        f"reference geometry, one second of [2]'s input each, the port's "
+        f"program (wall) vs process_second_plain at the chain bar: "
+        + "; ".join(lines) + f" ({time.perf_counter() - t0:.1f} s)")
+    return launched
+
+
+def phase_options(dev, raw) -> dict:
+    """[17]: returns the kernel launches of [17a]'s observation and
+    [17c]'s programs, summed."""
+    t0 = time.perf_counter()
+    launched, blocks = phase_pfb(dev)
+    torch.cuda.empty_cache()
+    phase_fourier(dev, blocks)
+    torch.cuda.empty_cache()
+    _add(launched, phase_matrix(dev, raw))
+    torch.cuda.empty_cache()
+    log(f"[17] options passed in {time.perf_counter() - t0:.1f} s; "
+        f"launches {launched}")
+    return launched
+
+
 def main() -> None:
     t_start = time.perf_counter()
     smi = phase_device()
@@ -2019,6 +2447,11 @@ def main() -> None:
     torch.cuda.empty_cache()
     # the entry points' processes run the main path's kernels too
     got = phase_entry_points(dev)
+    for k in (k_chain, k_dedisp, k_rfi, *k_ema):
+        k["launches"] += got.get(k["name"], 0)
+    torch.cuda.empty_cache()
+    # so do the pfb observation and the config matrix
+    got = phase_options(dev, raws[0])
     for k in (k_chain, k_dedisp, k_rfi, *k_ema):
         k["launches"] += got.get(k["name"], 0)
     kernels = [k_chain, k_dedisp, k_rfi, *k_ema, k_pre, *k_ct, *staged]

@@ -533,3 +533,24 @@ class ArrayConfig:
             pipeline=PipelineConfig.tiny(),
             search=SearchConfig.tiny(),
             mesh_ant=mesh_ant, mesh_time=mesh_time, **overrides)
+
+
+# The PipelineConfig variants one station is run under, by name: the JAX
+# package's production config-matrix smoke walks the same list
+# (benchmarks/smoke_config_matrix_tpu.py VARIANTS); chip_smoke.py runs each
+# at the reference geometry and tests/test_torch_options.py at a small one.
+CONFIG_MATRIX = (
+    ("default (2-bit, rfi 2, matmul, assoc)", {}),
+    ("4-bit output", {"nbit": 4}),
+    ("8-bit output", {"nbit": 8}),
+    ("dual-pol output", {"npol_out": 2}),
+    ("rfi_mode 0", {"rfi_mode": 0}),
+    ("rfi_mode 1", {"rfi_mode": 1}),
+    ("PFB channelizer", {"channelizer": "pfb"}),
+    ("pallas EMA", {"ema_impl": "pallas"}),
+    ("pallas RFI front", {"rfi_impl": "pallas"}),
+    ("scan EMA", {"ema_impl": "scan"}),
+    ("dft highest", {"dft_precision": "highest"}),
+    ("injection armed", {"inject_frb": True}),
+    ("histograms on", {"do_histo": True}),
+)

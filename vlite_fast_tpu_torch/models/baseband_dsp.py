@@ -8,6 +8,15 @@ only.  Raw 8-bit voltages go through
   -> [inject] FRB track multiply -> detect + EMA bandpass [weighted]
   -> pscrunch [+weights] -> tscrunch [+weights] -> trim + quantize + pack
 
+With channelizer='pfb' the channelizer is the streaming WOLA polyphase
+filterbank: each stream's last (pfb_ntap - 1) * nfft voltages (stream 0
+plain, stream 1 RFI-masked) and the last pfb_ntap - 1 raw block weights
+are carried in DSPState.tail / wtail and prepended to the next
+segment's, so every segment yields ffts_per_seg spectra; the kurtosis
+weights become the WOLA window's tap-energy-weighted means
+(ops/channelize.pfb_weights).  With do_histo every program also returns
+the second's raw-sample histogram per polarization.
+
 `process_second` is the armed program, the JAX package's
 ema_impl='pallas', rfi_impl='pallas' program: the front half (convert, the
 RFI front kernel ops/rfi_pallas.rfi_front, channelize, inject, detect)
@@ -62,8 +71,12 @@ class DSPState(NamedTuple):
     bp: torch.Tensor         # (npol, nchan) plain-stream bandpass
     bp_kur: torch.Tensor     # (npol, nchan) kurtosis-stream bandpass
     segs_since_inject: int   # < 0 means not armed
-    tail: torch.Tensor       # (2, npol, 0): the WOLA channelizer's carry
-    wtail: torch.Tensor      # (npol, 0): its weight carry (pfb not ported)
+    tail: torch.Tensor       # (2, npol, (pfb_ntap-1)*nfft) the WOLA
+                             # channelizer's carried voltages, stream 0
+                             # plain, stream 1 RFI-masked ((2, npol, 0)
+                             # unless channelizer == 'pfb')
+    wtail: torch.Tensor      # (npol, pfb_ntap-1) its carried raw block
+                             # weights ((npol, 0) unless 'pfb')
 
 
 class SegmentOutput(NamedTuple):
@@ -71,25 +84,47 @@ class SegmentOutput(NamedTuple):
     packed_kur: torch.Tensor   # (out_samps, nbytes) kurtosis stream
     weights: torch.Tensor      # (npol, ffts) kurtosis weights
     dag_frac: torch.Tensor     # scalar: fraction of fine windows flagged
-
-
-def _check_supported(cfg: PipelineConfig) -> None:
-    if cfg.channelizer not in ("matmul", "fft"):
-        raise NotImplementedError(
-            f"channelizer {cfg.channelizer!r} is not ported yet")
-    if cfg.do_histo:
-        raise NotImplementedError("do_histo is not ported yet")
+    histo: torch.Tensor = None  # (npol, 256) int32 raw-sample histogram
+                                # of the second with do_histo, else
+                                # (npol, 0); None from process_segment
 
 
 def init_state(cfg: PipelineConfig, device="cuda") -> DSPState:
-    _check_supported(cfg)
     device = devices.resolve(device)
     z = lambda: torch.zeros((cfg.npol_in, cfg.nchan), dtype=torch.float32,
                             device=device)
+    pfb = cfg.channelizer == "pfb"
+    ntail = cfg.pfb_ntap - 1 if pfb else 0
     return DSPState(
         bp=z(), bp_kur=z(), segs_since_inject=-1,
-        tail=torch.zeros((2, cfg.npol_in, 0), device=device),
-        wtail=torch.ones((cfg.npol_in, 0), device=device))
+        tail=torch.zeros((2, cfg.npol_in, ntail * cfg.nfft), device=device),
+        wtail=torch.ones((cfg.npol_in, ntail), device=device))
+
+
+def _histo(cfg: PipelineConfig, raw_second: torch.Tensor) -> torch.Tensor:
+    """The second's histogram (do_histo), or its empty stand-in."""
+    if cfg.do_histo:
+        return kur_ops.sample_histogram(raw_second)
+    return torch.zeros((cfg.npol_in, 0), dtype=torch.int32,
+                       device=raw_second.device)
+
+
+def _pfb_carry(cfg: PipelineConfig, x_tail: torch.Tensor,
+               kur_tail: torch.Tensor, weights: torch.Tensor,
+               state: DSPState) -> tuple:
+    """The WOLA carry of a run of contiguous segments: (new tail, new
+    wtail, the spectra's weights).  x_tail / kur_tail: the run's last
+    (pfb_ntap - 1) * nfft plain and masked voltages; weights its raw
+    block weights, whose last pfb_ntap - 1 are carried before the WOLA
+    bookkeeping (with the RFI front only)."""
+    tail = torch.stack([x_tail, kur_tail])
+    if cfg.rfi_mode == 0:
+        return tail, state.wtail, weights
+    nh = cfg.pfb_ntap - 1
+    wtail = weights[:, weights.shape[1] - nh:].clone()
+    weights = ch_ops.pfb_weights(torch.cat([state.wtail, weights], dim=1),
+                                 cfg.pfb_ntap, cfg.nfft)
+    return tail, wtail, weights
 
 
 def _frb_delays_np(cfg: PipelineConfig) -> np.ndarray:
@@ -135,7 +170,7 @@ def chain_kernel_takes(cfg: PipelineConfig, layout: str = "natural") -> bool:
         raise ValueError(f"chain_kernel_takes: layout {layout!r}")
     if cfg.inject_frb or cfg.channelizer != "matmul" or cfg.nbit != 2:
         return False
-    if cfg.npol_out != 1 or cfg.npol_in not in (1, 2) or cfg.do_histo:
+    if cfg.npol_out != 1 or cfg.npol_in not in (1, 2):
         return False
     try:
         ch_ops._ct_split(cfg.nfft)
@@ -238,13 +273,18 @@ def _rfi_stage(cfg: PipelineConfig, x: torch.Tensor):
             flagged.sum() * norm_ops.recip(flagged.numel()))
 
 
-def _power(cfg: PipelineConfig, v: torch.Tensor, since: int
-           ) -> torch.Tensor:
+def _power(cfg: PipelineConfig, v: torch.Tensor, since: int,
+           tail: torch.Tensor | None = None) -> torch.Tensor:
     """Channelize, inject and detect whole segments of voltages (npol,
     nsamp) -> power f32 (npol, nsamp // nfft, nchan).  `since` counts the
     segments from the arm to the first of them (< 0: not armed);
-    spectrum t lies in segment since + t // ffts_per_seg of the track."""
-    spec = ch_ops.channelize(v, cfg.nfft, method=cfg.channelizer)
+    spectrum t lies in segment since + t // ffts_per_seg of the track.
+    With channelizer='pfb', `tail` is the stream's carried voltages."""
+    if cfg.channelizer == "pfb":
+        spec = ch_ops.polyphase_channelize(v, cfg.nfft, cfg.pfb_ntap,
+                                           method="matmul", tail=tail)
+    else:
+        spec = ch_ops.channelize(v, cfg.nfft, method=cfg.channelizer)
     if cfg.inject_frb and since >= 0:
         delays = torch.from_numpy(_frb_delays_np(cfg)).to(spec.device)
         width = cfg.inject_width_s * cfg.seg_per_sec * cfg.ffts_per_seg
@@ -276,25 +316,34 @@ def process_segment(cfg: PipelineConfig, raw: torch.Tensor,
                     ) -> tuple[SegmentOutput, DSPState]:
     """One 1/seg_per_sec-second chunk: raw (npol_in, seg_samps) uint8.
     `power(cfg, voltages, since)` is the channelize + detect stage
-    (`_power`, f32; ops/megakernel gives the split-plane DFT's)."""
+    (`_power`, f32; ops/megakernel gives the split-plane DFT's); with
+    channelizer='pfb' it also takes the stream's carried voltages."""
     x = unpack_ops.convert_uint8(raw)
     x_kur, weights, dag_frac = _rfi_stage(cfg, x)
     since = state.segs_since_inject
+    tail, wtail = state.tail, state.wtail
+    if cfg.channelizer == "pfb":
+        tl = (cfg.pfb_ntap - 1) * cfg.nfft
+        tail, wtail, weights = _pfb_carry(
+            cfg, x[:, x.shape[1] - tl:], x_kur[:, x.shape[1] - tl:],
+            weights, state)
+        spectra = lambda v, s: power(cfg, v, since, state.tail[s])
+    else:
+        spectra = lambda v, s: power(cfg, v, since)
     bp, bp_kur = state.bp, state.bp_kur
     nbytes = cfg.npol_out * cfg.nchanout * cfg.nbit // 8
     empty = torch.zeros((cfg.out_samps_per_seg, nbytes), dtype=torch.uint8,
                         device=raw.device)
     packed = packed_kur = empty
     if cfg.rfi_mode != 1:
-        out, bp = norm_ops.normalize_ema(power(cfg, x, since), bp,
-                                         cfg.bp_scale)
+        out, bp = norm_ops.normalize_ema(spectra(x, 0), bp, cfg.bp_scale)
         packed = _finish_stream(cfg, out, None)
     if cfg.rfi_mode != 0:
         out, bp_kur = norm_ops.normalize_ema_weighted(
-            power(cfg, x_kur, since), weights, bp_kur, cfg.bp_scale)
+            spectra(x_kur, 1), weights, bp_kur, cfg.bp_scale)
         packed_kur = _finish_stream(cfg, out, weights)
     new_state = state._replace(
-        bp=bp, bp_kur=bp_kur,
+        bp=bp, bp_kur=bp_kur, tail=tail, wtail=wtail,
         segs_since_inject=since + 1 if since >= 0 else since)
     return SegmentOutput(packed, packed_kur, weights, dag_frac), new_state
 
@@ -302,7 +351,6 @@ def process_segment(cfg: PipelineConfig, raw: torch.Tensor,
 def run_segments(cfg: PipelineConfig, raw_second: torch.Tensor,
                  state: DSPState, power=_power) -> tuple[list, DSPState]:
     """process_segment over the second's segments in order."""
-    _check_supported(cfg)
     torch.backends.cuda.matmul.allow_tf32 = False   # the DFT stays f32
     segs = raw_second.reshape(cfg.npol_in, cfg.seg_per_sec, cfg.seg_samps)
     outs = []
@@ -325,6 +373,7 @@ def process_second_plain(cfg: PipelineConfig, raw_second: torch.Tensor,
         packed_kur=torch.cat([o.packed_kur for o in outs]),
         weights=torch.cat([o.weights for o in outs], dim=1),
         dag_frac=torch.stack([o.dag_frac for o in outs]).mean(),
+        histo=_histo(cfg, raw_second),
     ), state
 
 
@@ -338,8 +387,11 @@ def process_second(cfg: PipelineConfig, raw_second: torch.Tensor,
     the top of this second.  Outputs are time-major over the second;
     dag_frac is the mean of the segments' flagged fractions.  The whole
     second's voltages and powers are held at once: at production ~1 GB
-    per f32 plane, a few GB at the peak of the channelize."""
-    _check_supported(cfg)
+    per f32 plane, a few GB at the peak of the channelize.  With
+    channelizer='pfb' one WOLA runs over [carried tail, whole second]
+    per stream (the segments are contiguous, so its spectra are the
+    segment-by-segment ones); the masked tail is rfi_front's, and the
+    raw block weights are carried before the WOLA bookkeeping."""
     torch.backends.cuda.matmul.allow_tf32 = False   # the DFT stays f32
     dev = raw_second.device
     since = 0 if arm_inject else state.segs_since_inject
@@ -361,24 +413,35 @@ def process_second(cfg: PipelineConfig, raw_second: torch.Tensor,
         (cfg.seg_per_sec * cfg.out_samps_per_seg, nbytes),
         dtype=torch.uint8, device=dev)
     bp, bp_kur = state.bp, state.bp_kur
+    tail, wtail = state.tail, state.wtail
+    if cfg.channelizer == "pfb":
+        tl = (cfg.pfb_ntap - 1) * cfg.nfft
+        x_tail = unpack_ops.convert_uint8(
+            raw_second[:, raw_second.shape[1] - tl:])
+        kur_tail = x_kur[:, x_kur.shape[1] - tl:] if cfg.rfi_mode > 0 \
+            else x_tail
+        tail, wtail, weights = _pfb_carry(cfg, x_tail, kur_tail, weights,
+                                          state)
     tt = cfg.ffts_per_seg        # one tile per segment: per-segment seeds
     if cfg.rfi_mode != 1:
-        power = _power(cfg, unpack_ops.convert_uint8(raw_second), since)
+        power = _power(cfg, unpack_ops.convert_uint8(raw_second), since,
+                       state.tail[0])
         out, bp = pk.normalize_ema_pallas(power, bp, cfg.bp_scale,
                                           time_tile=tt)
         del power
         packed = _finish_stream(cfg, out, None)
     if cfg.rfi_mode != 0:
-        power = _power(cfg, x_kur, since)
+        power = _power(cfg, x_kur, since, state.tail[1])
         del x_kur
         out, bp_kur = pk.normalize_ema_weighted_pallas(
             power, weights, bp_kur, cfg.bp_scale, time_tile=tt)
         del power
         packed_kur = _finish_stream(cfg, out, weights)
     new_state = state._replace(
-        bp=bp, bp_kur=bp_kur,
+        bp=bp, bp_kur=bp_kur, tail=tail, wtail=wtail,
         segs_since_inject=since + cfg.seg_per_sec if since >= 0 else since)
-    return SegmentOutput(packed, packed_kur, weights, dag_frac), new_state
+    return SegmentOutput(packed, packed_kur, weights, dag_frac,
+                         _histo(cfg, raw_second)), new_state
 
 
 def twin_second(cfg: PipelineConfig, raw_second: torch.Tensor,
@@ -390,7 +453,8 @@ def twin_second(cfg: PipelineConfig, raw_second: torch.Tensor,
     for a CUDA tensor, the plain version (this module's run_segments) for
     a CPU one.  The state is the natural DSPState of every program:
     the bandpasses come back from the kernel, segs_since_inject advances
-    by seg_per_sec, the channelizer tails pass through."""
+    by seg_per_sec, the channelizer tails pass through.  With do_histo
+    the second's histogram is computed beside the kernel."""
     from vlite_fast_tpu_torch.ops import megakernel as mk
     since = 0 if arm_inject else state.segs_since_inject
     bp = torch.stack([state.bp, state.bp_kur])
@@ -407,4 +471,5 @@ def twin_second(cfg: PipelineConfig, raw_second: torch.Tensor,
     new_state = state._replace(
         bp=bp_new[0], bp_kur=bp_new[1],
         segs_since_inject=since + cfg.seg_per_sec if since >= 0 else since)
-    return SegmentOutput(packed, packed_kur, weights, dag.mean()), new_state
+    return SegmentOutput(packed, packed_kur, weights, dag.mean(),
+                         _histo(cfg, raw_second)), new_state

@@ -6,7 +6,11 @@ the CUDA kernel on a CUDA tensor, dequantize and the gather engine on a
 CPU one) or a float filterbank (the coadd's float16 stream, cast to f32
 on the device: the same kernel's f32 entry, dedisperse_pallas) -> boxcar
 S/N -> top-k per DM band; only the packed crossings come back to the
-host, which clusters them into candidates.
+host, which clusters them into candidates.  SearchConfig.engine
+'fourier' dedisperses by Fourier phase ramps instead
+(ops/dedisperse.dedisperse_fourier, on any device; packed rows are
+dequantized first); 'auto', 'pallas' and 'subband' all take the fold
+kernel on a CUDA tensor and the gather engine on a CPU one.
 """
 
 from __future__ import annotations
@@ -96,18 +100,32 @@ def decode_crossings(packed: np.ndarray, nw: int, ndm: int, ntime: int,
     return v, hits, n_crossings, saturated
 
 
+def dedisperse(fb: torch.Tensor, plan: dd.DedispPlan, ntime_out: int, *,
+               engine: str = "auto", nbit: int = 0,
+               nchan: int = 0) -> torch.Tensor:
+    """The (ndm, ntime_out) DM-time plane of fb by `engine`.  fb is packed
+    rows (time, nbytes) when nbit > 0 (the fold kernel dequantizes and
+    zaps as it stages them; the Fourier engine dequantizes them first),
+    else a float filterbank (time, nchan) of any float dtype, cast to f32
+    here."""
+    if engine == "fourier":
+        if nbit:
+            fb = q_ops.dequantize(fb, nbit)
+            fb = fb.reshape(fb.shape[0], -1)[:, :nchan]
+        return dd.dedisperse_fourier(fb.to(torch.float32), plan, ntime_out)
+    if nbit:
+        return ddp.dedisperse_pallas_packed(fb, nbit, nchan, plan, ntime_out)
+    return ddp.dedisperse_pallas(fb.to(torch.float32), plan, ntime_out)
+
+
 def _device_gulp(fb: torch.Tensor, plan: dd.DedispPlan, *,
                  widths: tuple, k: int, nbit: int, nchan: int, nbands: int,
-                 thresh: float) -> torch.Tensor:
-    """One gulp on fb's device: dedisperse -> boxcar S/N -> banded top-k
-    crossings.  fb is packed rows (time, nbytes) when nbit > 0 (the
-    kernel dequantizes and zaps as it stages them), else a float
-    filterbank (time, nchan) of any float dtype, cast to f32 here."""
+                 thresh: float, engine: str = "auto") -> torch.Tensor:
+    """One gulp on fb's device: dedisperse (see `dedisperse`) -> boxcar
+    S/N -> banded top-k crossings."""
     ntime_out = fb.shape[0] - plan.max_delay
-    if nbit:
-        dmt = ddp.dedisperse_pallas_packed(fb, nbit, nchan, plan, ntime_out)
-    else:
-        dmt = ddp.dedisperse_pallas(fb.to(torch.float32), plan, ntime_out)
+    dmt = dedisperse(fb, plan, ntime_out, engine=engine, nbit=nbit,
+                     nchan=nchan)
     snr = dd.boxcar_snr(dmt, plan.nchan_eff, widths)
     return pack_topk_banded(snr, k, nbands, thresh)
 
@@ -118,8 +136,6 @@ class SinglePulseSearch:
     def __init__(self, scfg: SearchConfig, tsamp: float,
                  freqs_mhz: np.ndarray, nsub: int = 0, nbatch: int = 0,
                  device="cuda"):
-        if scfg.engine == "fourier":
-            raise NotImplementedError("the 'fourier' engine is not ported")
         self.scfg = scfg
         self.device = devices.resolve(device)
         self.tsamp = float(tsamp)
@@ -145,7 +161,7 @@ class SinglePulseSearch:
         fb = torch.as_tensor(np.asarray(fb_block, dtype=np.float32),
                              device=self.device)
         ntime_out = fb.shape[0] - self.plan.max_delay
-        dmt = ddp.dedisperse_pallas(fb, self.plan, ntime_out)
+        dmt = dedisperse(fb, self.plan, ntime_out, engine=self.scfg.engine)
         return dd.boxcar_snr(dmt, self.plan.nchan_eff, self.widths)
 
     def _top_crossings(self, fb_dev: torch.Tensor, nbit: int = 0):
@@ -154,7 +170,7 @@ class SinglePulseSearch:
         packed = _device_gulp(
             fb_dev, self.plan, widths=self.widths, k=k, nbit=nbit,
             nchan=len(self.freqs_mhz), nbands=self.nbands,
-            thresh=float(self.scfg.snr_thresh))
+            thresh=float(self.scfg.snr_thresh), engine=self.scfg.engine)
         ntime_out = fb_dev.shape[0] - self.plan.max_delay
         return packed, (len(self.widths), len(self.dms), ntime_out)
 

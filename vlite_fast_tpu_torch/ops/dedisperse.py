@@ -3,9 +3,11 @@
 Port of vlite_fast_tpu/ops/dedisperse.py (heimdall's role in the
 reference, scripts/start_heimdall_single_antenna:21).  The DM transform is
 the two-stage subband shift-and-sum; `dedisperse` here is the gather
-form, the plain version of the CUDA kernel in ops/dedisperse_pallas.
-`Candidate` and `cluster_hits` are numpy copies of the JAX package's
-(whose module imports jax).
+form, the plain version of the CUDA kernel in ops/dedisperse_pallas;
+`dedisperse_fourier` the same sums as Fourier phase ramps (torch.fft, as
+the JAX package's is XLA and not a TPU kernel).  `Candidate` and
+`cluster_hits` are numpy copies of the JAX package's (whose module
+imports jax).
 """
 
 from __future__ import annotations
@@ -168,6 +170,73 @@ def dedisperse(fb: torch.Tensor, plan: DedispPlan, ntime_out: int,
         idx = t[None, :, None] + sub_d[lo:hi, None, :]      # (c, T, nsub)
         out[lo:hi] = torch.gather(yb, 1, idx).sum(dim=-1)
     return out
+
+
+def dedisperse_fourier(fb: torch.Tensor, plan: DedispPlan, ntime_out: int,
+                       batch_chunk: int = 8,
+                       phase_table: bool = False) -> torch.Tensor:
+    """Gather-free dedispersion: the time shifts as Fourier phase ramps
+    (the search's 'fourier' engine).
+
+    A shift by an integer d is exact in the DFT domain:
+    irfft(X(f) e^{+2 pi i f d / N})[t] = x[t + d mod N]; padding the time
+    axis to N = 2^ceil(log2 ntime) keeps the circular wrap out of the
+    valid samples.  Stage 1 multiplies the channels' spectra by each
+    batch's rel_delays ramps and sums within each subband; stage 2 ramps
+    the subband spectra by each trial's sub_delays and sums them.  The
+    batches go batch_chunk at a time: at production (F = 16385
+    frequencies, 4096 channels, 38 trials a batch) a chunk of 8 holds
+    ~4.3 GB of complex64 factors in stage 1 and ~5.1 GB in stage 2.
+    phase_table builds stage 1's factors by indexing a (max_rel + 1, F)
+    table of ramps instead of evaluating cos and sin.
+
+    fb: (ntime, nchan) f32, ntime >= ntime_out + plan.max_delay ->
+    (ndm, ntime_out); trials of a batch are contiguous and every batch
+    holds ndm // nbatch of them (make_plan)."""
+    ntime, nchan = fb.shape
+    nsub = plan.nsub
+    w = nchan // nsub
+    dev = fb.device
+    npad = 1 << max(4, int(np.ceil(np.log2(ntime))))
+    X = torch.fft.rfft(fb * plan.chan_weights[None, :], n=npad, dim=0)
+    nfreq = X.shape[0]                                  # (F, nchan)
+    omega = (2.0 * np.pi / npad) * torch.arange(nfreq, dtype=torch.float32,
+                                                device=dev)
+    nbatch = plan.rel_delays.shape[0]
+    ndm = plan.sub_delays.shape[0]
+    per_batch = ndm // nbatch
+    rel_all = plan.rel_delays.to(torch.float32)
+    sub_all = plan.sub_delays.to(torch.float32)
+    if phase_table:
+        rr = torch.arange(max(plan.rel_delays_max, 1) + 1,
+                          dtype=torch.float32, device=dev)
+        theta = omega[None, :] * rr[:, None]
+        table = torch.complex(torch.cos(theta), torch.sin(theta))
+        del theta
+    out_hat = torch.empty((ndm, nfreq), dtype=torch.complex64, device=dev)
+    chunk = min(batch_chunk, nbatch)
+    for lo in range(0, nbatch, chunk):
+        hi = min(lo + chunk, nbatch)
+        c = hi - lo
+        if phase_table:
+            E = table[plan.rel_delays[lo:hi].to(torch.int64)] \
+                .transpose(1, 2)                        # (c, F, nchan)
+        else:
+            theta = omega[None, :, None] * rel_all[lo:hi, None, :]
+            E = torch.complex(torch.cos(theta), torch.sin(theta))
+            del theta
+        # y_hat[c, f, s] = sum_w' X[f, s*w + w'] E[c, f, s*w + w']
+        y_hat = (X[None] * E).reshape(c, nfreq, nsub, w).sum(dim=-1)
+        del E
+        sub_b = sub_all[lo * per_batch:hi * per_batch].reshape(
+            c, per_batch, nsub)
+        theta2 = omega[None, None, :, None] * sub_b[:, :, None, :]
+        E2 = torch.complex(torch.cos(theta2), torch.sin(theta2))
+        del theta2
+        out_hat[lo * per_batch:hi * per_batch] = \
+            (y_hat[:, None] * E2).sum(dim=-1).reshape(c * per_batch, nfreq)
+        del E2, y_hat
+    return torch.fft.irfft(out_hat, n=npad, dim=-1)[:, :ntime_out]
 
 
 # ---------------------------------------------------------------------------

@@ -125,3 +125,13 @@ def rfi_excise(x: torch.Tensor, nkurto: int, nfft: int,
     masked, weights = apply_mask(x, dag, nkurto, nfft, dag_thresh,
                                  block_keep=keep)
     return KurtosisResult(masked, weights, dag, dag_fb, pow_w, kur_w)
+
+
+def sample_histogram(u: torch.Tensor, nbins: int = 256) -> torch.Tensor:
+    """Per-polarization raw-sample histograms (the DOHISTO diagnostic):
+    u (npol, nsamp) uint8 -> (npol, nbins) int32.  torch.bincount on the
+    bytes as they are (no widened copy of the input); on a CUDA tensor it
+    reads the input's largest value back, so each call waits for the
+    device once per polarization."""
+    return torch.stack([torch.bincount(row, minlength=nbins)[:nbins]
+                        for row in u]).to(torch.int32)

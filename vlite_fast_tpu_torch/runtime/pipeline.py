@@ -27,7 +27,16 @@ tensor of their own, followed by an event; the next second's drain waits
 on that event only, then writes the .fil and feeds the block taps from
 those bytes.  Each second gets a fresh pinned tensor, never a reused
 one: the coadd and the host gulp stream keep a second's bytes after its
-drain.
+drain.  With do_histo each second's raw-sample histogram is added on the
+device and written at the observation's end beside the .fil
+(`*_histo.npz`, key `histogram`).
+
+`run_observation(profile_dir=...)` records the observation with
+torch.profiler (CPU and CUDA activities) and exports a Chrome trace
+there; each second's program, each gulp's search and each drain is a
+`record_function` range: "vfast.armed_second" / "vfast.twin_second",
+"vfast.gulp_search", "vfast.drain" (the wait for a second's bytes,
+the .fil and the taps; PROFILE_RANGES).
 """
 
 from __future__ import annotations
@@ -176,6 +185,10 @@ class ObservationProducts:
     start_unix: float = 0.0   # unix time of the first processed second
 
 
+# the record_function ranges of a profiled observation
+PROFILE_RANGES = ("vfast.armed_second", "vfast.twin_second",
+                  "vfast.gulp_search", "vfast.drain")
+
 # the host's work of each fed second, by part (StationPipeline.host_seconds)
 HOST_PARTS = ("ring", "staging", "copy", "wait", "drain", "search")
 
@@ -217,6 +230,8 @@ class StationPipeline:
         self.write_cands = write_cands
         self.write_kurto = write_kurto   # WRITE_KURTO role (weights dump)
         self._weights_accum: List[torch.Tensor] = []
+        self._histo_accum: Optional[torch.Tensor] = None
+        self.profile_path: Optional[str] = None   # the last trace written
         self.state = dsp.init_state(cfg, self.device)
         # the injection-free twin runs outside the window after each arm
         self._cfg_noinject = dsp.twin_config(cfg)
@@ -260,9 +275,31 @@ class StationPipeline:
             tsamp=cfg.tsamp, nifs=cfg.npol_out)
 
     def run_observation(self, seconds: Iterable, od: ObservationDocument,
-                        write_fil: bool = True, search_live: bool = True
+                        write_fil: bool = True, search_live: bool = True,
+                        profile_dir: Optional[str] = None
                         ) -> ObservationProducts:
-        """seconds: iterable of (unix_second, samples[npol, rate] uint8)."""
+        """seconds: iterable of (unix_second, samples[npol, rate] uint8).
+
+        profile_dir: record the observation with torch.profiler (CPU, and
+        CUDA on a card) and export a Chrome trace into that directory,
+        named station<id>_<first unix second>.pt.trace.json
+        (`self.profile_path`); open it in Perfetto or chrome://tracing."""
+        if profile_dir:
+            from torch.profiler import ProfilerActivity, profile
+            acts = [ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                acts.append(ProfilerActivity.CUDA)
+            with profile(activities=acts) as prof:
+                products = self.run_observation(seconds, od, write_fil,
+                                                search_live)
+            os.makedirs(profile_dir, exist_ok=True)
+            self.profile_path = os.path.join(
+                profile_dir, f"station{self.station_id:02d}_"
+                f"{int(products.start_unix)}.pt.trace.json")
+            prof.export_chrome_trace(self.profile_path)
+            self.log.info("profile of the observation: %s",
+                          self.profile_path)
+            return products
         self.begin_observation(od, write_fil=write_fil,
                                search_live=search_live)
         for sec, buf in seconds:
@@ -278,6 +315,7 @@ class StationPipeline:
         self._taps_offset = 0
         self._pending = None
         self._weights_accum = []
+        self._histo_accum = None
         self._times = []
         self._od = od
         self._write_fil = write_fil
@@ -430,11 +468,19 @@ class StationPipeline:
         # track cannot intersect this second, so the injection-free twin
         # runs (byte-exact: the skipped path multiplies by all-ones)
         armed = cfg.inject_frb and self._nsec < self._inject_until
-        if armed:
-            out, self.state = dsp.process_second(cfg, raw, self.state, arm)
-        else:
-            out, self.state = self._twin(self._cfg_noinject, raw,
-                                         self.state, arm)
+        kind = "armed" if armed else "twin"
+        with torch.profiler.record_function(f"vfast.{kind}_second"):
+            if armed:
+                out, self.state = dsp.process_second(cfg, raw, self.state,
+                                                     arm)
+            else:
+                out, self.state = self._twin(self._cfg_noinject, raw,
+                                             self.state, arm)
+        if cfg.do_histo:
+            # summed on the device; read at the observation's end
+            h = out.histo.to(torch.int64)
+            self._histo_accum = h if self._histo_accum is None \
+                else self._histo_accum + h
         pending_new = out.packed_kur if cfg.rfi_mode else out.packed
         plain_new = (out.packed if (cfg.rfi_mode == 2
                                     and self._fil_plain is not None)
@@ -464,7 +510,6 @@ class StationPipeline:
             self.log.warning("falling behind real time by %.2f s", deficit)
         for k, v in clock.items():
             self.host_seconds[k].append(v)
-        kind = "armed" if armed else "twin"
         if on_card:
             end = torch.cuda.Event(enable_timing=True)
             end.record()
@@ -500,6 +545,11 @@ class StationPipeline:
                                     [w.numpy() for w in self._weights_accum],
                                     axis=-1))
         self._weights_accum = []
+        if fil_path and self._histo_accum is not None:
+            # the DOHISTO product (ref pb_kernels.cu:321-336), summed in
+            # int64 so that a long observation does not wrap a bin
+            np.savez_compressed(fil_path.replace(".fil", "_histo.npz"),
+                                histogram=self._histo_accum.cpu().numpy())
         return ObservationProducts(
             fil_path=fil_path, candidates=cands, seconds=self._nsec,
             rt_factor=self._rt.realtime_factor,
@@ -518,22 +568,23 @@ class StationPipeline:
             # kept on the device only while a search will consume it
             self._fb_dev.append(packed_dev)
         if packed_host is not None:
-            t = time.perf_counter()
-            if done is not None:
-                done.synchronize()
-            t1 = time.perf_counter()
-            clock["wait"] = t1 - t
-            packed = packed_host.numpy()
-            if self._fil is not None:
-                self._fil.write_block(packed)
-            if plain_host is not None and self._fil_plain is not None:
-                self._fil_plain.write_block(plain_host.numpy())
-            if self._search_live:
-                self._fb.append(packed)
-            for tap in self.block_taps:
-                tap(self.station_id, self._taps_offset, packed)
-            self._taps_offset += packed.shape[0]
-            clock["drain"] = time.perf_counter() - t1
+            with torch.profiler.record_function("vfast.drain"):
+                t = time.perf_counter()
+                if done is not None:
+                    done.synchronize()
+                t1 = time.perf_counter()
+                clock["wait"] = t1 - t
+                packed = packed_host.numpy()
+                if self._fil is not None:
+                    self._fil.write_block(packed)
+                if plain_host is not None and self._fil_plain is not None:
+                    self._fil_plain.write_block(plain_host.numpy())
+                if self._search_live:
+                    self._fb.append(packed)
+                for tap in self.block_taps:
+                    tap(self.station_id, self._taps_offset, packed)
+                self._taps_offset += packed.shape[0]
+                clock["drain"] = time.perf_counter() - t1
         if self._search_live:
             t = time.perf_counter()
             self._cands.extend(self._search_ready())
@@ -550,19 +601,8 @@ class StationPipeline:
             stop = min(self._searched_to + gulp + overlap, total)
             nrows = stop - self._searched_to
             fill = q_ops.NEAR_ZERO_FILL[self.cfg.nbit]
-            dev_win = self._fb_dev.window(self._searched_to, stop,
-                                          pad_to=gulp + overlap, fill=fill)
-            if dev_win is not None:
-                found = self.search.search_gulp_device(
-                    dev_win, self.cfg.nbit, t_offset=self._searched_to,
-                    nvalid=nrows - overlap)
-            else:
-                packed = (self._fb.window(self._searched_to, stop)
-                          if self._fb.total >= stop
-                          else self._fb_dev.host_window(
-                              self._searched_to, stop))
-                found = self.search.search_gulp_packed(
-                    packed, self.cfg.nbit, t_offset=self._searched_to)
+            with torch.profiler.record_function("vfast.gulp_search"):
+                found = self._search_window(stop, nrows, fill)
             out.extend(found)
             st = self.search.last_gulp_stats
             self.metrics.set("vfast_gulp_crossings", st["n_crossings"])
@@ -581,6 +621,23 @@ class StationPipeline:
             if flush and total - self._searched_to <= overlap + 64:
                 break
         return out
+
+    def _search_window(self, stop: int, nrows: int, fill: int
+                       ) -> List[dd.Candidate]:
+        """One gulp [searched_to, stop) from the device stream (padded
+        there), else from host bytes."""
+        gulp, overlap = self.scfg.gulp_samps, self.search.overlap
+        dev_win = self._fb_dev.window(self._searched_to, stop,
+                                      pad_to=gulp + overlap, fill=fill)
+        if dev_win is not None:
+            return self.search.search_gulp_device(
+                dev_win, self.cfg.nbit, t_offset=self._searched_to,
+                nvalid=nrows - overlap)
+        packed = (self._fb.window(self._searched_to, stop)
+                  if self._fb.total >= stop
+                  else self._fb_dev.host_window(self._searched_to, stop))
+        return self.search.search_gulp_packed(
+            packed, self.cfg.nbit, t_offset=self._searched_to)
 
     def close(self) -> None:
         """Unlink the ring's shared memory."""
