@@ -136,11 +136,43 @@ Phases, each printing a line:
      the reference geometry, one second each through the port's program
      (the twin for an injection-free variant) against
      process_second_plain at the chain bar;
+ 18. the array on a mesh and the offline follow-up, on a one-rank NCCL
+     process group (a 1x1 mesh: every collective through NCCL on the
+     card): [18a] the sharded array step (parallel/sharded_pipeline) at
+     the JAX package's benchmarks/validate_fullgeom_mesh.py settings
+     (PipelineConfig(inject_frb=True), the linear 1024-trial DM grid,
+     20-s calls, the FRB armed at second 2; benchmarks/fullgeom_mesh's
+     pieces), 8 antennas where the card's free memory holds their 41 GB
+     of raw with a quarter to spare, else 4, two calls with the state
+     carried, the first after 9 s of each antenna's noise through
+     process_second (its bandpasses and last halo rows): the FRB near DM
+     80 (4 trials) in every beam and in the coadd on both calls, the
+     coadd above every beam, antenna 0's rows of
+     call 1 equal to process_second second by second, and each call's
+     launches (rfi_front and both EMA kernels once an antenna-second, the
+     dedispersion's f32 entry once a beam and once for the coadd); the
+     f32 entry against its plain version on call 1's beam-0 span and
+     coadd window, outside the counted window (allclose as [3]); each
+     call's wall, antenna-seconds a second, device ms by part (CUDA
+     events) and peak memory; before call 1, the first call as the JAX
+     script starts it (zero bandpasses, random-byte history), printed and
+     not checked; [18b] coherent_dedisperse_sharded at 128
+     MS/s, a 64 MHz band, DM 30, 2 s of two-pol voltages dispersed by one
+     chirp: equal to the unsharded ops/coherent path (1e-4 of its rms)
+     and within the JAX test's round-trip bar (on a 1x1 mesh both halos
+     are zeros: the chirp's time and round trip, not the exchange); [18c] the offline
+     follow-up at 128 MS/s: four stations' 1-s dumps made on the card
+     (ragged starts, one station in two fragments, known geometric
+     delays), `cli join-dumps`, `cli unwrap` of a rotated dump, `cli
+     localize --positions` (az/el within 0.1 rad), filterbank,
+     correlation_matrix and beamform_toward on the card against
+     device='cpu' on the dumps' first 8,000,000 samples, `cli waterfall`
+     of a .fil of one dump's filterbank; each step timed;
 then the run's wall time, one JSON line of per-kernel results (each with
 its time, its plain version's, its bound from this run's shapes, the
 library call's time where one PyTorch call computes the function, and
-its launches on its path: [4], [10], [15], [16] and [17] for kernels
-1-8, [11]-[14] for the staged chain, the roll+select engine and
+its launches on its path: [4], [10], [15], [16], [17] and [18] for
+kernels 1-8, [11]-[14] for the staged chain, the roll+select engine and
 tile_bench),
 the card's name
 and power
@@ -2389,6 +2421,435 @@ def phase_options(dev, raw) -> dict:
     return launched
 
 
+MESH_SECONDS = 20         # [18a]: a call, validate_fullgeom_mesh.py's
+# [18b]: 2 s of two-pol voltages at 128 MS/s, a 64 MHz band, DM 30
+COH = {"seconds": 2, "rate": 128_000_000, "dm": 30.0, "bw": 64.0}
+FOLLOWUP_RATE = 128_000_000   # [18c]: 1-s dumps of FOLLOWUP_ANTS stations
+FOLLOWUP_ANTS = 4
+FOLLOWUP_SLICE = 8_000_000    # [18c]: samples held against the CPU
+
+
+def phase_mesh_step(dev, mesh) -> dict:
+    """[18a] the sharded array step at the production geometry
+    (benchmarks/fullgeom_mesh: PipelineConfig(inject_frb=True), the linear
+    1024-trial grid, 20-s calls, the FRB armed at second 2) on `mesh`, two
+    calls with the state carried, the first continuing an observation
+    (fullgeom_mesh.initial_state): the FRB in every beam and in the coadd
+    on both calls, the coadd above every beam, antenna 0's rows of call 1
+    equal to process_second second by second, the dedispersion kernel
+    against its plain version on call 1's beam and coadd spans
+    (mesh_dedisp_check), and the launches of each call.  Before call 1,
+    the first call as the JAX script starts it, printed
+    (mesh_jax_start).  Returns the launches of both calls."""
+    from vlite_fast_tpu_torch.benchmarks import fullgeom_mesh as fg
+    from vlite_fast_tpu_torch.models import baseband_dsp as dsp
+    from vlite_fast_tpu_torch.parallel import sharded_pipeline as sp
+    check(mesh.size == 1, "[18a] needs a 1x1 mesh")
+    torch.cuda.empty_cache()
+    cfg = fg.array_config(8, mesh).pipeline
+    rate = cfg.sample_rate
+    nant, free, raw8 = fg.choose_nant(mesh, cfg, MESH_SECONDS)
+    log(f"[18a] {nant} antennas (the card has {free / 2 ** 30:.1f} GiB "
+        f"free; 8 antennas' raw is {raw8 / 2 ** 30:.1f} GiB)")
+    acfg = fg.array_config(nant, mesh)
+    scfg = acfg.search
+    (step_fn, _, plan, info), build_ms = timed_wall(
+        lambda: sp.build_array_step(acfg, mesh, nsec_per_call=MESH_SECONDS,
+                                    inject_sec=fg.INJECT_SEC))
+    raw = torch.empty((info.m, cfg.npol_in, MESH_SECONDS * rate),
+                      dtype=torch.uint8, device=dev)
+    # the first call continues an observation: the seconds before it
+    # through process_second (their launches are set-up, not counted)
+    state, prime_ms = timed_wall(
+        lambda: fg.initial_state(mesh, cfg, info, seed=0))
+    bp0 = (state[0][0].clone(), state[1][0].clone())
+    rows = info.T // MESH_SECONDS
+    ant_secs = nant * MESH_SECONDS
+    launched = {}
+    for k in range(2):
+        _, noise_ms = timed_wall(lambda: fg.fill_noise(raw, mesh, cfg, k, 0))
+        if k == 0:
+            mesh_jax_start(step_fn, raw, mesh, cfg, info, scfg)
+        torch.cuda.reset_peak_memory_stats(dev)
+        marks = []
+        tail_in = state[2]
+        kernel_launches.zero()
+        (out, state), wall_ms = timed_wall(
+            lambda: step_fn(raw, *state, marks=marks))
+        got = kernel_launches.counts()
+        peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        _add(launched, got)
+        parts = fg.part_ms(marks)
+        full = sp.gather_step_output(out, mesh)
+        per_beam, coadd, stats = sp.extract_candidates(
+            full, info, scfg, call_base=k * info.T)
+        verdict = fg.judge(per_beam, coadd, info, cfg.inject_dm)
+        for beam, b in verdict["beams"].items():
+            check(b["recovered"], f"[18a] call {k}: beam {beam} lost the "
+                  f"FRB ({b})")
+        check(verdict["coadd"]["recovered"],
+              f"[18a] call {k}: coadd lost the FRB ({verdict['coadd']})")
+        check(verdict["pass"], f"[18a] call {k}: coadd S/N "
+              f"{verdict['coadd']['snr']} not above every beam's")
+        want = {"rfi_front": ant_secs, "normalize_ema_pallas": ant_secs,
+                "normalize_ema_weighted_pallas": ant_secs,
+                "dedisperse_pallas": info.nant + 1,
+                "dedisperse_pallas_packed": 0}
+        for name, n in want.items():
+            check(got[name] == n, f"[18a] call {k}: {name} launched "
+                  f"{got[name]} times, not {n}")
+        others = {n: v for n, v in got.items() if v and n not in want}
+        check(not others, f"[18a] call {k}: other kernels launched "
+              f"{others}")
+        snrs = [b["snr"] for b in verdict["beams"].values()]
+        collect = parts["reshard"] + parts["coadd_allreduce"]
+        log(f"[18a] call {k}: wall {wall_ms:.1f} ms "
+            f"({ant_secs / wall_ms * 1e3:.3f} antenna-seconds a second); "
+            f"device ms: DSP {parts['dsp']:.1f}, per-beam search "
+            f"{parts['beam_search']:.1f}, coadd search "
+            f"{parts['coadd_search']:.1f}, collectives {collect:.1f} "
+            f"(reshard and halos {parts['reshard']:.1f}, coadd all_reduce "
+            f"{parts['coadd_allreduce']:.1f}); peak {peak:.2f} GiB; FRB "
+            f"S/N beams {min(snrs):.2f}-{max(snrs):.2f}, coadd "
+            f"{verdict['coadd']['snr']:.2f} at DM "
+            f"{verdict['coadd']['dm']:.2f} (gain "
+            f"{verdict['coadd']['gain_vs_best_beam']:.2f}); "
+            f"{stats['n_crossings']} crossings; noise made in "
+            f"{noise_ms:.1f} ms")
+        if k == 0:
+            mesh_dedisp_check(tail_in, out.packed_kur, plan, info, cfg)
+            st = dsp.init_state(cfg, dev)._replace(bp=bp0[0], bp_kur=bp0[1])
+            for s in range(MESH_SECONDS):
+                o, st = dsp.process_second(
+                    cfg, raw[0, :, s * rate:(s + 1) * rate].contiguous(), st,
+                    s == fg.INJECT_SEC)
+                check(np.array_equal(o.packed_kur.cpu().numpy(),
+                                     full.packed_kur[0][s * rows:
+                                                        (s + 1) * rows]),
+                      f"[18a] antenna 0 second {s}: rows differ from "
+                      "process_second")
+            log(f"[18a] call 0: antenna 0's {MESH_SECONDS} seconds equal "
+                "process_second's, byte for byte")
+        del out, full, tail_in
+    log(f"[18a] {nant} antennas x 2 calls of {MESH_SECONDS} s on a "
+        f"{mesh.shape['ant']}x{mesh.shape['time']} mesh, NCCL; "
+        f"build {build_ms:.1f} ms; the seconds before the first call "
+        f"{prime_ms:.1f} ms; launches {launched}")
+    del raw, state
+    torch.cuda.empty_cache()
+    return launched
+
+
+def mesh_jax_start(step_fn, raw, mesh, cfg, info, scfg) -> None:
+    """[18a]'s first call as the JAX script starts it (the step's
+    make_inputs: zero bandpasses, `halo` rows of uniformly random bytes
+    for history, here from a torch seed on the card), not counted and not
+    checked: its result, printed, keeps ROADMAP Queue 3 #6 in view."""
+    from vlite_fast_tpu_torch.benchmarks import fullgeom_mesh as fg
+    from vlite_fast_tpu_torch.parallel import sharded_pipeline as sp
+    gen = torch.Generator(device=mesh.device).manual_seed(0)
+    nbytes = cfg.npol_out * cfg.nchanout * cfg.nbit // 8
+    bp = torch.zeros((info.m, cfg.npol_in, cfg.nchan), device=mesh.device)
+    tail = torch.randint(0, 256, (info.m, info.halo, nbytes), generator=gen,
+                         device=mesh.device, dtype=torch.uint8)
+    out, wall_ms = timed_wall(lambda: step_fn(raw, bp, bp.clone(), tail)[0])
+    full = sp.gather_step_output(out, mesh)
+    del out
+    per_beam, coadd, stats = sp.extract_candidates(full, info, scfg)
+    verdict = fg.judge(per_beam, coadd, info, cfg.inject_dm)
+    kept = [b for b, v in verdict["beams"].items() if v["recovered"]]
+    log(f"[18a] the first call as the JAX script starts it (zero "
+        f"bandpasses, random-byte history; ROADMAP Queue 3 #6, not "
+        f"checked): {wall_ms:.1f} ms; {stats['n_crossings']} crossings, "
+        f"{stats['saturated_bands']} saturated DM bands; the FRB kept in "
+        f"{len(kept)} of {info.nant} beams; coadd {verdict['coadd']}")
+
+
+def mesh_dedisp_check(tail, packed, plan, info, cfg) -> None:
+    """[18a]'s dedispersion at the step's own inputs, outside the counted
+    window: on a 1x1 mesh a beam's span is its input tail, then its rows
+    of the call, and the coadd's window is the sum of every beam's span
+    times the step's 1/sqrt(nant).  The f32 entry against dd.dedisperse
+    on beam 0's span at ntime_out c and on the coadd's window at ca, at
+    [3]'s bar (allclose rtol 1e-5, atol 1e-3)."""
+    from vlite_fast_tpu_torch.ops import dedisperse as dd
+    from vlite_fast_tpu_torch.ops import dedisperse_pallas as ddp
+    from vlite_fast_tpu_torch.parallel import sharded_pipeline as sp
+    co = None
+    for j in range(info.mg):
+        fb = sp.dequant_rows(torch.cat([tail[j], packed[j]]), cfg)
+        if j == 0:
+            beam0 = fb.clone()
+        co = fb if co is None else co.add_(fb)
+    co.mul_(float(np.float32(1.0 / np.sqrt(info.nant))))
+    errs, ms = {}, {}
+    for name, fb, n in (("beam 0", beam0, info.c),
+                        ("coadd", co[:info.ca + info.halo], info.ca)):
+        got = ddp.dedisperse_pallas(fb, plan, n)
+        want, ms[name] = timed_wall(lambda: dd.dedisperse(fb, plan, n))
+        errs[name] = float((got - want).abs().max())
+        check(torch.allclose(got, want, rtol=1e-5, atol=1e-3),
+              f"[18a] dedispersion kernel (f32 entry) on the {name}'s "
+              f"{tuple(fb.shape)} span differs from plain: max abs "
+              f"{errs[name]}")
+        del got, want
+    log(f"[18a] dedispersion kernel (f32 entry) vs plain at the step's "
+        f"shapes ({len(plan.dms)} trials, nsub {plan.nsub}): beam 0 "
+        f"({info.c + info.halo} x {cfg.nchanout} -> {info.c}) max abs "
+        f"{errs['beam 0']:.3e}, coadd ({info.ca + info.halo} -> {info.ca}) "
+        f"{errs['coadd']:.3e} (allclose rtol 1e-5 atol 1e-3); plain "
+        f"{ms['beam 0']:.1f} / {ms['coadd']:.1f} ms (wall)")
+    del beam0, co
+    torch.cuda.empty_cache()
+
+
+def phase_coherent_sharded(dev, mesh) -> None:
+    """[18b] coherent_dedisperse_sharded on `mesh` at 128 MS/s, a 64 MHz
+    band, DM 30: 2 s of two-pol voltages dispersed by one chirp over the
+    whole stream, against the unsharded ops/coherent path over the same
+    zero-padded stream (1e-4 of its rms) and the JAX test's round-trip bar
+    away from the stream's ends."""
+    import torch.nn.functional as F
+    from vlite_fast_tpu_torch.ops import coherent as coh
+    from vlite_fast_tpu_torch.parallel.sharded_coherent import (
+        coherent_dedisperse_sharded, sharded_halo)
+    rate, dm, bw, fbot = COH["rate"], COH["dm"], COH["bw"], 320.0
+    n = COH["seconds"] * rate
+    gen = torch.Generator(device=dev).manual_seed(18)
+    x = torch.randn((2, n), generator=gen, device=dev)
+    halo = sharded_halo(dm, rate, bw, fbot)
+    ker, ker_ms = timed_wall(lambda: coh.dispersion_kernel(
+        n, dm, bw, fbot, taper=False, device=dev))
+    dispersed = coh.apply_chirp(x, ker)
+    del ker
+    # the block's kernel (numpy phases, cached) before the timed call
+    _, ext_ms = timed_wall(lambda: coh.dispersion_kernel(
+        n + 2 * halo, dm, bw, fbot, taper=False, device=dev))
+    out, ms = timed_wall(lambda: coherent_dedisperse_sharded(
+        dispersed, mesh, dm, rate, bw, fbot))
+    ref, ref_ms = timed_wall(lambda: coh.coherent_dedisperse(
+        F.pad(dispersed, (halo, halo)), dm, rate, bw, fbot)[:, halo:halo + n])
+    rms = float(ref.square().mean().sqrt())
+    diff = float((out - ref).abs().max())
+    check(diff <= 1e-4 * rms, f"[18b] sharded vs unsharded: {diff} > 1e-4 "
+          f"of the rms {rms}")
+    del ref, dispersed
+    err = (out[:, 2 * halo:n - 2 * halo] - x[:, 2 * halo:n - 2 * halo]).abs()
+    e_max, e_frac = float(err.max()), float((err > 0.01).float().mean())
+    e_med = float(np.median(err.cpu().numpy()))
+    check(e_max < 0.1 and e_med < 2e-3 and e_frac < 0.01,
+          f"[18b] round trip: max {e_max}, median {e_med}, share > 0.01 "
+          f"{e_frac}")
+    log(f"[18b] coherent_dedisperse_sharded, DM {dm}, {COH['seconds']} s at "
+        f"{rate / 1e6:g} MS/s: halo {halo} samples, block {n + 2 * halo} "
+        f"samples a pol; "
+        f"{ms:.1f} ms (the unsharded path {ref_ms:.1f} ms; the numpy chirp "
+        f"phases {ker_ms:.1f} ms for the dispersing kernel, {ext_ms:.1f} "
+        f"ms for the block's); max |sharded - unsharded| {diff:.3g} "
+        f"(rms {rms:.4f}); round trip max {e_max:.4g}, median {e_med:.3g}, "
+        f"share > 0.01 {e_frac:.3g}")
+    del out, x, err
+    coh._dm_kernel_np.cache_clear()
+    torch.cuda.empty_cache()
+
+
+def followup_dumps(dev, d: str, positions: np.ndarray, az: float,
+                   el: float) -> dict:
+    """FOLLOWUP_ANTS stations' 1-s dumps at FOLLOWUP_RATE in `d` (the
+    tests/test_dataset.py recipe, made on the card from a torch seed): a
+    common broadband pulse train from (az, el) with each station's
+    geometric delay, noise of its own, ragged start frames, and station
+    3's dump in two fragment files.  Returns each file's stations."""
+    import os
+    from vlite_fast_tpu_torch.analysis import localization as loc
+    from vlite_fast_tpu_torch.utils import vdif
+    rate = FOLLOWUP_RATE
+    n, margin, extra = rate, 4000, 16 * 5000
+    total = n + 2 * margin + extra
+    gen = torch.Generator(device=dev).manual_seed(31)
+    common = 0.3 * torch.randn(total, generator=gen, device=dev,
+                               dtype=torch.float64)
+    hits = torch.randint(margin, n, (60,), generator=gen, device=dev)
+    common[hits] += 20.0
+    spec = torch.fft.rfft(common)
+    f = torch.fft.rfftfreq(total, device=dev, dtype=torch.float64)
+    tau = positions @ loc.direction_unit(np.array(az), np.array(el)) \
+        / loc.C_LIGHT
+    files = {}
+    for k in range(FOLLOWUP_ANTS):
+        sig = torch.fft.irfft(spec * torch.exp(
+            -2j * np.pi * f * (-tau[k] * rate)), n=total)[
+            margin:margin + n + extra]
+        x = torch.stack([sig, sig]) + 0.5 * torch.randn(
+            (2, sig.numel()), generator=gen, device=dev, dtype=torch.float64)
+        u = (x * 12.8 + 128.5).clamp(0, 255).to(torch.uint8)
+        off = 3 * k + 1                            # ragged start frames
+        cut = u[:, off * 5000:off * 5000 + n].cpu().numpy()
+        parts = [(f"ant{k}.vdif", cut, off)]
+        if k == 2:                                 # one station in two files
+            h = n // 2 // 5000 * 5000
+            parts = [("c1.vdif", cut[:, :h], off),
+                     ("c2.vdif", cut[:, h:], off + h // 5000)]
+        for name, samples, frame0 in parts:
+            vdif.streams_to_frames(samples, ref_epoch=40, start_second=9,
+                                   start_frame=frame0, station_id=k + 1,
+                                   sample_rate=rate).tofile(
+                os.path.join(d, name))
+            files[name] = k + 1
+    return files
+
+
+def _cli(args: list) -> str:
+    """The port's CLI in this process: its standard output."""
+    import contextlib
+    import io
+    from vlite_fast_tpu_torch import cli
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli.main(args)
+    return buf.getvalue()
+
+
+def phase_followup(dev) -> None:
+    """[18c] the offline follow-up of a trigger at FOLLOWUP_RATE: the
+    stations' dumps (followup_dumps), `cli join-dumps` of the split station's
+    fragments, `cli unwrap` of a dump whose frames were rotated as a
+    ring's wrap leaves them (repaired byte for byte), `cli localize
+    --positions` (the direction within 0.1 rad), filterbank,
+    correlation_matrix and beamform_toward on the card against the same
+    calls with device='cpu' on the dumps' first FOLLOWUP_SLICE samples,
+    and `cli waterfall` of a .fil of one dump's filterbank.  Each step
+    timed."""
+    import json
+    import os
+    from vlite_fast_tpu_torch import constants as C
+    from vlite_fast_tpu_torch.analysis import baseband as bb
+    from vlite_fast_tpu_torch.analysis import beamforming as bf
+    from vlite_fast_tpu_torch.analysis.dataset import load_dataset
+    from vlite_fast_tpu_torch.analysis.waterfall import waterfall_from_fil
+    from vlite_fast_tpu_torch.utils import sigproc
+    rate = FOLLOWUP_RATE
+    positions = np.array([[0.0, 0.0, 0.0], [1200.0, 0.0, 0.0],
+                          [0.0, 1200.0, 0.0], [450.0, 850.0, 0.0]])
+    az, el = 1.1, 0.7
+    times = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        dumps = os.path.join(tmp, "dumps")
+        os.makedirs(dumps)
+        files, times["dumps"] = timed_wall(
+            lambda: followup_dumps(dev, dumps, positions, az, el))
+        joined = os.path.join(tmp, "joined.vdif")
+        out, times["join-dumps"] = timed_wall(lambda: _cli(
+            ["join-dumps", os.path.join(dumps, "c2.vdif"),
+             os.path.join(dumps, "c1.vdif"), "-o", joined]))
+        rep = json.loads(out)
+        check(rep["clean"] and rep["nframes"] == 2 * rate // 5000,
+              f"[18c] join-dumps: {rep}")
+        # 0.75 s of a dump: a whole second rotated keeps every frame
+        # number's successor, which is all the wrap search reads
+        frames = np.fromfile(os.path.join(dumps, "ant0.vdif"), np.uint8)\
+            .reshape(-1, C.VDIF_FRAME_BYTES)[:2 * (3 * rate // 20_000)]
+        wrapped = os.path.join(tmp, "wrapped.vdif")
+        np.roll(frames, -2 * 12_345, axis=0).tofile(wrapped)
+        out, times["unwrap"] = timed_wall(lambda: _cli(["unwrap", wrapped]))
+        rep = json.loads(out)
+        check(not rep["clean"] and not rep["corrupted"] and np.array_equal(
+            np.fromfile(wrapped + ".uw", np.uint8).reshape(frames.shape),
+            frames), f"[18c] unwrap did not repair the wrap: {rep}")
+        del frames
+        pos = os.path.join(tmp, "pos.json")
+        with open(pos, "w") as fh:
+            json.dump({str(k + 1): list(p) for k, p in enumerate(positions)},
+                      fh)
+        out, times["localize"] = timed_wall(lambda: _cli(
+            ["--device", str(dev), "localize", dumps, "--positions", pos,
+             "--sigma-ns", str(0.7 / rate * 1e9),
+             "--sample-rate", str(rate)]))
+        fit = json.loads(out.strip().splitlines()[-1])
+        check(abs(fit["az_rad"] - az) < 0.1 and abs(fit["el_rad"] - el)
+              < 0.1, f"[18c] localize: {fit}, not ({az}, {el})")
+        # the common window, cut to whole 12500-sample spectra
+        aligned = load_dataset(dumps, sample_rate=rate).aligned()
+        keep = aligned[0].nsamp // C.NFFT * C.NFFT
+        aligned = [bb.VoltageDump(a.samples[:, :keep], a.start_time,
+                                  a.station_id, rate) for a in aligned]
+        p, times["filterbank"] = timed_wall(
+            lambda: bb.filterbank(aligned[0], device=dev))
+        _, times["correlation_matrix"] = timed_wall(
+            lambda: bb.correlation_matrix(aligned, device=dev))
+        _, times["beamform_toward"] = timed_wall(
+            lambda: bf.beamform_toward(aligned, positions, az, el,
+                                       device=dev))
+        part = [bb.VoltageDump(a.samples[:, :FOLLOWUP_SLICE], a.start_time,
+                               a.station_id, rate) for a in aligned]
+        worst = {}
+        for name, fn in (
+                ("filterbank", lambda d: bb.filterbank(part[0], device=d)),
+                ("correlation_matrix",
+                 lambda d: bb.correlation_matrix(part, device=d))):
+            got, want = fn(dev), fn("cpu")
+            worst[name] = float(np.abs(got - want).max()
+                                / np.abs(want).max())
+            check(worst[name] <= 1e-4, f"[18c] {name}: card vs CPU "
+                  f"{worst[name]} of the maximum")
+        got = bf.beamform_toward(part, positions, az, el, device=dev).samples
+        want = bf.beamform_toward(part, positions, az, el,
+                                  device="cpu").samples
+        dd = np.abs(got.astype(np.int16) - want.astype(np.int16))
+        check(dd.max() <= 1 and (dd == 0).mean() >= 0.9999,
+              f"[18c] beamform_toward: card vs CPU {dd.max()} counts, "
+              f"{(dd == 0).mean()} equal")
+        fil = os.path.join(tmp, "dump0.fil")
+        lev = np.clip(p / np.median(p) * 64.0, 0, 255).astype(np.uint8)
+        with sigproc.FilterbankWriter(fil, sigproc.FilterbankHeader(
+                nchans=p.shape[1], nbits=8, tsamp=C.NFFT / rate,
+                fch1=C.FREQ_BOT_MHZ + C.BANDWIDTH_MHZ,
+                foff=-C.BANDWIDTH_MHZ / (p.shape[1] - 1),
+                source_name="DUMP0")) as w:
+            w.write_block(lev)
+        out, times["waterfall"] = timed_wall(lambda: _cli(["waterfall", fil]))
+        png = out.strip()
+        with open(png, "rb") as fh:
+            w_px, h_px = np.frombuffer(fh.read(24)[16:24], ">u4")
+        want_px = waterfall_from_fil(fil)[0].shape
+        check((w_px, h_px) == want_px, f"[18c] waterfall PNG {w_px}x{h_px}, "
+              f"not {want_px}")
+    log(f"[18c] {FOLLOWUP_ANTS} stations' 1-s dumps at {rate / 1e6:g} MS/s "
+        f"({files}): "
+        f"localize az {fit['az_rad']} el {fit['el_rad']} (true {az}, "
+        f"{el}); card vs CPU on {FOLLOWUP_SLICE} samples: filterbank "
+        f"{worst['filterbank']:.3g}, correlation_matrix "
+        f"{worst['correlation_matrix']:.3g} of the maximum, beamform_toward "
+        f"{(dd == 0).mean():.6f} equal; waterfall PNG {w_px}x{h_px}; ms: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in times.items()))
+
+
+def phase_mesh(dev) -> dict:
+    """[18] the array on a mesh and the offline follow-up: [18a] and
+    [18b] on a 1x1 mesh of a one-rank NCCL process group, then [18c].
+    Returns [18a]'s launches."""
+    import torch.distributed as dist
+    from vlite_fast_tpu_torch.parallel.distributed import init_distributed
+    from vlite_fast_tpu_torch.parallel.mesh import make_mesh
+    t0 = time.perf_counter()
+    init_distributed(device="cuda")
+    try:
+        check(dist.get_backend() == "nccl", "[18] not an NCCL group")
+        mesh = make_mesh(n_ant=1, n_time=1)
+        launched = phase_mesh_step(dev, mesh)
+        t1 = time.perf_counter()
+        phase_coherent_sharded(dev, mesh)
+        t2 = time.perf_counter()
+    finally:
+        dist.destroy_process_group()
+    phase_followup(dev)
+    torch.cuda.empty_cache()
+    log(f"[18] mesh and follow-up passed in {time.perf_counter() - t0:.1f} s "
+        f"([18a] {t1 - t0:.1f}, [18b] {t2 - t1:.1f}, [18c] "
+        f"{time.perf_counter() - t2:.1f})")
+    return launched
+
+
 def main() -> None:
     t_start = time.perf_counter()
     smi = phase_device()
@@ -2454,6 +2915,13 @@ def main() -> None:
     got = phase_options(dev, raws[0])
     for k in (k_chain, k_dedisp, k_rfi, *k_ema):
         k["launches"] += got.get(k["name"], 0)
+    torch.cuda.empty_cache()
+    # and the sharded array step, whose search takes the f32 entry
+    got = phase_mesh(dev)
+    for k in (k_dedisp, k_rfi, *k_ema):
+        k["launches"] += got.get(k["name"], 0)
+    k_dedisp["launches_f32_entry"] += got["dedisperse_pallas"] - \
+        got["dedisperse_pallas_packed"]
     kernels = [k_chain, k_dedisp, k_rfi, *k_ema, k_pre, *k_ct, *staged]
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} never launched on its path")

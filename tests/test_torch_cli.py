@@ -265,9 +265,9 @@ def test_launch_plan_names_the_ports_daemon(tmp_path, capsys):
 
 def test_entry_points_default_to_the_card(vdif_path, processed, tmp_path,
                                          capsys):
-    """process, search and launch's daemons ask for the card; without one
-    process and search raise, and launch's daemons exit, so the array
-    never comes up."""
+    """process, search, localize and launch's daemons ask for the card;
+    without one process, search and localize raise, and launch's daemons
+    exit, so the array never comes up."""
     if torch.cuda.is_available():
         pytest.skip("a card is present: the defaults run there")
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -279,9 +279,19 @@ def test_entry_points_default_to_the_card(vdif_path, processed, tmp_path,
                    "--out-dir", str(tmp_path / "out"),
                    "--startup-timeout", "20"])
     assert "array up" not in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="waterfall"):
-        tcli.main(["launch", _array(tmp_path, vdif_path), "--waterfall",
-                   "--out-dir", str(tmp_path)])
+    from vlite_fast_tpu_torch.utils import vdif
+    dumps = tmp_path / "dumps"
+    dumps.mkdir()
+    rng = np.random.default_rng(3)
+    for k in (1, 2):
+        vdif.streams_to_frames(
+            rng.integers(1, 255, (2, 50_000), dtype=np.uint8), 40, 9,
+            station_id=k, sample_rate=50_000).tofile(dumps / f"a{k}.vdif")
+    pos = tmp_path / "pos.json"
+    pos.write_text(json.dumps({"1": [0, 0, 0], "2": [100, 0, 0]}))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tcli.main(["localize", str(dumps), "--positions", str(pos),
+                   "--nfft", "500", "--sample-rate", "50000"])
 
 
 def test_module_runs_as_a_script(tmp_path):

@@ -166,7 +166,9 @@ COPIES = [(f"vlite_fast_tpu_torch/{p}", f"vlite_fast_tpu/{p}") for p in (
     "runtime/control.py", "runtime/trigger.py", "runtime/dumper.py",
     "runtime/vla_xml.py", "runtime/sources.py",
     "runtime/candidate_server.py", "runtime/messenger.py",
-    "runtime/recorder.py", "runtime/watchdog.py", "models/synthesis.py")]
+    "runtime/recorder.py", "runtime/watchdog.py", "models/synthesis.py",
+    "analysis/unwrap.py", "analysis/dataset.py", "analysis/spectral.py",
+    "analysis/localization.py", "analysis/cutout.py")]
 COPIES += [("vlite_fast_tpu_torch/csrc/netcap.cpp", "csrc/netcap.cpp"),
            ("vlite_fast_tpu_torch/csrc/ringbuffer.cpp", "csrc/ringbuffer.cpp")]
 

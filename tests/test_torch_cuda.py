@@ -1212,3 +1212,63 @@ def test_first_armed_second_is_not_cold(cuda):
     assert len(armed) == tdsp.inject_window_seconds(
         PipelineConfig(inject_frb=True)) and len(armed) >= 2
     assert armed[0] <= 2.0 * armed[1], armed
+
+
+def _array_step_run(device):
+    """One call of the tiny armed array step on a one-rank process group
+    (NCCL on the card, gloo on the CPU): the gathered output, the state,
+    the geometry and the launches the call made."""
+    import torch.distributed as dist
+
+    from vlite_fast_tpu_torch import launches
+    from vlite_fast_tpu_torch.config import ArrayConfig
+    from vlite_fast_tpu_torch.parallel import sharded_pipeline as sp
+    from vlite_fast_tpu_torch.parallel.distributed import init_distributed
+    from vlite_fast_tpu_torch.parallel.mesh import make_mesh
+
+    acfg = dataclasses.replace(ArrayConfig.tiny(nant=4), pipeline=(
+        PipelineConfig.tiny(sample_rate=100_000, inject_frb=True,
+                            inject_dm=50.0, inject_amp=3.0)))
+    init_distributed(device=device)
+    try:
+        mesh = make_mesh()
+        step_fn, make_inputs, _, info = sp.build_array_step(
+            acfg, mesh, nsec_per_call=2, inject_sec=0)
+        inputs = make_inputs(seed=7)
+        launches.zero()
+        out, state = step_fn(*inputs)
+        full = sp.gather_step_output(out, mesh)
+        counts = launches.counts()
+        cands = sp.extract_candidates(full, info, acfg.search)
+        return full, [s.cpu().numpy() for s in state], info, counts, cands
+    finally:
+        dist.destroy_process_group()
+
+
+def test_array_step_nccl_matches_cpu(cuda):
+    """The sharded array step on a one-rank NCCL group (its all_to_all,
+    all_gather and all_reduce through NCCL) against the same step on
+    gloo and the CPU: packed levels to the chain bar, bandpasses within
+    1e-4 relative, the same candidates with S/N within 1e-3; on the card
+    rfi_front and both EMA kernels launch once an antenna-second and the
+    dedispersion's f32 entry once a beam and once for the coadd."""
+    got, st_g, info, counts, (beams_g, co_g, _) = _array_step_run("cuda")
+    want, st_w, _, counts_cpu, (beams_w, co_w, _) = _array_step_run("cpu")
+    la, lb = got.packed_kur, want.packed_kur
+    d = np.abs(la.astype(np.int16) - lb.astype(np.int16))
+    assert d.max() <= 1 and (d == 0).mean() >= 0.9999, (d == 0).mean()
+    for a, b in zip(st_g[:2], st_w[:2]):
+        assert np.abs(a - b).max() <= 1e-4 * np.abs(b).max()
+    assert sorted(beams_g) == sorted(beams_w) == list(range(4))
+    for g, w in [(beams_g[b], beams_w[b]) for b in beams_w] + [(co_g, co_w)]:
+        assert [(c.dmi, c.peak_idx) for c in g] == \
+            [(c.dmi, c.peak_idx) for c in w]
+        np.testing.assert_allclose([c.snr for c in g], [c.snr for c in w],
+                                   rtol=1e-3)
+    ant_secs = info.nant * 2
+    assert counts["rfi_front"] == ant_secs
+    assert counts["normalize_ema_pallas"] == ant_secs
+    assert counts["normalize_ema_weighted_pallas"] == ant_secs
+    assert counts["dedisperse_pallas"] == info.nant + 1
+    assert counts["dedisperse_pallas_packed"] == 0
+    assert not any(counts_cpu.values())

@@ -9,8 +9,9 @@ through each chain kernel's entry point (the relayout, chain_second in
 its three modes, chain_second_v4), resolves every twin program, runs the
 staged chain's stages A and B and the roll+select dedispersion, runs
 one tiny gulp search, runs two tiny antennas with their rings through
-ArrayPipeline.run_streaming, runs the CLI's synth and process at a tiny
-rate and one StationDaemon file: observation, all on the CPU.
+ArrayPipeline.run_streaming, runs the CLI's synth, process and localize
+(three tiny dumps) at a tiny rate, one StationDaemon file: observation,
+and a one-rank tiny sharded array step (gloo), all on the CPU.
 """
 
 import os
@@ -126,6 +127,40 @@ with tempfile.TemporaryDirectory() as out_dir:
     finally:
         d.shutdown()
     assert d.summary["seconds"] == 2
+    from vlite_fast_tpu_torch.utils import vdif as tvdif
+    dumps = os.path.join(out_dir, "offline")
+    os.makedirs(dumps)
+    common = rng.standard_normal(100_000 + 64)
+    for k in range(3):
+        x = np.stack([common[4 * k:4 * k + 100_000]] * 2) \
+            + 0.5 * rng.standard_normal((2, 100_000))
+        tvdif.streams_to_frames(
+            np.clip(x * 12.8 + 128.5, 0, 255).astype(np.uint8), 40, 9,
+            station_id=k + 1, sample_rate=1_000_000).tofile(
+            os.path.join(dumps, f"a{k}.vdif"))
+    pos = os.path.join(out_dir, "pos.json")
+    with open(pos, "w") as fh:
+        json.dump({"1": [0, 0, 0], "2": [900, 0, 0], "3": [0, 900, 0]}, fh)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli.main(["--device", "cpu", "localize", dumps, "--positions", pos,
+                  "--nfft", "500", "--sample-rate", "1000000"])
+    assert json.loads(buf.getvalue().splitlines()[-1])["n_baselines"] == 3
+import torch.distributed as dist
+from vlite_fast_tpu_torch.parallel.distributed import init_distributed
+from vlite_fast_tpu_torch.parallel.mesh import make_mesh
+from vlite_fast_tpu_torch.parallel import sharded_pipeline as sp
+assert init_distributed(device="cpu")["process_count"] == 1
+acfg1 = dataclasses.replace(ArrayConfig.tiny(nant=2),
+                            pipeline=PipelineConfig.tiny(sample_rate=100_000))
+mesh = make_mesh()
+step_fn, make_inputs, plan, info = sp.build_array_step(acfg1, mesh,
+                                                       nsec_per_call=2)
+out, state = step_fn(*make_inputs(seed=0))
+full = sp.gather_step_output(out, mesh)
+assert full.packed_kur.shape == (2, info.T, 192)
+sp.extract_candidates(full, info, acfg1.search)
+dist.destroy_process_group()
 loaded = {m.split(".")[0] for m, mod in sys.modules.items() if mod is not None}
 assert not loaded & {"jax", "vlite_fast_tpu"}, loaded
 print("OK", len(names))
@@ -140,4 +175,4 @@ def test_port_runs_without_jax():
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-3000:]
     assert res.stdout.startswith("OK")
-    assert int(res.stdout.split()[1]) >= 49     # every submodule imported
+    assert int(res.stdout.split()[1]) >= 65     # every submodule imported

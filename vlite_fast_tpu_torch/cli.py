@@ -9,6 +9,11 @@ python -m vlite_fast_tpu_torch.cli [--device D] <command>
   search       search an existing .fil for single pulses
   send-cmd     validate and print a control command (send_commands.py role)
   merge-cands  merge per-beam candidate files
+  waterfall    render a .fil's waterfall PNG
+  unwrap       check/repair a dump's continuity (db_unwrap role)
+  join-dumps   join dump segments in time order
+  localize     TDOA localization from a directory of dumps
+               (the loc_step pipeline)
   disk-usage, print-obsdoc, find-obs, clean, scrub-ring
                the operator scripts' roles
   launch       start a whole array from one config: leader + coincidencer +
@@ -17,14 +22,13 @@ python -m vlite_fast_tpu_torch.cli [--device D] <command>
 
 The port's counterpart of vlite_fast_tpu/cli.py.  `--device` (default
 'cuda'; given before the command or after it) is the torch device of
-process, search and launch's station daemons, where the JAX CLI took a
-jax platform; without a card they raise.  `process` also prints the
-replay's wall, the kernel launches and peak device memory; `launch`
+process, search, localize and launch's station daemons, where the JAX CLI
+took a jax platform; without a card they raise.  `process` also prints
+the replay's wall, the kernel launches and peak device memory; `launch`
 prints each trigger and when it fired, and `launch --fake` waits for its
-local file: stations to replay their files before it settles.  The JAX
-CLI's waterfall, unwrap, join-dumps and localize need the analysis
-package, and bench the headline benchmark, which the port does not have
-yet.
+local file: stations to replay their files before it settles.  The
+waterfall PNG is the port's own (analysis/waterfall: no axes or labels).
+The JAX CLI's bench, the headline benchmark, the port does not have yet.
 """
 
 from __future__ import annotations
@@ -146,6 +150,118 @@ def cmd_search(args):
     for c in cands:
         print(c.to_line())
     print(f"# {len(cands)} candidates", file=sys.stderr)
+
+
+def cmd_waterfall(args):
+    from vlite_fast_tpu_torch.analysis.waterfall import (render_png,
+                                                         waterfall_from_fil)
+    wf, meta = waterfall_from_fil(args.fil)
+    # splitext, never str.replace: a name without ".fil" must not make
+    # out == the input (render_png would overwrite the data file)
+    out = args.out or os.path.splitext(args.fil)[0] + ".png"
+    render_png(wf, meta, out)
+    print(out)
+
+
+def cmd_unwrap(args):
+    from vlite_fast_tpu_torch.analysis.unwrap import unwrap_file
+    rep = unwrap_file(args.vdif)
+    print(json.dumps({"nframes": rep.nframes, "clean": rep.clean,
+                      "corrupted": rep.corrupted,
+                      "wrap_frame": rep.wrap_frame,
+                      "discontinuities": list(rep.discontinuities)}))
+    if rep.corrupted:
+        sys.exit(1)
+
+
+def cmd_join_dumps(args):
+    """Join per-event dump segments into one time-ordered stream (the
+    scripts/join_dumps.py role; ref scripts/join_dumps.py:1-40)."""
+    from vlite_fast_tpu_torch.analysis.unwrap import join_dumps
+    rep = join_dumps(args.vdif, args.out, frames_per_sec=args.frames_per_sec)
+    print(json.dumps({"out": args.out, "nframes": rep.nframes,
+                      "clean": rep.clean, "corrupted": rep.corrupted,
+                      "discontinuities": list(rep.discontinuities)}))
+    if rep.corrupted:
+        sys.exit(1)
+
+
+def cmd_localize(args):
+    """Offline localization from a directory of voltage dumps: dataset ->
+    per-baseline phase-slope delays (correlations on --device) -> chi^2
+    grid fit (the loc_step0-3 pipeline, ref analysis/loc_step*.py).
+
+    Two frames:
+    - --antprop ANTPROP.XML: the production path (loc_step3 end product).
+      Antenna ITRS positions come from the VLA antprop document, optional
+      per-antenna instrumental delays from --clock-delays
+      (vliteantennas.in format), and the fit is an RA/Dec sky grid + zoom
+      at the event's Earth-rotation angle -> prints ra/dec degrees.
+    - --positions POS.JSON: abstract ENU frame {station: [x,y,z] m},
+      plane-wave (az, el) fit (lab/synthetic geometries).
+    """
+    from vlite_fast_tpu_torch.analysis import baseband as bb
+    from vlite_fast_tpu_torch.analysis import localization as loc
+    from vlite_fast_tpu_torch.analysis.dataset import load_dataset
+
+    ds = load_dataset(args.dumps, sample_rate=args.sample_rate)
+    dumps = ds.aligned()
+    sids = ds.station_ids
+    ut1_utc = 0.0
+    if args.antprop:
+        from vlite_fast_tpu_torch.runtime.vla_xml import (
+            parse_antprop_document)
+        with open(args.antprop) as fh:
+            doc = parse_antprop_document(fh.read())
+        pos_map = loc.antprop_positions_itrs(doc)
+        missing = [s for s in sids if s not in pos_map]
+        if missing:
+            raise SystemExit(f"antprop document has no positions for "
+                             f"antennas {missing}")
+        positions = np.array([pos_map[s] for s in sids])
+        if doc.eops:
+            ut1_utc = doc.eops[len(doc.eops) // 2].ut1_utc
+    elif args.positions:
+        with open(args.positions) as fh:
+            pos_map = json.load(fh)
+        positions = np.array([pos_map[str(s)] for s in sids], float)
+    else:
+        raise SystemExit("--antprop (sky frame) or --positions (ENU "
+                         "frame) required")
+    clock = None
+    if args.clock_delays:
+        table = loc.parse_correlator_delays(args.clock_delays)
+        clock = np.array([table.get(s, 0.0) for s in sids])
+    pairs = [(i, j) for i in range(len(sids))
+             for j in range(i + 1, len(sids))]
+    delays = []
+    for i, j in pairs:
+        d, coh, snr = bb.baseline_delay_precise(dumps[i], dumps[j],
+                                                nfft=args.nfft,
+                                                device=args.device)
+        delays.append(d)
+        print(f"baseline {sids[i]}-{sids[j]}: delay {d*1e9:.1f} ns "
+              f"coherence {coh:.3f} lag-S/N {snr:.0f}")
+    if args.antprop:
+        fit = loc.fit_sky(positions, pairs, np.array(delays),
+                          t0=dumps[0].start_time,
+                          sigma=args.sigma_ns * 1e-9,
+                          clock_offsets=clock, ut1_utc=ut1_utc)
+        print(json.dumps({"ra_deg": round(fit.ra_deg, 4),
+                          "dec_deg": round(fit.dec_deg, 4),
+                          "err_arcmin": round(fit.err_arcmin, 2),
+                          "chi2": round(fit.chi2, 2),
+                          "stations": sids,
+                          "n_baselines": len(pairs)}))
+    else:
+        fit = loc.fit_tdoa(positions, pairs, np.array(delays),
+                           sigma=args.sigma_ns * 1e-9,
+                           clock_offsets=clock)
+        print(json.dumps({"az_rad": round(fit.az, 5),
+                          "el_rad": round(fit.el, 5),
+                          "chi2": round(fit.chi2, 2),
+                          "stations": sids,
+                          "n_baselines": len(pairs)}))
 
 
 def cmd_send_cmd(args):
@@ -396,8 +512,8 @@ def cmd_launch(args):
 
 def main(argv=None):
     p = argparse.ArgumentParser(prog="vlite_fast_tpu_torch")
-    device_help = ("torch device of process, search and launch's "
-                   "stations (default 'cuda'; 'cpu' for tiny test "
+    device_help = ("torch device of process, search, localize and "
+                   "launch's stations (default 'cuda'; 'cpu' for tiny test "
                    "geometries)")
     p.add_argument("--device", default="cuda", help=device_help)
     # the same option after the command; unset there, the one above holds
@@ -452,6 +568,22 @@ def main(argv=None):
     s.add_argument("--snr", type=float, default=6.0)
     s.set_defaults(fn=cmd_search)
 
+    s = sub.add_parser("waterfall", help="render .fil waterfall PNG")
+    s.add_argument("fil")
+    s.add_argument("-o", "--out")
+    s.set_defaults(fn=cmd_waterfall)
+
+    s = sub.add_parser("unwrap", help="check/repair dump continuity")
+    s.add_argument("vdif")
+    s.set_defaults(fn=cmd_unwrap)
+
+    s = sub.add_parser("join-dumps", help="join dump segments in time order")
+    s.add_argument("vdif", nargs="+")
+    s.add_argument("-o", "--out", required=True)
+    s.add_argument("--frames-per-sec", type=int,
+                   default=C.FRAMES_PER_SEC)
+    s.set_defaults(fn=cmd_join_dumps)
+
     s = sub.add_parser("send-cmd", help="publish a control command")
     s.add_argument("cmd", choices=[c for c in "SCQEFG"])
     s.add_argument("--name", default="")
@@ -489,6 +621,21 @@ def main(argv=None):
     s.add_argument("--nbufs", type=int, default=8)
     s.set_defaults(fn=cmd_scrub_ring)
 
+    s = sub.add_parser("localize", help="TDOA localization from dumps "
+                                        "(loc_step pipeline)",
+                       parents=[on_device])
+    s.add_argument("dumps", help="dump directory / glob / file list")
+    s.add_argument("--antprop", help="VLA antprop XML -> ITRS positions; "
+                                     "fit RA/Dec on the sky (loc_step3)")
+    s.add_argument("--clock-delays",
+                   help="vliteantennas.in correlator/pipeline delay table")
+    s.add_argument("--positions", help="JSON {station_id: [x,y,z] m} "
+                                       "(abstract ENU az/el fit)")
+    s.add_argument("--nfft", type=int, default=2500)
+    s.add_argument("--sigma-ns", type=float, default=20.0)
+    s.add_argument("--sample-rate", type=int, default=128_000_000)
+    s.set_defaults(fn=cmd_localize)
+
     s = sub.add_parser("launch", help="start leader + N station daemons "
                                       "from one array config",
                        parents=[on_device])
@@ -501,7 +648,8 @@ def main(argv=None):
     s.add_argument("--manual-port", type=int, default=None)
     s.add_argument("--obsinfo-port", type=int, default=None)
     s.add_argument("--waterfall", action="store_true",
-                   help="not ported yet: raises")
+                   help="render a waterfall PNG of each .fil in the "
+                        "output directory (the leader's watcher)")
     s.add_argument("--leader-addr", default="127.0.0.1",
                    help="address remote stations dial back to "
                         "(this host, as seen from the antenna hosts)")

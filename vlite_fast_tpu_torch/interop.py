@@ -1,8 +1,9 @@
 """State carried across from the JAX package, as numpy arrays.
 
-The tests start both packages from the same state: a JAX DSPState or
-DedispPlan is read out as numpy (np.asarray on each field) and rebuilt
-here as the port's tensors on a given device.  Nothing here imports jax.
+The tests start both packages from the same state: a JAX DSPState,
+DedispPlan or array step's carried state is read out as numpy
+(np.asarray on each field) and rebuilt here as the port's tensors on a
+given device.  Nothing here imports jax.
 """
 
 from __future__ import annotations
@@ -65,3 +66,12 @@ def bp_from_factored(bp_fact, nfft: int, nchan: int) -> np.ndarray:
     f = np.asarray(bp_fact, dtype=np.float32)
     return np.ascontiguousarray(
         f[:, :n2o, :n1].reshape(f.shape[0], -1)[:, :nchan])
+
+
+def array_state_from_jax(bp, bp_kur, tail, mesh) -> tuple:
+    """This rank's shards of the JAX array step's carried state (bp,
+    bp_kur, tail; numpy, each with the antennas on its leading axis) as
+    the port's step takes them, on the mesh's device: a port step then
+    continues the JAX observation."""
+    from vlite_fast_tpu_torch.parallel.distributed import local_shard
+    return tuple(local_shard(np.asarray(a), mesh) for a in (bp, bp_kur, tail))

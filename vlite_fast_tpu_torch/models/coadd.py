@@ -1,14 +1,16 @@
 """Multi-antenna incoherent coadd (the agdadacoadd role).
 
-Port of vlite_fast_tpu/models/coadd.py's single-host coadd on torch
-tensors.  The mesh collective beside it there (coadd_psum, a psum over
-the antenna axis) waits for the port's parallel/ package.
+Port of vlite_fast_tpu/models/coadd.py on torch tensors: the
+single-host coadd, and coadd_psum, the mesh collective (an all_reduce
+over the mesh's antenna axis, parallel/mesh) replacing the reference's
+MPI reduce (ref scripts/start_coadd:19-57).
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 
 def coadd(fb_stack: torch.Tensor,
@@ -27,3 +29,14 @@ def coadd(fb_stack: torch.Tensor,
     w = weights.reshape(nant, 1, 1).to(fb_stack.dtype)
     wsum = (w ** 2).sum()
     return (fb_stack * w).sum(dim=0) * torch.rsqrt(wsum.clamp(min=1e-12))
+
+
+def coadd_psum(fb_local: torch.Tensor, mesh, axis_name: str,
+               nant_total: int) -> torch.Tensor:
+    """Sum this rank's antennas, then all-reduce over the mesh axis
+    `axis_name` (the collective replacing the reference's MPI reduce).
+    Collective over that axis; every rank of a line gets the sum."""
+    total = fb_local.sum(dim=0)
+    dist.all_reduce(total, group=mesh.groups[axis_name])
+    # the JAX package's float32(1 / sqrt(float32(nant_total)))
+    return total * float(np.float32(1.0) / np.sqrt(np.float32(nant_total)))

@@ -5,7 +5,9 @@ reference, scripts/start_heimdall_single_antenna:21).  The DM transform is
 the two-stage subband shift-and-sum; `dedisperse` here is the gather
 form, the plain version of the CUDA kernel in ops/dedisperse_pallas;
 `dedisperse_fourier` the same sums as Fourier phase ramps (torch.fft, as
-the JAX package's is XLA and not a TPU kernel).  `Candidate` and
+the JAX package's is XLA and not a TPU kernel); `dedisperse_reference`
+the JAX package's exact numpy shift-and-sum, which the offline analysis
+(analysis/cutout, analysis/localization.refine_dm) calls.  `Candidate` and
 `cluster_hits` are numpy copies of the JAX package's (whose module
 imports jax).
 """
@@ -237,6 +239,21 @@ def dedisperse_fourier(fb: torch.Tensor, plan: DedispPlan, ntime_out: int,
             (y_hat[:, None] * E2).sum(dim=-1).reshape(c * per_batch, nfreq)
         del E2, y_hat
     return torch.fft.irfft(out_hat, n=npad, dim=-1)[:, :ntime_out]
+
+
+def dedisperse_reference(fb: np.ndarray, delays: np.ndarray,
+                         ntime_out: int,
+                         chan_weights: np.ndarray | None = None) -> np.ndarray:
+    """Direct (exact) numpy shift-and-sum oracle for tests."""
+    ntime, nchan = fb.shape
+    if chan_weights is not None:
+        fb = fb * chan_weights[None, :]
+    out = np.zeros((delays.shape[0], ntime_out), dtype=np.float64)
+    for idm in range(delays.shape[0]):
+        for ch in range(nchan):
+            d = min(int(delays[idm, ch]), ntime - ntime_out)
+            out[idm] += fb[d:d + ntime_out, ch]
+    return out.astype(np.float32)
 
 
 # ---------------------------------------------------------------------------

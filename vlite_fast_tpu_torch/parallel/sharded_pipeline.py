@@ -1,0 +1,388 @@
+"""The full-array sharded step: every antenna's DSP, the cross-antenna
+coadd, and the production candidate plane, one program per rank over an
+(ant, time) mesh.
+
+Port of vlite_fast_tpu/parallel/sharded_pipeline.py on torch.distributed.
+It replaces the reference's distributed topology (12 hosts of
+independent process chains + per-beam heimdall searches + agdadacoadd MPI
+reduce + agtriggerhook on the sum + a central coincidencer, SURVEY.md
+section 1, scripts/start_heimdall_single_antenna:21,
+scripts/start_process:21) with collectives:
+
+  * DSP — antennas shard over all ranks (the mesh flattened): each
+    antenna's seconds stream one after another through the armed program
+    (models/baseband_dsp.process_second: rfi_front and the two EMA
+    kernels on a card), so the EMA bandpass carry is the sequential one
+    by construction (ref pb_kernels.cu:406-411).  The carried (bp,
+    bp_kur) state enters and leaves the step, so consecutive calls
+    continue one unbroken observation.
+  * Reshard — one all_to_all_single over 'time' moves each antenna
+    group's packed filterbank (2-bit bytes, not floats) from "whole
+    stream on one rank" to "time chunk per rank": rank (a, t) then holds
+    chunk t of every beam in ant-row a's group.
+  * Per-beam search — each rank dedisperses and boxcar-filters its
+    beams' chunk one beam at a time (the per-antenna heimdall role), with
+    the previous chunk's tail from its 'time' neighbor (parallel/halo;
+    chunk 0 uses the packed tail carried from the previous call, so the
+    gulp overlap is seamless across calls).  Fixed-size packed top-k
+    crossings per beam are the output (the models/search gulp pattern).
+  * Coadd search — an all_reduce over 'ant' forms the incoherent sum (the
+    agdadacoadd MPI reduce); the coadd chunk's search is split in time
+    across the 'ant' rows.
+
+extract_candidates() turns the packed crossings, gathered to the host by
+gather_step_output(), into per-beam and coadd Candidate lists with the
+single-beam clustering, feeding the coincidence plane (runtime/trigger).
+
+The per-beam dedispersion takes ops/dedisperse_pallas's f32 entry (the
+CUDA kernel on a card, the gather engine on the CPU) or, with
+SearchConfig(engine='fourier'), ops/dedisperse.dedisperse_fourier, as
+the JAX step's engines.  The coadd's all_reduce sums in the backend's
+order, not the JAX psum's: its floats agree to rounding.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, NamedTuple, Tuple
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from vlite_fast_tpu_torch.config import ArrayConfig, SearchConfig
+from vlite_fast_tpu_torch.models import baseband_dsp as dsp
+from vlite_fast_tpu_torch.models import search as search_mod
+from vlite_fast_tpu_torch.ops import dedisperse as dd
+from vlite_fast_tpu_torch.ops import normalize as norm_ops
+from vlite_fast_tpu_torch.ops import quantize as q_ops
+from vlite_fast_tpu_torch.parallel.halo import ppermute
+
+
+class ArrayStepOutput(NamedTuple):
+    packed_kur: torch.Tensor   # (m, T, nbytes) this rank's beams' bytes
+    beam_topk: torch.Tensor    # (1, beams_per_group, 2, nbands*kb+1) int32
+                               # [d]: ant-row d//ntblk's beams, chunk
+                               # d%ntblk; banded packed crossings
+                               # (search.pack_topk_banded)
+    coadd_topk: torch.Tensor   # (1, 2, nbands*kb_co+1) int32 coadd crossings
+    weights_mean: torch.Tensor  # (m,) mean RFI weight over the call
+    # gather_step_output stacks each field over the mesh (nant or ndev
+    # leading rows), as the JAX step's global arrays
+
+
+@dataclasses.dataclass(frozen=True)
+class ArraySearchInfo:
+    """Static geometry the host needs to decode ArrayStepOutput."""
+
+    widths: tuple
+    dms: tuple
+    T: int            # output samples per call
+    c: int            # samples per time chunk (T // ntblk)
+    ca: int           # coadd sub-window per ant row (c // na, or c)
+    coadd_split: bool  # True when the coadd search is subsplit over 'ant'
+    halo: int         # overlap-save lookahead (plan.max_delay)
+    na: int
+    ntblk: int
+    m: int            # antennas per rank
+    mg: int           # beams per ant-row group (m * ntblk)
+    nant: int
+    k_beam: int
+    k_co: int
+    tsamp: float
+    nbands: int = 1   # per-DM-band top-k quota (search.pack_topk_banded)
+
+
+def dequant_rows(packed: torch.Tensor, cfg) -> torch.Tensor:
+    """(..., nbytes) packed rows -> (..., nchanout) f32 filterbank."""
+    fb = q_ops.dequantize(packed, cfg.nbit)
+    return fb.reshape(packed.shape[:-1] + (-1,))[..., :cfg.nchanout]
+
+
+def search_topk(span: torch.Tensor, plan: dd.DedispPlan,
+                info: "ArraySearchInfo", scfg: SearchConfig, ntime_out: int,
+                k: int) -> torch.Tensor:
+    """span: (ntime_out + halo, nchan) f32 -> (2, nbands*kb + 1) packed
+    crossings, per-DM-band quota'd (search.pack_topk_banded: the same
+    RFI-storm guard the single-beam path uses)."""
+    dmt = search_mod.dedisperse(span, plan, ntime_out, engine=scfg.engine)
+    snr = dd.boxcar_snr(dmt, plan.nchan_eff, info.widths)
+    return search_mod.pack_topk_banded(snr, k, info.nbands,
+                                       float(scfg.snr_thresh))
+
+
+def build_array_step(acfg: ArrayConfig, mesh, nsec_per_call: int = 1,
+                     k_beam: int = 0, k_co: int = 0, inject_sec: int = -1):
+    """Returns (step_fn, make_inputs, plan, info) for this rank of `mesh`.
+
+    inject_sec >= 0 arms the chain's FRB injection (requires
+    pipeline.inject_frb=True) at the top of that second of every call, on
+    every antenna: the in-graph signal test of the reference
+    (src/process_baseband.cu:1098-1102 arms every 60 s); the search must
+    then recover the burst at pipeline.inject_dm in every beam and in the
+    coadd.
+
+    step_fn(raw, bp, bp_kur, tail, marks=None)
+        -> (ArrayStepOutput, (bp2, bpk2, tail2)), this rank's shards:
+      raw:  (m, npol, nsec_per_call*sample_rate) uint8
+      bp(_kur): (m, npol, nchan) float32 EMA carry
+      tail: (m, halo, nbytes) uint8 packed tail from the previous call
+      (rows [d*m, (d+1)*m) of the JAX step's P(('ant','time')) arrays,
+      on the mesh's device).  Collective: every rank of the mesh calls
+      it.  With `marks` (a list, on a card) the step appends ("start",
+      CUDA event), then (part, CUDA event) at the end of each part
+      ("dsp", "reshard": the all_to_all, halos and tails, "beam_search",
+      "coadd_allreduce", "coadd_search"), recorded on the current
+      stream.
+
+    Geometry requirements (raised if violated):
+      nant % ndev == 0; T % ntblk == 0; halo <= c (a chunk's lookahead
+      comes from ONE neighbor: make calls at least ntblk * halo samples
+      long, the same reason heimdall's 24 s gulps exceed the DM-1000
+      sweep).
+    """
+    cfg = acfg.pipeline
+    scfg = acfg.search
+    nant = acfg.nant
+    na, ntblk = mesh.shape["ant"], mesh.shape["time"]
+    ndev = na * ntblk
+    if mesh.d is None:
+        raise ValueError("build_array_step: this rank is not in the mesh")
+    if nant % ndev:
+        raise ValueError(f"nant={nant} must divide over {ndev} devices")
+    m = nant // ndev
+    mg = m * ntblk                  # beams per ant-row group
+    out_per_sec = cfg.seg_per_sec * cfg.out_samps_per_seg
+    T = nsec_per_call * out_per_sec
+    if T % ntblk:
+        raise ValueError(f"T={T} output samples must divide into "
+                         f"{ntblk} time chunks")
+    c = T // ntblk
+
+    dev = mesh.device
+    freqs = cfg.freqs_mhz()
+    dms = search_mod.make_dm_grid(scfg, cfg.tsamp, freqs)
+    plan = dd.make_plan(dms, freqs, cfg.tsamp,
+                        nsub=min(scfg.nsub, cfg.nchanout),
+                        nbatch=min(scfg.nbatch, len(dms)),
+                        zap_ranges=scfg.zap_ranges, device=dev)
+    halo = int(plan.max_delay)
+    if halo > c:
+        raise ValueError(
+            f"chunk ({c} samples) shorter than the max DM delay ({halo}); "
+            f"raise nsec_per_call to >= {ntblk * halo / out_per_sec:.1f} s "
+            "or lower dm_max")
+    widths = search_mod.boxcar_widths(scfg.boxcar_max)
+    coadd_split = (c % na == 0)
+    ca = c // na if coadd_split else c
+
+    nbytes = cfg.npol_out * cfg.nchanout * cfg.nbit // 8
+    use_kur = cfg.rfi_mode != 0
+    cube_beam = len(widths) * len(dms) * c
+    cube_co = len(widths) * len(dms) * ca
+    k_beam = min(k_beam or max(512, 16 * scfg.max_candidates // ntblk),
+                 cube_beam)
+    k_co = min(k_co or max(512, 16 * scfg.max_candidates // (na * ntblk)),
+               cube_co)
+    # the JAX step's float32 of a float64 quotient (models/coadd's
+    # coadd_psum takes a float32 root instead)
+    inv_sqrt_nant = float(np.float32(1.0 / np.sqrt(nant)))
+    nbands = search_mod.effective_nbands(len(dms), scfg.topk_dm_bands)
+    rate = cfg.sample_rate
+
+    info = ArraySearchInfo(
+        widths=widths, dms=tuple(float(d) for d in dms), T=T, c=c, ca=ca,
+        coadd_split=coadd_split, halo=halo, na=na, ntblk=ntblk, m=m, mg=mg,
+        nant=nant, k_beam=k_beam, k_co=k_co, tsamp=cfg.tsamp,
+        nbands=nbands)
+
+    def step_fn(raw, bp, bp_kur, tail, marks=None):
+        def mark(part):
+            if marks is not None:
+                ev = torch.cuda.Event(enable_timing=True)
+                ev.record()
+                marks.append((part, ev))
+
+        mark("start")
+        # ---- DSP: each local antenna streams its seconds in turn --------
+        packed = torch.empty((m, T, nbytes), dtype=torch.uint8, device=dev)
+        wmean = torch.empty(m, dtype=torch.float32, device=dev)
+        bp2, bpk2 = torch.empty_like(bp), torch.empty_like(bp_kur)
+        rows = T // nsec_per_call
+        for i in range(m):
+            st = dsp.init_state(cfg, dev)._replace(bp=bp[i].contiguous(),
+                                                   bp_kur=bp_kur[i]
+                                                   .contiguous())
+            wm = torch.empty(nsec_per_call, dtype=torch.float32, device=dev)
+            for s in range(nsec_per_call):
+                sec = raw[i, :, s * rate:(s + 1) * rate].contiguous()
+                o, st = dsp.process_second(cfg, sec, st, s == inject_sec)
+                packed[i, s * rows:(s + 1) * rows] = \
+                    o.packed_kur if use_kur else o.packed
+                wm[s] = o.weights.sum() * norm_ops.recip(o.weights.numel())
+            wmean[i] = wm.sum() * norm_ops.recip(nsec_per_call)
+            bp2[i], bpk2[i] = st.bp, st.bp_kur
+        # next call's search tail: the last `halo` packed rows of the
+        # stream (prepend the incoming tail so halo > T also works)
+        tail2 = torch.cat([tail, packed], dim=1)[:, -halo:]
+        mark("dsp")
+
+        # ---- reshard: (m, T, nb) -> group beams x my chunk -------------
+        # the JAX all_to_all(split_axis=1, concat_axis=0) orders what it
+        # receives by source, so the beam order within the group is
+        # (source t', local antenna i), matching the all_gathered tails
+        x = packed.reshape(m, ntblk, c, nbytes).transpose(0, 1).contiguous()
+        chunk = torch.empty_like(x)
+        dist.all_to_all_single(chunk, x, group=mesh.groups["time"])
+        chunk = chunk.reshape(mg, c, nbytes)
+
+        # ---- previous-chunk halo (overlap-save) -------------------------
+        prev_in_call = ppermute(chunk[:, c - halo:], mesh, "time", 1)
+        # chunk 0's history is the PREVIOUS call's tail (the input), not
+        # the tail just computed from this call's end
+        tails = [torch.empty_like(tail) for _ in range(ntblk)]
+        dist.all_gather(tails, tail.contiguous(), group=mesh.groups["time"])
+        prev = torch.cat(tails) if mesh.index("time") == 0 else prev_in_call
+        span_packed = torch.cat([prev, chunk], dim=1)   # (mg, c+halo, nb)
+        mark("reshard")
+
+        # ---- per-beam search (the heimdall-per-antenna role) ------------
+        beam_topk, co = [], None
+        for j in range(mg):
+            fb = dequant_rows(span_packed[j], cfg)      # (c+halo, nchan)
+            beam_topk.append(search_topk(fb, plan, info, scfg, c, k_beam))
+            co = fb if co is None else co.add_(fb)
+        mark("beam_search")
+
+        # ---- coadd + subsplit search (agdadacoadd + agtriggerhook) ------
+        co = co.contiguous()
+        dist.all_reduce(co, group=mesh.groups["ant"])
+        co.mul_(inv_sqrt_nant)
+        mark("coadd_allreduce")
+        start = mesh.index("ant") * ca if coadd_split else 0
+        coadd_topk = search_topk(co[start:start + ca + halo], plan, info,
+                                 scfg, ca, k_co)
+        mark("coadd_search")
+
+        return (ArrayStepOutput(packed, torch.stack(beam_topk)[None],
+                                coadd_topk[None], wmean),
+                (bp2, bpk2, tail2))
+
+    def make_inputs(seed: int = 0):
+        """This rank's shards of the JAX step's make_inputs(seed) draw:
+        the same numpy sequence (raw, then the random tail levels), so
+        any mesh gives the inputs of a one-rank run."""
+        rng = np.random.default_rng(seed)
+        nsamp = nsec_per_call * rate
+        lo = mesh.d * m
+        raw = np.empty((m, cfg.npol_in, nsamp), np.uint8)
+        # antenna by antenna: the same stream as one (nant, ...) draw
+        for a in range(nant):
+            x = rng.standard_normal((cfg.npol_in, nsamp))
+            if lo <= a < lo + m:
+                raw[a - lo] = np.clip(x / 0.05914 + 128.5, 0,
+                                      255).astype(np.uint8)
+        bp = np.zeros((m, cfg.npol_in, cfg.nchan), np.float32)
+        # the first call's warm-up history (there is no data before the
+        # observation): RANDOM quantizer levels, not a constant — a
+        # constant fill makes the per-trial robust noise estimate of
+        # fill-dominated rows collapse to ~0, exploding S/N at the stream
+        # head; random levels over-estimate sigma there instead
+        tail = rng.integers(0, 256, (nant, halo, nbytes),
+                            dtype=np.uint8)[lo:lo + m]
+        put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+        return put(raw), put(bp), put(bp.copy()), put(tail)
+
+    return step_fn, make_inputs, plan, info
+
+
+def gather_rows(t: torch.Tensor, mesh) -> np.ndarray:
+    """Every mesh rank's `t`, concatenated along the leading axis in mesh
+    order, as numpy on every rank of the mesh (an all_gather)."""
+    parts = [torch.empty_like(t) for _ in range(mesh.size)]
+    dist.all_gather(parts, t.contiguous(), group=mesh.group)
+    return torch.cat(parts).cpu().numpy()
+
+
+def gather_step_output(out: ArrayStepOutput, mesh) -> ArrayStepOutput:
+    """The whole mesh's ArrayStepOutput as numpy, on every rank of the
+    mesh: packed_kur (nant, T, nbytes), beam_topk (ndev, mg, 2, ...),
+    coadd_topk (ndev, 2, ...), weights_mean (nant,), the JAX step's
+    global arrays.  Collective over the mesh."""
+    return ArrayStepOutput(*(gather_rows(t, mesh) for t in out))
+
+
+def extract_candidates(out: ArrayStepOutput, info: ArraySearchInfo,
+                       scfg: SearchConfig, call_base: int = 0
+                       ) -> Tuple[Dict[int, List[dd.Candidate]],
+                                  List[dd.Candidate], Dict[str, int]]:
+    """Decode one step's packed crossings (gather_step_output's) into the
+    candidate plane.
+
+    Returns ({beam: [Candidate]}, [coadd Candidate], stats) with peak/
+    i0/i1 sample indices ABSOLUTE in the observation's output-sample
+    stream (call_base = T * call_index).  The searched span of call k is
+    [call_base - halo, call_base + T - halo): the trailing halo samples
+    wait for the next call's lookahead, exactly like heimdall's gulp
+    overlap.  Crossings below scfg.snr_thresh or before sample 0 are
+    dropped; clustering is the single-beam cluster_hits.  stats carries
+    the crossing counts and the number of saturated top-k DM bands
+    across all shards (search.decode_crossings semantics).
+    """
+    dms = np.asarray(info.dms)
+    nw, ndm = len(info.widths), len(dms)
+    stats = {"n_crossings": 0, "saturated_bands": 0}
+
+    btk = np.asarray(out.beam_topk)      # (ndev, mg, 2, nbands*kb+1)
+    per_beam_hits: Dict[int, list] = {}
+    for d in range(btk.shape[0]):
+        a, t = d // info.ntblk, d % info.ntblk
+        base = call_base - info.halo + t * info.c
+        for j in range(info.mg):
+            beam = a * info.mg + j
+            vals, hits, n_cross, sat = search_mod.decode_crossings(
+                btk[d, j], nw, ndm, info.c, info.nbands, scfg.snr_thresh)
+            stats["n_crossings"] += n_cross
+            stats["saturated_bands"] += sat
+            if not len(vals):
+                continue
+            hits = hits.copy()
+            hits[:, 2] += base
+            ok = hits[:, 2] >= 0
+            if ok.any():
+                h, v = per_beam_hits.setdefault(beam, ([], []))
+                h.append(hits[ok])
+                v.append(vals[ok])
+
+    per_beam: Dict[int, List[dd.Candidate]] = {}
+    for beam, (h, v) in per_beam_hits.items():
+        per_beam[beam] = dd.cluster_hits(
+            np.concatenate(h), np.concatenate(v), dms, info.tsamp,
+            widths=info.widths, max_cands=scfg.max_candidates)
+
+    ctk = np.asarray(out.coadd_topk)     # (ndev, 2, nbands*kb_co+1)
+    ch, cv = [], []
+    for d in range(ctk.shape[0]):
+        a, t = d // info.ntblk, d % info.ntblk
+        if not info.coadd_split and a != 0:
+            continue            # unsplit: every ant row searched the same
+        base = call_base - info.halo + t * info.c + a * info.ca \
+            if info.coadd_split else call_base - info.halo + t * info.c
+        vals, hits, n_cross, sat = search_mod.decode_crossings(
+            ctk[d], nw, ndm, info.ca, info.nbands, scfg.snr_thresh)
+        stats["n_crossings"] += n_cross
+        stats["saturated_bands"] += sat
+        if not len(vals):
+            continue
+        hits = hits.copy()
+        hits[:, 2] += base
+        ok = hits[:, 2] >= 0
+        if ok.any():
+            ch.append(hits[ok])
+            cv.append(vals[ok])
+    coadd_cands: List[dd.Candidate] = []
+    if ch:
+        coadd_cands = dd.cluster_hits(
+            np.concatenate(ch), np.concatenate(cv), dms, info.tsamp,
+            widths=info.widths, max_cands=scfg.max_candidates)
+    return per_beam, coadd_cands, stats

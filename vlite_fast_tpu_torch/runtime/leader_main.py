@@ -14,9 +14,7 @@ or embedded by `python -m vlite_fast_tpu_torch.cli launch`, which also
 spawns the station daemons.
 
 The port's copy of vlite_fast_tpu/runtime/leader_main.py, on the port's
-runtime.  The waterfall watcher renders with the JAX package's
-analysis/waterfall, which the port does not have yet: `waterfall=True`
-raises.
+runtime; the waterfall watcher renders with the port's analysis/waterfall.
 """
 
 from __future__ import annotations
@@ -44,10 +42,6 @@ class Leader:
                  manual_port: Optional[int] = None,
                  obsinfo_port: Optional[int] = None,
                  waterfall: bool = False):
-        if waterfall:
-            raise NotImplementedError(
-                "the waterfall watcher needs analysis/waterfall, which is "
-                "not ported yet")
         self.acfg = acfg
         self.log = make_logger("leader")
         local = ("", "localhost", "127.0.0.1")
@@ -79,6 +73,11 @@ class Leader:
             self._manual_srv.listen(4)
             self._manual_srv.settimeout(0.3)
             threading.Thread(target=self._manual_loop, daemon=True).start()
+        self._wf_thread = None
+        if waterfall:
+            self._wf_thread = threading.Thread(
+                target=self._waterfall_loop, args=(out_dir,), daemon=True)
+            self._wf_thread.start()
 
     # -- manual telnet-style control (messenger.c:389-414) ---------------
     def _manual_loop(self):
@@ -101,6 +100,15 @@ class Leader:
                 self.log.warning("bad manual command: %s", e)
             finally:
                 conn.close()
+
+    def _waterfall_loop(self, out_dir: str):
+        from vlite_fast_tpu_torch.analysis import waterfall as wf
+        while self._running:
+            try:
+                wf.watch_and_render(out_dir, poll_s=2.0, max_iterations=1)
+            except Exception as e:
+                self.log.warning("waterfall: %s", e)
+            time.sleep(5)
 
     @property
     def n_stations_connected(self) -> int:
