@@ -168,12 +168,19 @@ Phases, each printing a line:
      correlation_matrix and beamform_toward on the card against
      device='cpu' on the dumps' first 8,000,000 samples, `cli waterfall`
      of a .fil of one dump's filterbank; each step timed;
+ 19. the port's headline bench, `python -m vlite_fast_tpu_torch.cli bench`
+     (vlite_fast_tpu_torch/bench.py) in a process of its own at the
+     reference geometry: exit 0 and one JSON line on its stdout holding
+     every key of BENCH_KEYS, the FRB recovered in both loops,
+     twin_agreement >= 0.9999, every utilization share in (0, 100],
+     value_tolgrid <= 1.02 x value, and the main path's kernels launched
+     in its integrated loops; the line and the phase's seconds printed;
 then the run's wall time, one JSON line of per-kernel results (each with
-its time, its plain version's, its bound from this run's shapes, the
-library call's time where one PyTorch call computes the function, and
-its launches on its path: [4], [10], [15], [16], [17] and [18] for
-kernels 1-8, [11]-[14] for the staged chain, the roll+select engine and
-tile_bench),
+its time, its plain version's, its bound from this run's shapes
+(utils/perf), the library call's time where one PyTorch call computes
+the function, and its launches on its path: [4], [10], [15], [16], [17],
+[18] and [19] for kernels 1-8, [11]-[14] for the staged chain, the
+roll+select engine and tile_bench),
 the card's name
 and power
 limit, and last
@@ -198,6 +205,7 @@ import numpy as np
 import torch
 
 from vlite_fast_tpu_torch import launches as kernel_launches
+from vlite_fast_tpu_torch.utils import perf
 
 
 def log(msg: str) -> None:
@@ -226,50 +234,19 @@ def with_burst(raw: np.ndarray, at: int) -> np.ndarray:
     return np.clip(out, 0, 255).astype(np.uint8)
 
 
-# the least time the card could take (NVIDIA H100 SXM data sheet, 700 W):
-# bytes over the memory rate, operations over the peak for their type
-HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"f32": 67e12, "bf16": 989e12}
-
-
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def bound(moved: int, ops: float, kind: str = "f32") -> dict:
-    """bound_ms / bound_by for a function that moves `moved` bytes (each
-    input read once, each output written once) and does `ops` operations
-    of type `kind` (a multiply-add counts two, an add or a compare one)."""
-    t_bytes = moved / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS_PER_S[kind] * 1e3
-    return {"bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
-
-
-def tc_dft_ops(cfg, frames: int) -> float:
-    """The bf16 products the tensor-core DFT (csrc/dft_tc.cuh) issues for
-    `frames` frames, padding included: stage 1 four W1 planes of (64 nwg)
-    x (32 npass) x (8 kb1), stage 2 twelve of (64 nwg) x 64 x (32 npass)."""
-    from vlite_fast_tpu_torch.ops import megakernel as mk
-    g = mk.tc_geometry(cfg.nfft)
-    rows, cols = 64 * g.nwg, 32 * g.npass
-    return frames * 2 * (4 * rows * cols * 8 * g.kb1 + 12 * rows * 64 * cols)
-
-
 def chain_bound(cfg, raw, outs) -> dict:
-    """The chain's bound: the raw second in and the outputs out, and the
-    f32 operations the function needs on this second: a real FFT of each
-    frame (2.5 nfft log2 nfft), and ~8 operations per spectrum element
-    for detect and EMA in each stream the rfi_mode computes.  In rfi_mode
-    2 the kurtosis stream needs a transform of its own only in the frames
-    whose mask zeroed a window (weight < 1)."""
-    frames = cfg.npol_in * cfg.seg_per_sec * cfg.ffts_per_seg
-    nstreams = 2 if cfg.rfi_mode == 2 else 1
-    w = outs[2]
-    masked = int((w < 1).sum()) if cfg.rfi_mode == 2 else 0
-    ops = (frames + masked) * 2.5 * cfg.nfft * math.log2(cfg.nfft) \
-        + nstreams * frames * 8 * cfg.nchan
-    return bound(nbytes(raw, *outs), ops)
+    """The chain's bound on this second (perf.chain_bound): its masked
+    frames (weight < 1) counted from the outputs, and perf's byte count
+    held to the bytes of the second and of the outputs."""
+    check(perf.chain_bytes(cfg) == nbytes(raw, *outs),
+          f"perf.chain_bytes {perf.chain_bytes(cfg)} != the chain's "
+          f"{nbytes(raw, *outs)} bytes")
+    masked = int((outs[2] < 1).sum()) if cfg.rfi_mode == 2 else 0
+    return perf.chain_bound(cfg, masked)
 
 
 def dft_as_written_ms(cfg, outs) -> float:
@@ -280,7 +257,8 @@ def dft_as_written_ms(cfg, outs) -> float:
     frames = cfg.npol_in * cfg.seg_per_sec * cfg.ffts_per_seg
     w = outs[2]
     partial = int(((w > 0) & (w < 1)).sum()) if cfg.rfi_mode else 0
-    return tc_dft_ops(cfg, frames + partial) / PEAK_OPS_PER_S["bf16"] * 1e3
+    return perf.tc_dft_ops(cfg, frames + partial) \
+        / perf.PEAK_OPS_PER_S["bf16"] * 1e3
 
 
 def kernel_times(fn) -> dict:
@@ -504,15 +482,13 @@ def phase_dedisperse(dev) -> dict:
 
 def dedisp_bound(fb, plan, ntime_out) -> dict:
     """The two-stage shift-and-sum's bound: the input (an f32 filterbank or
-    packed rows), the plan's tables and the DM-time plane once each; one add per stage-1 term
-    (nbatch x nchan x (ntime_out + max_sub_delay)) and per stage-2 term
-    (ndm x nsub x ntime_out)."""
-    nbatch, nchan = plan.rel_delays.shape
-    ndm, nsub = plan.sub_delays.shape
-    ops = nbatch * nchan * (ntime_out + plan.max_sub_delay) \
-        + ndm * nsub * ntime_out
-    return bound(nbytes(fb, plan.rel_delays, plan.sub_delays,
-                        plan.chan_weights) + 4 * ndm * ntime_out, ops)
+    packed rows), the plan's tables and the DM-time plane once each, and
+    perf.dedisp_fold_cost's adds (one per term of each stage)."""
+    ndm = plan.sub_delays.shape[0]
+    adds = perf.dedisp_fold_cost(plan, plan.rel_delays.shape[1],
+                                 ntime_out)["adds"]
+    return perf.bound(nbytes(fb, plan.rel_delays, plan.sub_delays,
+                             plan.chan_weights) + 4 * ndm * ntime_out, adds)
 
 
 def phase_pretranspose(dev, raw) -> dict:
@@ -529,7 +505,7 @@ def phase_pretranspose(dev, raw) -> dict:
     res, bounds = {}, {}
     for dtype, what in ((torch.uint8, "u8"), (torch.bfloat16, "bf16")):
         got = mk.pallas_pretranspose(*args, dtype)
-        bounds[what] = bound(nbytes(raw, got), 0)
+        bounds[what] = perf.bound(nbytes(raw, got), 0)
         if dtype == torch.uint8:
             check(torch.equal(library().reshape(got.shape), got),
                   "pallas_pretranspose u8: differs from the padded view")
@@ -918,7 +894,7 @@ def phase_rfi_front(dev, raw) -> dict:
         check(nflag > 0 and wmin < 1.0,
               f"rfi_front {what}: the gates did not fire")
         # convert, square, square again and two sums per sample
-        rb = bound(nbytes(u, *got), 5 * u.numel())
+        rb = perf.bound(nbytes(u, *got), 5 * u.numel())
         del got, want
         res[what] = (cuda_ms(lambda: rfi_pallas.rfi_front(u, *args), 5),
                      plain_ms, rb, err, nflag, wmin)
@@ -976,7 +952,7 @@ def phase_ema(dev) -> list:
     rows = []
     for name, line, ins, per_elem, kernel, plain in cases:
         got = kernel()
-        eb = bound(nbytes(*ins, *got), per_elem * power.numel())
+        eb = perf.bound(nbytes(*ins, *got), per_elem * power.numel())
         want, plain_ms = timed_wall(plain)
         err = 0.0
         for g, w in zip(got, want):
@@ -1078,13 +1054,14 @@ def phase_stage_a(dev) -> dict:
     n2o, frames = cfg.nfft // 2 // n1 + 1, got[0].shape[0] * got[0].shape[1]
     # stage 1: 4 real products (n2 x n1 x n1); stage 2: 6 (2 n2o x n2 x n1)
     ops = frames * 2 * (4 * n2 * n1 * n1 + 6 * 2 * n2o * n2 * n1)
-    b = bound(nbytes(raws[0], got[0]), ops, "bf16")
+    b = perf.bound(nbytes(raws[0], got[0]), ops, "bf16")
     del got, want
     ms = cuda_ms(lambda: mk.dft_detect_power(raws[0], *args), 5)
     x = unpack_ops.convert_uint8(raws[0]).reshape(-1, cfg.nfft)
     lib_ms = cuda_ms(lambda: torch.fft.rfft(x).abs().square(), 5)
     del x
-    padded_ms = tc_dft_ops(cfg, frames) / PEAK_OPS_PER_S["bf16"] * 1e3
+    padded_ms = perf.tc_dft_ops(cfg, frames) \
+        / perf.PEAK_OPS_PER_S["bf16"] * 1e3
     log(f"[11] dft_detect_power kernel (wgmma, split-plane bf16) vs "
         f"dft_detect_oracle, one production second ({frames} frames of "
         f"{cfg.nfft}, uniform bytes): max relative error {err:.3e} (floor "
@@ -1140,7 +1117,7 @@ def phase_stage_b(dev) -> dict:
     n2o = cfg.nfft // 2 // n1 + 1
     frames = cfg.npol_in * cfg.seg_per_sec * cfg.ffts_per_seg
     ops = frames * 2 * (4 * n2 * n1 * n1 + 6 * 2 * n2o * n2 * n1)
-    b = bound(nbytes(raws[0], bp0, *got[0]), ops, "bf16")
+    b = perf.bound(nbytes(raws[0], bp0, *got[0]), ops, "bf16")
     log(f"[12] chain_second_plain kernel (stage A's DFT + chain.cuh's EMA "
         f"in rfi_mode 0) vs chain_second_plain_oracle, 2 production seconds, "
         f"bandpass carried: 2-bit agreement >= {worst:.6f} (bar 0.9999), max "
@@ -1286,9 +1263,9 @@ def phase_tile_bench(dev) -> dict:
     x, y, _ = runs["xlu"]
     # the adds of the sums; 'mxu' the identity products it prescribes
     tiles = tp.REPS * tp.NB
-    b = {impl: bound(nbytes(x, y), tiles * tp.LANE ** 2) for impl in
+    b = {impl: perf.bound(nbytes(x, y), tiles * tp.LANE ** 2) for impl in
          ("none", "xlu")}
-    b["mxu"] = bound(nbytes(x, y), tiles * 2 * tp.LANE ** 3, "bf16")
+    b["mxu"] = perf.bound(nbytes(x, y), tiles * 2 * tp.LANE ** 3, "bf16")
     ms = {impl: r[2] for impl, r in runs.items()}
     log(f"[14] tile_bench kernel (csrc/tile_bench.cu) vs plain, the script's "
         f"shapes ({tp.REPS} steps x {tp.NB} tiles of 128 x 128 f32): all "
@@ -2850,6 +2827,64 @@ def phase_mesh(dev) -> dict:
     return launched
 
 
+# the keys [19] requires of the bench's line
+BENCH_KEYS = (
+    "value", "value_tolgrid", "tolgrid_trials", "dsp_only_rt_factor",
+    "dsp_only_rt_factor_gated", "dsp_only_rt_factor_blended",
+    "twin_agreement", "twin_byte_parity", "twin_chain_impl", "gulp_lin_s",
+    "gulp_tol_s", "gulps_searched", "wall_s", "candidates", "best_snr",
+    "frb_dm", "frb_snr", "frb_recovered", "cand_latency_wall_s",
+    "cand_latency_data_s", "search_engine", "dsp_f32_tflops",
+    "dsp_f32_util_pct", "dsp_hbm_gbps_min", "dsp_hbm_util_pct_min",
+    "dedisp_gulp_s", "dedisp_hbm_gbps", "dedisp_hbm_util_pct",
+    "dedisp_gadds_per_s", "dedisp_sol_hbm_s", "device", "launches")
+
+
+def phase_bench() -> dict:
+    """[19] `python -m vlite_fast_tpu_torch.cli bench` in a process of its
+    own: its one stdout line checked (BENCH_KEYS, the FRB, the twin's
+    agreement, every share in (0, 100], the tol grid no faster than the
+    linear one, the main path's kernels in its loops).  Returns the
+    launches of its integrated loops."""
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "vlite_fast_tpu_torch.cli", "bench"],
+        capture_output=True, text=True, env=_env(), timeout=600)
+    took = time.perf_counter() - t0
+    for line in res.stderr.splitlines():
+        if line.startswith("bench:"):
+            log(f"[19] {line}")
+    check(res.returncode == 0, f"[19] cli bench exited {res.returncode}:\n"
+          f"{res.stderr[-3000:]}")
+    lines = res.stdout.strip().splitlines()
+    check(len(lines) == 1, f"[19] {len(lines)} lines on the bench's stdout")
+    got = json.loads(lines[0])
+    missing = [k for k in BENCH_KEYS if k not in got]
+    check(not missing, f"[19] the bench's line lacks {missing}")
+    check(got["frb_recovered"] is True, f"[19] FRB not recovered: DM "
+          f"{got['frb_dm']}, S/N {got['frb_snr']}")
+    check(got["twin_agreement"] >= 0.9999,
+          f"[19] twin agreement {got['twin_agreement']}")
+    shares = {k: v for k, v in got.items() if "_util_pct" in k}
+    check(len(shares) == 3 and all(
+        isinstance(v, (int, float)) and 0 < v <= 100
+        for v in shares.values()), f"[19] shares {shares}")
+    check(got["value_tolgrid"] <= 1.02 * got["value"],
+          f"[19] value_tolgrid {got['value_tolgrid']} > 1.02 x value "
+          f"{got['value']}")
+    launched = got["launches"]
+    check(all(launched.get(k, 0) > 0 for k in
+              ("chain_second_v2", "dedisperse_pallas_packed", *ARMED_KERNELS)),
+          f"[19] launches {launched}")
+    log(f"[19] {lines[0]}")
+    log(f"[19] cli bench passed in {took:.1f} s (the process, its start-up "
+        f"and builds' loading included): value {got['value']:.3f}, "
+        f"value_tolgrid {got['value_tolgrid']:.3f}, FRB S/N "
+        f"{got['frb_snr']:.2f} at DM {got['frb_dm']:.2f}; launches "
+        f"{launched}")
+    return launched
+
+
 def main() -> None:
     t_start = time.perf_counter()
     smi = phase_device()
@@ -2920,6 +2955,13 @@ def main() -> None:
     got = phase_mesh(dev)
     for k in (k_dedisp, k_rfi, *k_ema):
         k["launches"] += got.get(k["name"], 0)
+    k_dedisp["launches_f32_entry"] += got["dedisperse_pallas"] - \
+        got["dedisperse_pallas_packed"]
+    torch.cuda.empty_cache()
+    # and the headline bench's integrated loops, in a process of their own
+    got = phase_bench()
+    for k in (k_chain, k_dedisp, k_rfi, *k_ema):
+        k["launches"] += got[k["name"]]
     k_dedisp["launches_f32_entry"] += got["dedisperse_pallas"] - \
         got["dedisperse_pallas_packed"]
     kernels = [k_chain, k_dedisp, k_rfi, *k_ema, k_pre, *k_ct, *staged]

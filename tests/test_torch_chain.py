@@ -283,3 +283,37 @@ def test_kurtosis_stream_needs_its_own_power_only_in_partial_blocks(
     got = tmk.chain_second_v2_plain(raw, bp, cfg)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("bp_in", [False, True])
+def test_reference_chain_numpy_equal_jax(bp_in):
+    """The numpy oracle, copied: equal outputs on the same second."""
+    cfg = PipelineConfig.tiny(rfi_mode=0)
+    raw = _noise(cfg.sample_rate, 2)
+    raw[1, 100:200] = 0           # the gap-fill value maps to 0
+    bp = np.random.default_rng(1).uniform(
+        1.0, 2.0, (cfg.npol_in, cfg.nchan)).astype(np.float32) \
+        if bp_in else None
+    got = tdsp.reference_chain_numpy(_t(cfg), raw, bp)
+    want = jdsp.reference_chain_numpy(cfg, raw, bp)
+    assert set(got) == set(want)
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
+def test_process_second_plain_held_to_the_numpy_oracle():
+    """tests/test_chain.py's parity with the numpy oracle, on the port's
+    plain program at rfi_mode 0: > 0.99 of 8-bit levels equal, none off
+    by more than one (the JAX package's bar there)."""
+    from vlite_fast_tpu_torch.models import synthesis as tsyn
+    from vlite_fast_tpu_torch.ops import quantize as tq
+    cfg = tconfig.PipelineConfig.tiny(rfi_mode=0)
+    raw = tsyn.white_noise_uint8(cfg.sample_rate, seed=2)
+    out, _ = tdsp.process_second_plain(cfg, torch.from_numpy(raw),
+                                       tdsp.init_state(cfg, "cpu"))
+    ref = tdsp.reference_chain_numpy(cfg, raw)
+    lev_ref = tq.quantize_8bit(torch.from_numpy(ref["trimmed"]))[0].numpy()
+    lev = out.packed.numpy()
+    assert lev.shape == lev_ref.shape
+    assert (lev == lev_ref).mean() > 0.99
+    assert np.abs(lev.astype(int) - lev_ref.astype(int)).max() <= 1

@@ -302,3 +302,18 @@ def test_module_runs_as_a_script(tmp_path):
                          text=True, timeout=120)
     assert res.returncode == 0, res.stderr[-2000:]
     assert json.loads(res.stdout) == {"cmd": "F", "od": None}
+
+
+def _subcommands(main, capsys):
+    """The subcommands a CLI's --help lists."""
+    with pytest.raises(SystemExit):
+        main(["--help"])
+    usage = capsys.readouterr().out
+    return set(usage.split("{", 1)[1].split("}", 1)[0].split(","))
+
+
+def test_every_jax_subcommand_is_the_ports(capsys):
+    want = _subcommands(jcli.main, capsys)
+    got = _subcommands(tcli.main, capsys)
+    assert "bench" in want
+    assert want <= got, sorted(want - got)

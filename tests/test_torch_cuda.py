@@ -1272,3 +1272,17 @@ def test_array_step_nccl_matches_cpu(cuda):
     assert counts["dedisperse_pallas"] == info.nant + 1
     assert counts["dedisperse_pallas_packed"] == 0
     assert not any(counts_cpu.values())
+
+
+def test_pipeline_takes_a_device_second_in_place(cuda):
+    """StationPipeline(device='cuda') (no index) feeds a second already on
+    the card to the chain as it is, with no copy through the host."""
+    from vlite_fast_tpu_torch.config import SearchConfig
+    from vlite_fast_tpu_torch.runtime.pipeline import StationPipeline
+    cfg = PipelineConfig.tiny(nbit=2)
+    pipe = StationPipeline(1, cfg, SearchConfig.tiny(), keep_ring=False,
+                           device="cuda")
+    raw = torch.zeros((cfg.npol_in, cfg.sample_rate), dtype=torch.uint8,
+                      device=cuda)
+    assert pipe.device == raw.device
+    assert pipe._to_device(raw) is raw

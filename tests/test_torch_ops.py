@@ -2,7 +2,8 @@
 
 Same inputs (seeded numpy) through vlite_fast_tpu.ops.* and
 vlite_fast_tpu_torch.ops.*.  Bars: quantize/pack/unpack/sel_and_dig
-byte-exact; kurtosis flags and weights equal; the sequential EMA within
+byte-exact, and so is genbase's digitizer; kurtosis flags and weights
+equal; the sequential EMA within
 rtol 1e-5 (same recurrence, f32 summation order of the seed mean may
 differ); channelize within 1e-4 of the peak (f32 DFTs with different
 summation orders); injection exact.
@@ -38,6 +39,19 @@ def test_convert_uint8_exact():
     u = np.arange(256, dtype=np.uint8)[None].repeat(2, 0)
     assert np.array_equal(_np(tunpack.convert_uint8(torch.from_numpy(u))),
                           _np(junpack.convert_uint8(jnp.asarray(u))))
+
+
+@pytest.mark.parametrize("scale,offset", [(0.02957 * 2, 128.5),
+                                          (0.05, 100.0)])
+def test_digitize_uint8_byte_exact(scale, offset):
+    """genbase's digitizer, across and beyond the 8-bit range."""
+    rng = np.random.default_rng(7)
+    x = (rng.standard_normal((2, 50_000)) * 3).astype(np.float32)
+    x[0, :4] = (-1e3, 1e3, 0.0, -0.0)
+    got = tunpack.digitize_uint8(torch.from_numpy(x), scale, offset)
+    assert got.dtype == torch.uint8
+    assert np.array_equal(_np(got), _np(junpack.digitize_uint8(
+        jnp.asarray(x), scale, offset)))
 
 
 @pytest.mark.parametrize("nbit", [2, 4, 8])

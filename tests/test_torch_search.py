@@ -4,7 +4,8 @@ Bars: plan tables equal; dedispersion allclose(rtol=1e-5, atol=1e-4)
 against both JAX engines (the gather engine and the Pallas kernel in
 interpret mode; the sums of the same f32 terms are taken in different
 orders); boxcar S/N rtol 1e-5 (atol 1e-5 for S/N near zero, where the
-cumulative sums' rounding is absolute); top-k crossings identical.
+cumulative sums' rounding is absolute); top-k crossings identical;
+find_candidates' candidates equal, field for field, on the same S/N cube.
 """
 
 import dataclasses
@@ -249,3 +250,79 @@ def test_coadd_matches_jax(nant, weighted):
                                    None if w is None else jnp.asarray(w)))
     assert got.dtype == torch.float32 and got.shape == want.shape
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-6)
+
+
+def _cube_one_pulse():
+    rng = np.random.default_rng(2)
+    dmt = rng.standard_normal((16, 512)).astype(np.float32) * 8.0
+    dmt[5, 200:204] += 10.0 * 8.0
+    return dmt, 64.0, (1, 2, 4, 8), jdd.dm_grid(0, 150, 16), 6.0
+
+
+def _cube_dispersed_blob():
+    """tests/test_dedisperse.py's make_fb(amp=6.0), a pulse at DM 150 on
+    a 4 MHz band, dedispersed by the gather engine: one blob of crossings
+    over DM, width and time."""
+    rng = np.random.default_rng(0)
+    ntime, nchan = 800, 64
+    fb = rng.standard_normal((ntime, nchan)).astype(np.float32)
+    freqs = 384.0 - np.arange(nchan) * (4.0 / nchan)
+    delays = tdd.delay_table(np.array([150.0]), freqs, TSAMP)[0]
+    for ch in range(nchan):
+        if 100 + delays[ch] < ntime:
+            fb[100 + delays[ch], ch] += 6.0
+    dms = jdd.dm_grid(0, 300, 61)
+    plan = jdd.make_plan(dms, freqs, TSAMP, nsub=16, nbatch=61)
+    dmt = np.asarray(jdd.dedisperse(jnp.asarray(fb), plan,
+                                    ntime - plan.max_delay))
+    return dmt, plan.nchan_eff, (1, 2, 4, 8), dms, 6.5
+
+
+def _cube_nearby_pulses():
+    rng = np.random.default_rng(5)
+    dmt = rng.standard_normal((32, 800)).astype(np.float32) * 4.0
+    for t0 in (300, 360):
+        dmt[10:13, t0:t0 + 4] += 12.0 * 4.0
+    return dmt, 16.0, (1, 2, 4, 8), jdd.dm_grid(0, 150, 32), 7.0
+
+
+def _cube_distant_dms():
+    rng = np.random.default_rng(6)
+    dmt = rng.standard_normal((64, 400)).astype(np.float32) * 4.0
+    dmt[5:8, 200:204] += 12.0 * 4.0
+    dmt[50:53, 200:204] += 12.0 * 4.0
+    return dmt, 16.0, (1, 2, 4), jdd.dm_grid(0, 300, 64), 7.0
+
+
+@pytest.mark.parametrize("cube", [_cube_one_pulse, _cube_dispersed_blob,
+                                  _cube_nearby_pulses, _cube_distant_dms])
+def test_find_candidates_equal_jax(cube):
+    """The cubes of tests/test_dedisperse.py's find_candidates and
+    friends-of-friends tests, their S/N by the JAX boxcar."""
+    dmt, nchan_eff, widths, dms, thresh = cube()
+    snr = np.asarray(jdd.boxcar_snr(jnp.asarray(dmt), nchan_eff,
+                                    widths=widths))
+    got = tdd.find_candidates(snr, dms, TSAMP, thresh=thresh, widths=widths,
+                              t_offset=7)
+    want = jdd.find_candidates(snr, dms, TSAMP, thresh=thresh, widths=widths,
+                               t_offset=7)
+    assert len(want) >= 1
+    assert [c.to_line() for c in got] == [c.to_line() for c in want]
+
+
+def test_find_candidates_nothing_above_threshold():
+    snr = np.zeros((2, 4, 32), np.float32)
+    assert tdd.find_candidates(snr, np.arange(4.0), TSAMP) == \
+        jdd.find_candidates(snr, np.arange(4.0), TSAMP) == []
+
+
+@pytest.mark.parametrize("engine", ["auto", "pallas", "subband", "fourier"])
+def test_resolve_engine_on_the_cpu(engine):
+    assert tsearch.resolve_engine(engine, "cpu") == \
+        jsearch.resolve_engine(engine)
+    want = "pallas" if engine == "auto" else engine
+    assert tsearch.resolve_engine(engine, torch.device("cuda", 0)) == want
+    eng = tsearch.SinglePulseSearch(
+        tconfig.SearchConfig.tiny(engine=engine), TSAMP, FREQS,
+        device="cpu")
+    assert eng.engine == tsearch.resolve_engine(engine, "cpu")

@@ -19,16 +19,17 @@ python -m vlite_fast_tpu_torch.cli [--device D] <command>
   launch       start a whole array from one config: leader + coincidencer +
                N station daemons (the scripts/launch + start_single +
                start_coadd role)
+  bench        the headline benchmark (vlite_fast_tpu_torch/bench.py):
+               one JSON line of measured antennas per card
 
 The port's counterpart of vlite_fast_tpu/cli.py.  `--device` (default
 'cuda'; given before the command or after it) is the torch device of
-process, search, localize and launch's station daemons, where the JAX CLI
-took a jax platform; without a card they raise.  `process` also prints
+process, search, localize, bench and launch's station daemons, where the
+JAX CLI took a jax platform; without a card they raise.  `process` also prints
 the replay's wall, the kernel launches and peak device memory; `launch`
 prints each trigger and when it fired, and `launch --fake` waits for its
 local file: stations to replay their files before it settles.  The
 waterfall PNG is the port's own (analysis/waterfall: no axes or labels).
-The JAX CLI's bench, the headline benchmark, the port does not have yet.
 """
 
 from __future__ import annotations
@@ -510,9 +511,14 @@ def cmd_launch(args):
         "exit_codes": [pr.returncode for pr in procs]}))
 
 
+def cmd_bench(args):
+    from vlite_fast_tpu_torch import bench
+    bench.main(["--device", args.device])
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(prog="vlite_fast_tpu_torch")
-    device_help = ("torch device of process, search, localize and "
+    device_help = ("torch device of process, search, localize, bench and "
                    "launch's stations (default 'cuda'; 'cpu' for tiny test "
                    "geometries)")
     p.add_argument("--device", default="cuda", help=device_help)
@@ -658,6 +664,10 @@ def main(argv=None):
                         "with a remote host: set, then exit "
                         "(scripts/launch role as an explicit plan)")
     s.set_defaults(fn=cmd_launch)
+
+    s = sub.add_parser("bench", help="headline benchmark",
+                       parents=[on_device])
+    s.set_defaults(fn=cmd_bench)
 
     args = p.parse_args(argv)
     args.fn(args)

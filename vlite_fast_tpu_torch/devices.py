@@ -14,10 +14,15 @@ import torch
 
 
 def resolve(device) -> torch.device:
-    """torch.device(device), raising if it names CUDA and there is no card."""
+    """torch.device(device), raising if it names CUDA and there is no card.
+    A card named without an index gets the current one ('cuda' ->
+    'cuda:0'), the device of the tensors made on it, so that a tensor's
+    device compares equal to the entry point's."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             f"device {dev} asked for, but torch.cuda.is_available() is False; "
             "pass device='cpu' to run on the CPU")
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
     return dev

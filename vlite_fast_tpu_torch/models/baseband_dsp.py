@@ -32,7 +32,8 @@ ops/megakernel ('megakernel2' chain_second_v2; 'megakernel',
 'megakernel3', 'megakernel3f' chain_second with pretranspose 'xla',
 'pallas', 'pallas_bf16'; 'megakernel4' chain_second_v4).
 `process_second_plain` is the same function segment by segment on torch
-ops only, the oracle of all of them.
+ops only, the oracle of all of them; `reference_chain_numpy` is the JAX
+package's numpy oracle of the unweighted chain, copied.
 
 The port reads the JAX package's "on the TPU backend" of
 twin_chain_impl='auto' as "on any device": 'auto' gives the v2 chain
@@ -473,3 +474,36 @@ def twin_second(cfg: PipelineConfig, raw_second: torch.Tensor,
         segs_since_inject=since + cfg.seg_per_sec if since >= 0 else since)
     return SegmentOutput(packed, packed_kur, weights, dag.mean(),
                          _histo(cfg, raw_second)), new_state
+
+
+def reference_chain_numpy(cfg: PipelineConfig, raw: np.ndarray,
+                          bp_in: np.ndarray | None = None) -> dict:
+    """Slow, direct numpy oracle of the *unweighted* chain for tests:
+    convert -> rfft -> |.|^2 -> EMA bandpass -> pscrunch -> tscrunch ->
+    quantize levels (unpacked).  Mirrors the same math as process_segment
+    with rfi_mode=0 for flag-free data."""
+    npol, nsamp = raw.shape
+    x = raw.astype(np.float32) / 128.0 - 1.0
+    x[raw == 0] = 0.0
+    spec = np.fft.rfft(x.reshape(npol, -1, cfg.nfft), axis=-1)
+    p = (spec.real ** 2 + spec.imag ** 2).astype(np.float32)
+    ntime = p.shape[1]
+    bp = np.zeros((npol, cfg.nchan), np.float32) if bp_in is None \
+        else bp_in.copy()
+    out = np.empty_like(p)
+    seg = cfg.ffts_per_seg
+    for s in range(0, ntime, seg):
+        blk = p[:, s:s + seg]
+        mask = bp == 0.0
+        bp[mask] = np.mean(blk, axis=1)[mask]
+        for t in range(blk.shape[1]):
+            bp = (cfg.bp_scale * blk[:, t]
+                  + (1 - cfg.bp_scale) * bp).astype(np.float32)
+            out[:, s + t] = blk[:, t] / bp - 1.0
+    if cfg.npol_out == 1 and npol == 2:
+        out = (np.sqrt(np.float32(0.5)) * (out[0] + out[1]))[None]
+    ns = cfg.nscrunch
+    out = out.reshape(out.shape[0], -1, ns, cfg.nchan).sum(2) * np.float32(
+        1.0 / np.sqrt(ns))
+    trimmed = out[:, :, cfg.chanmin:cfg.chanmax + 1]
+    return {"power": p, "normalized": out, "trimmed": trimmed, "bp": bp}

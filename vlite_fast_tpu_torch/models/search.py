@@ -10,7 +10,8 @@ host, which clusters them into candidates.  SearchConfig.engine
 'fourier' dedisperses by Fourier phase ramps instead
 (ops/dedisperse.dedisperse_fourier, on any device; packed rows are
 dequantized first); 'auto', 'pallas' and 'subband' all take the fold
-kernel on a CUDA tensor and the gather engine on a CPU one.
+kernel on a CUDA tensor and the gather engine on a CPU one
+(`resolve_engine` names what 'auto' gives on a device).
 """
 
 from __future__ import annotations
@@ -40,6 +41,15 @@ def make_dm_grid(scfg: SearchConfig, tsamp: float,
         step = dms[-1] - dms[-2]
         dms = np.concatenate([dms, dms[-1] + step * np.arange(1, pad + 1)])
     return dms
+
+
+def resolve_engine(engine: str, device) -> str:
+    """The engine `engine` gives on `device`: 'auto' -> 'pallas' (the
+    CUDA fold kernel, ops/dedisperse_pallas) on a CUDA device, 'subband'
+    (the gather engine) on the CPU; any other value as it is."""
+    if engine != "auto":
+        return engine
+    return "pallas" if torch.device(device).type == "cuda" else "subband"
 
 
 def boxcar_widths(boxcar_max: int) -> tuple:
@@ -138,6 +148,7 @@ class SinglePulseSearch:
                  device="cuda"):
         self.scfg = scfg
         self.device = devices.resolve(device)
+        self.engine = resolve_engine(scfg.engine, self.device)
         self.tsamp = float(tsamp)
         self.freqs_mhz = np.asarray(freqs_mhz)
         self.dms = make_dm_grid(scfg, self.tsamp, self.freqs_mhz)
@@ -161,7 +172,7 @@ class SinglePulseSearch:
         fb = torch.as_tensor(np.asarray(fb_block, dtype=np.float32),
                              device=self.device)
         ntime_out = fb.shape[0] - self.plan.max_delay
-        dmt = dedisperse(fb, self.plan, ntime_out, engine=self.scfg.engine)
+        dmt = dedisperse(fb, self.plan, ntime_out, engine=self.engine)
         return dd.boxcar_snr(dmt, self.plan.nchan_eff, self.widths)
 
     def _top_crossings(self, fb_dev: torch.Tensor, nbit: int = 0):
@@ -170,7 +181,7 @@ class SinglePulseSearch:
         packed = _device_gulp(
             fb_dev, self.plan, widths=self.widths, k=k, nbit=nbit,
             nchan=len(self.freqs_mhz), nbands=self.nbands,
-            thresh=float(self.scfg.snr_thresh), engine=self.scfg.engine)
+            thresh=float(self.scfg.snr_thresh), engine=self.engine)
         ntime_out = fb_dev.shape[0] - self.plan.max_delay
         return packed, (len(self.widths), len(self.dms), ntime_out)
 

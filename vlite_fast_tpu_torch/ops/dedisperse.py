@@ -7,9 +7,9 @@ form, the plain version of the CUDA kernel in ops/dedisperse_pallas;
 `dedisperse_fourier` the same sums as Fourier phase ramps (torch.fft, as
 the JAX package's is XLA and not a TPU kernel); `dedisperse_reference`
 the JAX package's exact numpy shift-and-sum, which the offline analysis
-(analysis/cutout, analysis/localization.refine_dm) calls.  `Candidate` and
-`cluster_hits` are numpy copies of the JAX package's (whose module
-imports jax).
+(analysis/cutout, analysis/localization.refine_dm) calls.  `Candidate`,
+`find_candidates` and `cluster_hits` are numpy copies of the JAX
+package's (whose module imports jax).
 """
 
 from __future__ import annotations
@@ -347,6 +347,29 @@ class _UnionFind:
         ra, rb = self.find(a), self.find(b)
         if ra != rb:
             self.parent[rb] = ra
+
+
+def find_candidates(snr: np.ndarray, dms: np.ndarray, tsamp: float,
+                    thresh: float = 6.0,
+                    widths: Sequence[int] = (1, 2, 4, 8, 16, 32, 64),
+                    t_offset: int = 0, max_cands: int = 4096,
+                    dm_link: int = 4, time_gap: int = 2) -> list:
+    """Threshold + friends-of-friends cluster a whole (nwidth, ndm, ntime)
+    S/N cube (heimdall's giant-finding/clustering stage), on the host."""
+    snr = np.asarray(snr)
+    hits = np.argwhere(snr > thresh)
+    if hits.size == 0:
+        return []
+    vals = snr[hits[:, 0], hits[:, 1], hits[:, 2]]
+    # cap: an RFI storm can produce millions of crossings; keep the
+    # strongest (preserves every real event's peak and its neighborhood)
+    cap = min(16 * max_cands, 20000)
+    if len(vals) > cap:
+        keep = np.argsort(-vals)[:cap]
+        hits, vals = hits[keep], vals[keep]
+    return cluster_hits(hits, vals, dms, tsamp, widths=widths,
+                        t_offset=t_offset, max_cands=max_cands,
+                        dm_link=dm_link, time_gap=time_gap)
 
 
 def cluster_hits(hits: np.ndarray, vals: np.ndarray, dms: np.ndarray,

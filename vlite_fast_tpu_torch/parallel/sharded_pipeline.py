@@ -105,7 +105,9 @@ def search_topk(span: torch.Tensor, plan: dd.DedispPlan,
     """span: (ntime_out + halo, nchan) f32 -> (2, nbands*kb + 1) packed
     crossings, per-DM-band quota'd (search.pack_topk_banded: the same
     RFI-storm guard the single-beam path uses)."""
-    dmt = search_mod.dedisperse(span, plan, ntime_out, engine=scfg.engine)
+    dmt = search_mod.dedisperse(
+        span, plan, ntime_out,
+        engine=search_mod.resolve_engine(scfg.engine, span.device))
     snr = dd.boxcar_snr(dmt, plan.nchan_eff, info.widths)
     return search_mod.pack_topk_banded(snr, k, info.nbands,
                                        float(scfg.snr_thresh))
