@@ -90,7 +90,8 @@ Phases, each printing a line:
      quarter to spare, else 2; both readings printed), 46 s so that the
      rings wrap after the first trigger: the FRB in every beam, the coadd
      candidate above every beam's, a trigger near DM 80 before the wrap
-     with one dump a station equal to the staged seconds it lists, every
+     with one dump a station equal to the staged seconds it lists, no
+     trigger from the last gulp (searched over its own rows), every
      dump equal to its seconds, each .fil of the right size, nothing
      dropped, and the launches (the chain kernel once a twin second, the
      armed kernels once an armed second, the dedispersion's packed entry
@@ -103,8 +104,9 @@ Phases, each printing a line:
      header's second): [16a] `python -m vlite_fast_tpu_torch.cli process
      FILE -i`, the FRB and a .fil of 24 s, its replay's wall; [16b] `cli
      launch --fake` of two station daemons on the same file: both
-     connect, a trigger near DM 80, each station's .fil and dumps equal
-     to the file's seconds, each daemon's wall a data-second and peak
+     connect, a trigger near DM 80 and no other, each station's .fil and
+     dumps equal to the file's seconds, each daemon's wall a data-second
+     and peak
      device memory; [16c] one daemon on live UDP, the leader in this
      process, 12 s of the file's frames restamped to the wall clock and
      blasted by the port's netcap udp_blast at the wire rate (51,200
@@ -154,9 +156,15 @@ Phases, each printing a line:
      f32 entry against its plain version on call 1's beam-0 span and
      coadd window, outside the counted window (allclose as [3]); each
      call's wall, antenna-seconds a second, device ms by part (CUDA
-     events) and peak memory; before call 1, the first call as the JAX
-     script starts it (zero bandpasses, random-byte history), printed and
-     not checked; [18b] coherent_dedisperse_sharded at 128
+     events) and peak memory; before call 0, the first call with no
+     history (the JAX step's random bytes are none in the port) from zero
+     bandpasses, as the JAX script starts it, and from the warm-up's: the
+     FRB in every beam and in the coadd from both, no DM band's top-k
+     saturated from the warm bandpasses, and from zero ones only bands
+     holding crossings of the first second (the cold bandpass's start-up
+     transient), the saturated bands and each start's crossings beside
+     call 0's;
+     [18b] coherent_dedisperse_sharded at 128
      MS/s, a 64 MHz band, DM 30, 2 s of two-pol voltages dispersed by one
      chirp: equal to the unsharded ops/coherent path (1e-4 of its rms)
      and within the JAX test's round-trip bar (on a 1x1 mesh both halos
@@ -799,8 +807,7 @@ def phase_gulp_passes(dev) -> None:
     torch.cuda.reset_peak_memory_stats(dev)
     total = cuda_ms(gulp, 3)
     peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
-    _, wall = timed_wall(lambda: eng.search_gulp_device(
-        packed, cfg.nbit, 0, scfg.gulp_samps))
+    _, wall = timed_wall(lambda: eng.search_gulp_device(packed, cfg.nbit))
     dmt = ddp.dedisperse_pallas_packed(packed, cfg.nbit, nchan, plan,
                                        ntime_out)
     snr = dd.boxcar_snr(dmt, plan.nchan_eff, eng.widths)
@@ -1304,7 +1311,8 @@ def phase_array(dev, n_sec: int = 46) -> dict:
     block tap into the coadd search, at PipelineConfig(inject_frb=True)
     and SearchConfig(); N = 4 where /dev/shm and memory hold four rings
     with a quarter to spare, else 2.  Long enough for the rings to wrap,
-    with the first trigger before they do.  Returns its kernel launches."""
+    with the first trigger before they do, and no trigger from the last
+    gulp.  Returns its kernel launches."""
     import os
     from vlite_fast_tpu_torch import PipelineConfig, SearchConfig
     from vlite_fast_tpu_torch.config import (AntennaConfig, ArrayConfig,
@@ -1405,6 +1413,12 @@ def phase_array(dev, n_sec: int = 46) -> dict:
         first, first_at = min(frb_trig, key=lambda x: x[1])
         check(first_at < RING_SECONDS, f"[15] the first trigger came after "
               f"{first_at} s, when the rings had wrapped")
+        # the last gulp, searched over its own rows, raises no trigger
+        gulp, overlap = scfg.gulp_samps, ap.stations[0].search.overlap
+        flush_s = (rows - overlap) // gulp * gulp * cfg.tsamp
+        flush_trig = [t for t in res["triggers"] if t.peak_time >= flush_s]
+        check(not flush_trig, f"[15] triggers from the last gulp (from "
+              f"{flush_s:.3f} s): {flush_trig}")
         # every dump holds the staged seconds it lists; the first DM-80
         # trigger has one dump per station, holding the burst's second
         frb_dumps = {}
@@ -1731,8 +1745,8 @@ def phase_launch(cfg, scfg, path: str, secs: list, t0_unix: float,
     """[16b] `cli launch --fake` of two stations (the same file: source for
     both), the leader in the CLI's process, each daemon a process of its
     own on the one card: both connect, a trigger near the injected DM,
-    each station's .fil and its dumps equal to the file's seconds.
-    Returns the daemons' kernel launches."""
+    each station's .fil and its dumps equal to the file's seconds, and no
+    other trigger.  Returns the daemons' kernel launches."""
     import glob
     import os
     acfg = _array_config([f"file:{path}"] * 2, cfg, scfg)
@@ -1788,12 +1802,13 @@ def phase_launch(cfg, scfg, path: str, secs: list, t0_unix: float,
         log(f"[16b]   trigger DM {t['dm']:.2f} S/N {t['sn']:.2f} window "
             f"[{t['t0'] - t0_unix:.3f}, {t['t1'] - t0_unix:.3f}] s "
             f"({t['meta']}), raised {t['fired_s']:.1f} s after FAKE_START")
-    flush = [t for t in trig if t not in frb]
+    # the last gulp is searched over its own rows: no trigger but the FRB's
+    other = [t for t in trig if t not in frb]
+    check(not other, f"[16b] triggers other than the FRB's: {other}")
     log(f"[16b] cli launch --fake, 2 stations on the same {ENTRY_SECONDS}-s "
         f"file: exit 0 in {took:.1f} s; array up, {got['triggers']} "
         f"trigger(s), {len(frb)} near DM {cfg.inject_dm:g}, "
-        f"{len(flush)} other (the flush gulp's, expected: ROADMAP Queue 3 "
-        f"#3); per station: "
+        f"{len(other)} other; per station: "
         + "; ".join(
             f"{sid}: wall {s['wall_s']:.1f} s, {1e3 * s['wall_per_data_s']:.1f}"
             f" ms a data-second (rt_factor {s['rt_factor']:.3f}), peak device"
@@ -2300,15 +2315,15 @@ def phase_fourier(dev, blocks) -> None:
 
     gulp_readings = []
     # the observation's first gulp, and one from a second before the FRB
-    # armed at PFB_FRB_S to the end (padded as the flush gulp is)
+    # armed at PFB_FRB_S to the end (searched over the rows the stream
+    # has, as the flush gulp is; the window is padded for the timings)
     for start in (0, (PFB_FRB_S - 1) * per_sec):
         nrows = min(full, rows.shape[0] - start)
         win = np.full((full, rows.shape[1]), q.NEAR_ZERO_FILL[cfg.nbit],
                       np.uint8)
         win[:nrows] = rows[start:start + nrows]
         win = torch.from_numpy(win).to(dev)
-        found = [eng.search_gulp_device(win, cfg.nbit, start,
-                                        nrows - fold.overlap)
+        found = [eng.search_gulp_device(win[:nrows], cfg.nbit, start)
                  for eng in (fold, four)]
         rel.append(dmt_err(win, cfg.nbit))
         near = [max((c for c in cs if abs(c.dm - cfg.inject_dm)
@@ -2414,10 +2429,11 @@ def phase_mesh_step(dev, mesh) -> dict:
     (fullgeom_mesh.initial_state): the FRB in every beam and in the coadd
     on both calls, the coadd above every beam, antenna 0's rows of call 1
     equal to process_second second by second, the dedispersion kernel
-    against its plain version on call 1's beam and coadd spans
-    (mesh_dedisp_check), and the launches of each call.  Before call 1,
-    the first call as the JAX script starts it, printed
-    (mesh_jax_start).  Returns the launches of both calls."""
+    against its plain version on call 0's beam and coadd spans
+    (mesh_dedisp_check), and the launches of each call.  Before call 0,
+    the first call as the JAX script starts it and from the warm-up's
+    bandpasses, both with no history (mesh_jax_start).  Returns the
+    launches of both calls."""
     from vlite_fast_tpu_torch.benchmarks import fullgeom_mesh as fg
     from vlite_fast_tpu_torch.models import baseband_dsp as dsp
     from vlite_fast_tpu_torch.parallel import sharded_pipeline as sp
@@ -2446,7 +2462,8 @@ def phase_mesh_step(dev, mesh) -> dict:
     for k in range(2):
         _, noise_ms = timed_wall(lambda: fg.fill_noise(raw, mesh, cfg, k, 0))
         if k == 0:
-            mesh_jax_start(step_fn, raw, mesh, cfg, info, scfg)
+            cold = mesh_jax_start(step_fn, raw, mesh, cfg, info, scfg,
+                                  (state[0].clone(), state[1].clone()))
         torch.cuda.reset_peak_memory_stats(dev)
         marks = []
         tail_in = state[2]
@@ -2494,6 +2511,11 @@ def phase_mesh_step(dev, mesh) -> dict:
             f"{stats['n_crossings']} crossings; noise made in "
             f"{noise_ms:.1f} ms")
         if k == 0:
+            warm_n = max(stats["n_crossings"], 1)
+            log(f"[18a] call 0's crossings: {stats['n_crossings']} from the "
+                f"warm-up's bandpasses and tail; with no history "
+                + ", ".join(f"{n} from {start} ({n / warm_n:.2f}x)"
+                            for start, n in cold.items()))
             mesh_dedisp_check(tail_in, out.packed_kur, plan, info, cfg)
             st = dsp.init_state(cfg, dev)._replace(bp=bp0[0], bp_kur=bp0[1])
             for s in range(MESH_SECONDS):
@@ -2517,29 +2539,72 @@ def phase_mesh_step(dev, mesh) -> dict:
     return launched
 
 
-def mesh_jax_start(step_fn, raw, mesh, cfg, info, scfg) -> None:
-    """[18a]'s first call as the JAX script starts it (the step's
-    make_inputs: zero bandpasses, `halo` rows of uniformly random bytes
-    for history, here from a torch seed on the card), not counted and not
-    checked: its result, printed, keeps ROADMAP Queue 3 #6 in view."""
+def saturated_bands(full, info, scfg) -> list:
+    """(shard, DM band, first and last second of its top-k's crossings)
+    of every saturated DM band of a one-rank step's output: a band whose
+    every top-k slot is above the threshold (search.decode_crossings)."""
+    from vlite_fast_tpu_torch.models import search
+    out = []
+    shards = [(f"beam {j}", full.beam_topk[0, j], info.c)
+              for j in range(info.mg)]
+    shards.append(("coadd", full.coadd_topk[0], info.ca))
+    nbands = search.effective_nbands(len(info.dms), info.nbands)
+    for name, packed, ntime in shards:
+        vals = packed[0, :-1].view(np.float32).reshape(nbands, -1)
+        idx = packed[1, :-1].astype(np.int64).reshape(nbands, -1)
+        for band in np.flatnonzero(vals.min(axis=1) > scfg.snr_thresh):
+            t = (idx[band] % ntime - info.halo) * info.tsamp
+            out.append((name, int(band), float(t.min()), float(t.max())))
+    return out
+
+
+def mesh_jax_start(step_fn, raw, mesh, cfg, info, scfg, warm_bp) -> dict:
+    """[18a]'s first call as the JAX script starts it, not counted: zero
+    bandpasses and the step's make_inputs history, which in the port is
+    none (tail None: the search starts at the stream's first row; the
+    JAX step's make_inputs draws `halo` rows of random bytes there).
+    Then the same call from the warm-up's bandpasses (`warm_bp`) and no
+    history.  Checked: the FRB in every beam and in the coadd from both
+    starts; no DM band's top-k saturated from the warm bandpasses; from
+    zero bandpasses only bands whose top-k holds crossings of the first
+    second, the cold bandpass's start-up transient (ROADMAP Queue 3 #2).
+    Returns each start's crossings."""
     from vlite_fast_tpu_torch.benchmarks import fullgeom_mesh as fg
     from vlite_fast_tpu_torch.parallel import sharded_pipeline as sp
-    gen = torch.Generator(device=mesh.device).manual_seed(0)
-    nbytes = cfg.npol_out * cfg.nchanout * cfg.nbit // 8
-    bp = torch.zeros((info.m, cfg.npol_in, cfg.nchan), device=mesh.device)
-    tail = torch.randint(0, 256, (info.m, info.halo, nbytes), generator=gen,
-                         device=mesh.device, dtype=torch.uint8)
-    out, wall_ms = timed_wall(lambda: step_fn(raw, bp, bp.clone(), tail)[0])
-    full = sp.gather_step_output(out, mesh)
-    del out
-    per_beam, coadd, stats = sp.extract_candidates(full, info, scfg)
-    verdict = fg.judge(per_beam, coadd, info, cfg.inject_dm)
-    kept = [b for b, v in verdict["beams"].items() if v["recovered"]]
-    log(f"[18a] the first call as the JAX script starts it (zero "
-        f"bandpasses, random-byte history; ROADMAP Queue 3 #6, not "
-        f"checked): {wall_ms:.1f} ms; {stats['n_crossings']} crossings, "
-        f"{stats['saturated_bands']} saturated DM bands; the FRB kept in "
-        f"{len(kept)} of {info.nant} beams; coadd {verdict['coadd']}")
+    zero = torch.zeros((info.m, cfg.npol_in, cfg.nchan), device=mesh.device)
+    crossings = {}
+    for start, (bp, bp_kur) in (("zero bandpasses", (zero, zero.clone())),
+                                ("warm bandpasses", warm_bp)):
+        out, wall_ms = timed_wall(lambda: step_fn(raw, bp, bp_kur)[0])
+        full = sp.gather_step_output(out, mesh)
+        del out
+        per_beam, coadd, stats = sp.extract_candidates(full, info, scfg)
+        verdict = fg.judge(per_beam, coadd, info, cfg.inject_dm)
+        kept = [b for b, v in verdict["beams"].items() if v["recovered"]]
+        snrs = [v["snr"] for v in verdict["beams"].values()
+                if v["recovered"]]
+        sat = saturated_bands(full, info, scfg)
+        log(f"[18a] the first call from {start} and no history: "
+            f"{wall_ms:.1f} ms; "
+            f"{stats['n_crossings']} crossings, {stats['saturated_bands']} "
+            f"saturated DM bands {sat}; the FRB kept in {len(kept)} of "
+            f"{info.nant} beams (S/N {min(snrs, default=0):.2f}-"
+            f"{max(snrs, default=0):.2f}); coadd {verdict['coadd']}")
+        check(len(kept) == info.nant and verdict["coadd"]["recovered"],
+              f"[18a] the first call from {start} and no history lost the "
+              f"FRB: {verdict}")
+        check(len(sat) == stats["saturated_bands"],
+              f"[18a] saturated bands {sat} vs {stats}")
+        if start == "warm bandpasses":
+            check(not sat, f"[18a] the first call from {start} and no "
+                  f"history saturated DM bands: {sat}")
+        else:
+            check(all(t0 < 1.0 for _, _, t0, _ in sat),
+                  f"[18a] the first call from {start} and no history "
+                  f"saturated DM bands holding no crossing of the first "
+                  f"second: {sat}")
+        crossings[start] = stats["n_crossings"]
+    return crossings
 
 
 def mesh_dedisp_check(tail, packed, plan, info, cfg) -> None:

@@ -1,6 +1,10 @@
 """The port's array path (StationPipeline's ring and block taps,
 CoaddSearcher, ArrayPipeline) against the JAX package's, on the CPU.
 
+The JAX side's gulp search runs at each gulp's own length, as the port's
+does (tests/jax_true_length.py; the JAX package as shipped pads a
+stream's last gulp, tests/test_torch_pipeline.py pins that departure).
+
 - ArrayPipeline.run_streaming with two antennas on the verify recipe's
   synthesized DM-300 pulse, rings on: per-beam and coadd candidates
   equal under the clear-threshold rule of tests/test_torch_pipeline.py
@@ -73,7 +77,11 @@ def _assert_same_candidates(got, want, thresh):
 
 def _run_both(tmp, acfg, method, seconds, **kw):
     """(JAX result, port result) of ArrayPipeline.<method> on the same
-    seconds, each pipeline closed after its run."""
+    seconds, each pipeline closed after its run.  The JAX package's gulp
+    search runs at each gulp's own length (jax_true_length), as the
+    port's does: the stations' and the coadd's last gulps are short, and
+    the JAX package as shipped pads them."""
+    from jax_true_length import true_length
     out = []
     for pkg, cls, doc in (("jax", JArray, JDoc), ("port", TArray, TDoc)):
         extra = {} if pkg == "jax" else {"device": "cpu"}
@@ -83,7 +91,8 @@ def _run_both(tmp, acfg, method, seconds, **kw):
             od = doc(name="ARRAY", ra=1.0, dec=0.5, scan_no=2,
                      start_time=1.7e9)
             per_ant = {sid: list(secs) for sid, secs in seconds.items()}
-            out.append(getattr(ap, method)(per_ant, od))
+            with true_length():
+                out.append(getattr(ap, method)(per_ant, od))
         finally:
             ap.close()
     return out

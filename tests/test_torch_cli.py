@@ -4,7 +4,9 @@ bytes, process's and search's candidates, the operator commands' output,
 and `launch --fake --device cpu` with two station daemons of the port
 over real sockets.
 
-Bar: synth byte-equal; candidates to tests/test_torch_pipeline.py's bar
+Bar: synth byte-equal; candidates (the JAX package's gulp search at each
+gulp's own length, as the port's: tests/jax_true_length.py) to
+tests/test_torch_pipeline.py's bar
 (those clear of the threshold by 0.5 have equal DM index, peak index and
 width, S/N within rtol 1e-3); the operator commands print the same.
 Every port is bound by its own socket or checked free just before use.
@@ -72,7 +74,10 @@ def _same(got, want):
 
 @pytest.fixture(scope="module")
 def processed(vdif_path, tmp_path_factory):
-    """Both packages' `process` on the same file (and its .fil)."""
+    """Both packages' `process` on the same file (and its .fil), the JAX
+    package's gulp search at each gulp's own length, as the port's
+    (jax_true_length: the stream's last gulp is short)."""
+    from jax_true_length import true_length
     out = {}
     for name, main, extra in (("torch", tcli.main, ["--device", "cpu"]),
                               ("jax", jcli.main, [])):
@@ -80,7 +85,7 @@ def processed(vdif_path, tmp_path_factory):
         import io
         from contextlib import redirect_stdout
         buf = io.StringIO()
-        with redirect_stdout(buf):
+        with redirect_stdout(buf), true_length():
             main(["process", vdif_path, *TINY, "--ndm", "61", "-o", d,
                   *extra])
         out[name] = json.loads(buf.getvalue().strip().splitlines()[-1])
@@ -100,11 +105,15 @@ def test_process_candidates_match_jax(processed):
 
 
 def test_search_candidates_match_jax(processed, capsys):
+    """`search` of the .fil, the last gulp at its own length in both
+    (jax_true_length)."""
+    from jax_true_length import true_length
     fil = processed["torch"]["fil"]
     args = ["search", fil, "--dm-min", "0", "--dm-max", "600", "--ndm",
             "61", "--gulp", "512", "--boxcar", "16"]
     got = _run(tcli.main, ["--device", "cpu", *args], capsys).splitlines()
-    want = _run(jcli.main, args, capsys).splitlines()
+    with true_length():
+        want = _run(jcli.main, args, capsys).splitlines()
     _same(got, want)
 
 

@@ -131,10 +131,11 @@ def test_cold_start_candidates_match_jax(tmp_path, seg_per_sec):
 
 
 def test_flush_gulp_candidates_match_jax(tmp_path):
-    """6 s of pure noise whose last gulp is mostly padding (600 rows of
-    2400 + 453, padded with the near-zero level): both packages give the
-    same candidates, and in both the padded gulp raises spurious ones at
-    its start (a fault shared with the reference: ROADMAP Queue 3 #3)."""
+    """6 s of pure noise whose last gulp is short (600 rows of 2400 +
+    453).  The JAX package pads it with the near-zero level and raises
+    spurious candidates at its start (ROADMAP Queue 3 #3); the port
+    searches its 600 rows and raises none there.  The gulps before it
+    give both packages the same candidates."""
     cfg = PipelineConfig.tiny(nbit=2)
     scfg = SearchConfig.tiny(gulp_samps=2400)
     secs = _seconds(cfg, 6)
@@ -147,13 +148,15 @@ def test_flush_gulp_candidates_match_jax(tmp_path):
             ((1.6e9 + s, buf) for s, buf in enumerate(secs)),
             doc(name="FLUSH", start_time=1.6e9), write_fil=False))
         pipe.close()
+    flush_start = scfg.gulp_samps
     key = lambda r: sorted((c.dmi, c.peak_idx, c.tfilt, c.i0, c.i1)
                            for c in r.candidates if c.snr > scfg.snr_thresh
-                           + 0.5)
+                           + 0.5 and c.peak_idx < flush_start)
     assert key(results[1]) == key(results[0])
-    flush_start = scfg.gulp_samps
     assert any(c.i0 == flush_start and c.snr > 12.0
-               for c in results[1].candidates)
+               for c in results[0].candidates)
+    assert not [c for c in results[1].candidates
+                if c.peak_idx >= flush_start and c.snr > scfg.snr_thresh]
 
 
 def test_feed_seconds_one_entry_per_second_per_program(tmp_path):

@@ -208,13 +208,24 @@ def _same(got, want):
 @pytest.mark.parametrize("dtype", [np.float16, np.float32])
 def test_search_gulp_matches_jax(dtype):
     """search_gulp on a float gulp (the coadd stream's float16, or f32),
-    short of a full gulp so that both pad it: the same candidates."""
+    40 rows short of a full gulp: the port searches it at its own length,
+    with the same candidates as the JAX engine's search of those rows
+    (jax_true_length); the JAX engine as shipped pads the gulp with
+    zeros and reads each S/N against a lower noise."""
+    from jax_true_length import true_length
     te, je = _engines()
     fb = _pulsed(te, te.scfg.gulp_samps + te.overlap - 40, 41).astype(dtype)
     got = te.search_gulp(fb, t_offset=100)
     assert tddp.LAUNCHES == 0                 # CPU: the plain version
-    _same(got, je.search_gulp(fb, t_offset=100))
+    padded = je.search_gulp(fb, t_offset=100)
+    with true_length():
+        _same(got, je.search_gulp(fb, t_offset=100))
     assert te.last_gulp_stats == je.last_gulp_stats
+    # the departure: the same clusters, each read hotter in the padded gulp
+    snr = lambda cs: np.array([c.snr for c in sorted(
+        cs, key=lambda c: (c.dmi, c.peak_idx, c.tfilt))])
+    assert len(padded) == len(got)
+    assert (snr(padded) > snr(got) * 1.001).all()
 
 
 def test_snr_cube_matches_jax():
@@ -229,11 +240,14 @@ def test_snr_cube_matches_jax():
 
 
 def test_search_stream_matches_jax():
-    """A filterbank of several gulps and a ragged tail."""
+    """A filterbank of several gulps and a ragged tail, the tail searched
+    at its own length in both (jax_true_length)."""
+    from jax_true_length import true_length
     te, je = _engines()
     fb = _pulsed(te, 3 * te.scfg.gulp_samps + 150, 43,
                  at=(100, 400, 650, 900))
-    _same(te.search_stream(fb), je.search_stream(fb))
+    with true_length():
+        _same(te.search_stream(fb), je.search_stream(fb))
 
 
 @pytest.mark.parametrize("weighted", [False, True])

@@ -118,7 +118,10 @@ def test_shipped_candidates_match_jax(synth_vdif, tmp_path, start_time):
 
 def test_candidate_utc_rebase_across_skewed_stations(synth_vdif, tmp_path):
     """Station 2's capture locks one second late: both packages key its
-    batches by the observation's UTC and rebase its indices alike."""
+    batches by the observation's UTC and rebase its indices alike.  The
+    JAX daemon's gulp search runs at each gulp's own length, as the
+    port's (jax_true_length: the last gulp is short)."""
+    from jax_true_length import true_length
     secs = _secs(synth_vdif)
     out = {}
     for pkg, doc in (("jax", JDoc), ("torch", tctl.ObservationDocument)):
@@ -126,8 +129,9 @@ def test_candidate_utc_rebase_across_skewed_stations(synth_vdif, tmp_path):
             d = _daemon(pkg, sid, str(tmp_path / f"{pkg}{sid}"), gulp=512)
             d.cands = fake = _FakeCandClient()
             try:
-                d.run_observation(iter(ss), doc(name="p", scan_no=2,
-                                                start_time=secs[0][0]))
+                with true_length():
+                    d.run_observation(iter(ss), doc(
+                        name="p", scan_no=2, start_time=secs[0][0]))
             finally:
                 d.shutdown()
             out[pkg, sid] = fake.batches

@@ -200,9 +200,7 @@ def _gulp_seconds(cfg: PipelineConfig, scfg: SearchConfig,
     full = scfg.gulp_samps + eng.overlap
     pk = torch.from_numpy(rng.integers(0, 256, (full, nbytes),
                                        dtype=np.uint8)).to(dev)
-    s = _timed(dev, lambda: eng.search_gulp_device(pk, cfg.nbit, 0,
-                                                   scfg.gulp_samps),
-               GULP_REPS)
+    s = _timed(dev, lambda: eng.search_gulp_device(pk, cfg.nbit), GULP_REPS)
     return s, len(eng.dms)
 
 

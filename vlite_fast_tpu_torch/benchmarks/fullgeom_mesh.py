@@ -99,14 +99,13 @@ def initial_state(mesh, cfg, info, seed: int) -> tuple:
     bandpasses and its last `halo` packed rows, so that the first call
     continues an observation as every later call does.
 
-    The JAX script starts from zero bandpasses and uniformly random bytes
-    (the step's make_inputs), and the first call then searches `halo`
-    rows of that history before the stream: at the production geometry
-    its levels' mean (~0.36 at 2 bits, against the data's ~-0.04) steps
-    away from the data's, the channel sum
-    turns the step into a wall of crossings before sample 0, every DM
-    band's top-k fills with them, and the burst is lost or dimmed
-    (ROADMAP Queue 3)."""
+    The other start is an observation's first call: zero bandpasses and
+    no history (the step's make_inputs, tail None), whose search starts
+    at the stream's first row.  The JAX script gives its first call
+    `halo` rows of uniformly random bytes instead, which its search reads
+    before sample 0; at 2 bits their mean (~0.36, against the data's
+    ~-0.04) fills every DM band's top-k with crossings, and the burst is
+    lost."""
     from vlite_fast_tpu_torch.models import baseband_dsp as dsp
     dev = mesh.device
     nsec = -(-info.halo // (cfg.seg_per_sec * cfg.out_samps_per_seg))

@@ -12,6 +12,12 @@ host, which clusters them into candidates.  SearchConfig.engine
 dequantized first); 'auto', 'pallas' and 'subband' all take the fold
 kernel on a CUDA tensor and the gather engine on a CPU one
 (`resolve_engine` names what 'auto' gives on a device).
+
+A gulp is searched over the rows it is given.  A stream's last gulp,
+short of gulp + overlap rows, gives fewer outputs, and each DM's mean and
+noise come from those alone.  The JAX package pads it to the full shape
+(one TPU program for every gulp); padded rows sum fewer real channels,
+read as low noise, and make the real head read hot.
 """
 
 from __future__ import annotations
@@ -185,7 +191,12 @@ class SinglePulseSearch:
         ntime_out = fb_dev.shape[0] - self.plan.max_delay
         return packed, (len(self.widths), len(self.dms), ntime_out)
 
-    def _cands_from_crossings(self, packed, shape, t_offset, nvalid
+    def _check_rows(self, rows: int) -> None:
+        if rows <= self.overlap:
+            raise ValueError(f"a gulp of {rows} rows has no output: it "
+                             f"needs more than the overlap {self.overlap}")
+
+    def _cands_from_crossings(self, packed, shape, t_offset
                               ) -> List[dd.Candidate]:
         nw, ndm, ntime = [int(s) for s in shape]
         vals, hits, n_cross, saturated = decode_crossings(
@@ -193,53 +204,35 @@ class SinglePulseSearch:
             self.scfg.snr_thresh)
         self.last_gulp_stats = {"n_crossings": n_cross,
                                 "saturated_bands": saturated}
-        cands = dd.cluster_hits(
+        return dd.cluster_hits(
             hits, vals, self.dms, self.tsamp, widths=self.widths,
             t_offset=t_offset, max_cands=self.scfg.max_candidates)
-        limit = t_offset + nvalid      # drop anything inside the padding
-        return [c for c in cands if c.peak_idx < limit]
 
     def search_gulp(self, fb_block: np.ndarray,
                     t_offset: int = 0) -> List[dd.Candidate]:
-        """Search one gulp of a float filterbank (time, nchan), zero-padded
-        to gulp + overlap rows.  The caller's dtype ships as it is (the
-        coadd stream's float16: half the bytes of f32) and is cast to f32
-        on the device."""
-        full = self.scfg.gulp_samps + self.overlap
-        nvalid = fb_block.shape[0] - self.overlap
-        if fb_block.shape[0] < full:
-            pad = np.zeros((full - fb_block.shape[0], fb_block.shape[1]),
-                           fb_block.dtype)
-            fb_block = np.concatenate([fb_block, pad], axis=0)
+        """Search one gulp of a float filterbank (time, nchan).  The
+        caller's dtype ships as it is (the coadd stream's float16: half
+        the bytes of f32) and is cast to f32 on the device."""
+        self._check_rows(fb_block.shape[0])
         crossings, shape = self._top_crossings(
             torch.as_tensor(fb_block, device=self.device))
-        return self._cands_from_crossings(crossings, shape, t_offset, nvalid)
+        return self._cands_from_crossings(crossings, shape, t_offset)
 
     def search_gulp_packed(self, packed_block: np.ndarray, nbit: int,
                            t_offset: int = 0) -> List[dd.Candidate]:
-        """Search one gulp from packed host rows (time, nbytes), padded
-        with the quantizer's near-zero level and dequantized on the
-        device."""
-        full = self.scfg.gulp_samps + self.overlap
-        nvalid = packed_block.shape[0] - self.overlap
-        if packed_block.shape[0] < full:
-            pad = np.full((full - packed_block.shape[0],
-                           packed_block.shape[1]), q_ops.NEAR_ZERO_FILL[nbit],
-                          np.uint8)
-            packed_block = np.concatenate([packed_block, pad], axis=0)
+        """Search one gulp from packed host rows (time, nbytes),
+        dequantized on the device."""
+        self._check_rows(packed_block.shape[0])
         crossings, shape = self._top_crossings(
             torch.as_tensor(packed_block, device=self.device), nbit=nbit)
-        return self._cands_from_crossings(crossings, shape, t_offset, nvalid)
+        return self._cands_from_crossings(crossings, shape, t_offset)
 
     def search_gulp_device(self, packed_dev: torch.Tensor, nbit: int,
-                           t_offset: int, nvalid: int) -> List[dd.Candidate]:
-        """Search one gulp whose packed rows are already on the device,
-        exactly (gulp + overlap, nbytes)."""
-        full = self.scfg.gulp_samps + self.overlap
-        if int(packed_dev.shape[0]) != full:
-            raise ValueError(f"device gulp must be padded to {full} rows")
+                           t_offset: int = 0) -> List[dd.Candidate]:
+        """Search one gulp whose packed rows are already on the device."""
+        self._check_rows(int(packed_dev.shape[0]))
         crossings, shape = self._top_crossings(packed_dev, nbit=nbit)
-        return self._cands_from_crossings(crossings, shape, t_offset, nvalid)
+        return self._cands_from_crossings(crossings, shape, t_offset)
 
     def search_stream(self, fb: np.ndarray) -> List[dd.Candidate]:
         """Search a long (ntime, nchan) filterbank in overlapping gulps."""

@@ -294,8 +294,10 @@ def boxcar_snr(dmt: torch.Tensor, nchan_eff: float,
     outs = []
     for w_ in widths:
         box = cs[:, w_:] - cs[:, :-w_]
-        box = torch.cat([torch.zeros((ndm, w_ - 1), dtype=box.dtype,
-                                     device=box.device), box], dim=1)
+        # zero for t < w-1: every t when the box is longer than the row
+        box = torch.cat([torch.zeros((ndm, min(w_ - 1, ntime)),
+                                     dtype=box.dtype, device=box.device),
+                         box], dim=1)
         outs.append(box * inv_sigma
                     * torch.rsqrt(torch.tensor(float(w_))).item())
     return torch.stack(outs)

@@ -44,8 +44,13 @@ def coherent_dedisperse_sharded(x_local: torch.Tensor, mesh, dm: float,
     if halo >= local:
         raise ValueError(f"shard span {local} smaller than the DM smearing "
                          f"halo {halo}; use fewer time shards")
-    block = halo_from_prev(x_local, halo, mesh, dim=1)     # past context
-    block = halo_from_next(block, halo, mesh, dim=1)       # future context
+    # [prev tail, x_local, next head]: the next shard's head from its own
+    # block, taken before any past halo is prepended to it (the JAX
+    # package appends the head of the next shard's extended block, which
+    # is this shard's own tail)
+    future = halo_from_next(x_local, halo, mesh, dim=1)[:, local:]
+    block = torch.cat([halo_from_prev(x_local, halo, mesh, dim=1), future],
+                      dim=1)
     ker = torch.conj(coh.dispersion_kernel(block.shape[1], dm, bandwidth_mhz,
                                            freq_bot_mhz, taper=False,
                                            device=block.device))

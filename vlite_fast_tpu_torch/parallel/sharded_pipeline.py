@@ -24,7 +24,9 @@ scripts/start_process:21) with collectives:
     beams' chunk one beam at a time (the per-antenna heimdall role), with
     the previous chunk's tail from its 'time' neighbor (parallel/halo;
     chunk 0 uses the packed tail carried from the previous call, so the
-    gulp overlap is seamless across calls).  Fixed-size packed top-k
+    gulp overlap is seamless across calls, and on an observation's first
+    call, which has no previous one, searches from the stream's first
+    row).  Fixed-size packed top-k
     crossings per beam are the output (the models/search gulp pattern).
   * Coadd search — an all_reduce over 'ant' forms the incoherent sum (the
     agdadacoadd MPI reduce); the coadd chunk's search is split in time
@@ -101,14 +103,27 @@ def dequant_rows(packed: torch.Tensor, cfg) -> torch.Tensor:
 
 def search_topk(span: torch.Tensor, plan: dd.DedispPlan,
                 info: "ArraySearchInfo", scfg: SearchConfig, ntime_out: int,
-                k: int) -> torch.Tensor:
+                k: int, skip: int = 0) -> torch.Tensor:
     """span: (ntime_out + halo, nchan) f32 -> (2, nbands*kb + 1) packed
     crossings, per-DM-band quota'd (search.pack_topk_banded: the same
-    RFI-storm guard the single-beam path uses)."""
-    dmt = search_mod.dedisperse(
-        span, plan, ntime_out,
-        engine=search_mod.resolve_engine(scfg.engine, span.device))
-    snr = dd.boxcar_snr(dmt, plan.nchan_eff, info.widths)
+    RFI-storm guard the single-beam path uses).
+
+    The first `skip` outputs lie before the stream's first sample: only
+    span[skip:] is searched, so each DM's mean and noise come from the
+    outputs from sample 0 on, and the skipped ones are S/N 0 (below any
+    threshold; the cube keeps its shape and its time index)."""
+    engine = search_mod.resolve_engine(scfg.engine, span.device)
+    if not skip:
+        snr = dd.boxcar_snr(search_mod.dedisperse(
+            span, plan, ntime_out, engine=engine), plan.nchan_eff,
+            info.widths)
+    else:
+        snr = torch.zeros((len(info.widths), len(plan.dms), ntime_out),
+                          dtype=torch.float32, device=span.device)
+        if skip < ntime_out:
+            snr[:, :, skip:] = dd.boxcar_snr(search_mod.dedisperse(
+                span[skip:], plan, ntime_out - skip, engine=engine),
+                plan.nchan_eff, info.widths)
     return search_mod.pack_topk_banded(snr, k, info.nbands,
                                        float(scfg.snr_thresh))
 
@@ -124,11 +139,15 @@ def build_array_step(acfg: ArrayConfig, mesh, nsec_per_call: int = 1,
     then recover the burst at pipeline.inject_dm in every beam and in the
     coadd.
 
-    step_fn(raw, bp, bp_kur, tail, marks=None)
+    step_fn(raw, bp, bp_kur, tail=None, marks=None)
         -> (ArrayStepOutput, (bp2, bpk2, tail2)), this rank's shards:
       raw:  (m, npol, nsec_per_call*sample_rate) uint8
       bp(_kur): (m, npol, nchan) float32 EMA carry
-      tail: (m, halo, nbytes) uint8 packed tail from the previous call
+      tail: (m, halo, nbytes) uint8 packed tail from the previous call,
+      or None on an observation's first call: there is no history, and
+      the search starts at the stream's first row, as heimdall's first
+      gulp does (the outputs before sample 0 are S/N 0, and no DM's mean
+      or noise reads them)
       (rows [d*m, (d+1)*m) of the JAX step's P(('ant','time')) arrays,
       on the mesh's device).  Collective: every rank of the mesh calls
       it.  With `marks` (a list, on a card) the step appends ("start",
@@ -198,7 +217,7 @@ def build_array_step(acfg: ArrayConfig, mesh, nsec_per_call: int = 1,
         nant=nant, k_beam=k_beam, k_co=k_co, tsamp=cfg.tsamp,
         nbands=nbands)
 
-    def step_fn(raw, bp, bp_kur, tail, marks=None):
+    def step_fn(raw, bp, bp_kur, tail=None, marks=None):
         def mark(part):
             if marks is not None:
                 ev = torch.cuda.Event(enable_timing=True)
@@ -225,8 +244,8 @@ def build_array_step(acfg: ArrayConfig, mesh, nsec_per_call: int = 1,
             wmean[i] = wm.sum() * norm_ops.recip(nsec_per_call)
             bp2[i], bpk2[i] = st.bp, st.bp_kur
         # next call's search tail: the last `halo` packed rows of the
-        # stream (prepend the incoming tail so halo > T also works)
-        tail2 = torch.cat([tail, packed], dim=1)[:, -halo:]
+        # stream (halo <= c <= T)
+        tail2 = packed[:, T - halo:].clone()
         mark("dsp")
 
         # ---- reshard: (m, T, nb) -> group beams x my chunk -------------
@@ -241,10 +260,20 @@ def build_array_step(acfg: ArrayConfig, mesh, nsec_per_call: int = 1,
         # ---- previous-chunk halo (overlap-save) -------------------------
         prev_in_call = ppermute(chunk[:, c - halo:], mesh, "time", 1)
         # chunk 0's history is the PREVIOUS call's tail (the input), not
-        # the tail just computed from this call's end
-        tails = [torch.empty_like(tail) for _ in range(ntblk)]
-        dist.all_gather(tails, tail.contiguous(), group=mesh.groups["time"])
-        prev = torch.cat(tails) if mesh.index("time") == 0 else prev_in_call
+        # the tail just computed from this call's end; on the first call
+        # it has none: its rows are a stand-in that no search reads
+        # (`first`, the outputs before sample 0, skipped below)
+        first = tail is None and mesh.index("time") == 0
+        if tail is not None:                # collective over 'time'
+            tails = [torch.empty_like(tail) for _ in range(ntblk)]
+            dist.all_gather(tails, tail.contiguous(),
+                            group=mesh.groups["time"])
+        if mesh.index("time"):
+            prev = prev_in_call
+        elif tail is not None:
+            prev = torch.cat(tails)
+        else:
+            prev = torch.zeros_like(prev_in_call)
         span_packed = torch.cat([prev, chunk], dim=1)   # (mg, c+halo, nb)
         mark("reshard")
 
@@ -252,7 +281,8 @@ def build_array_step(acfg: ArrayConfig, mesh, nsec_per_call: int = 1,
         beam_topk, co = [], None
         for j in range(mg):
             fb = dequant_rows(span_packed[j], cfg)      # (c+halo, nchan)
-            beam_topk.append(search_topk(fb, plan, info, scfg, c, k_beam))
+            beam_topk.append(search_topk(fb, plan, info, scfg, c, k_beam,
+                                         skip=halo if first else 0))
             co = fb if co is None else co.add_(fb)
         mark("beam_search")
 
@@ -263,7 +293,8 @@ def build_array_step(acfg: ArrayConfig, mesh, nsec_per_call: int = 1,
         mark("coadd_allreduce")
         start = mesh.index("ant") * ca if coadd_split else 0
         coadd_topk = search_topk(co[start:start + ca + halo], plan, info,
-                                 scfg, ca, k_co)
+                                 scfg, ca, k_co,
+                                 skip=max(0, halo - start) if first else 0)
         mark("coadd_search")
 
         return (ArrayStepOutput(packed, torch.stack(beam_topk)[None],
@@ -271,9 +302,11 @@ def build_array_step(acfg: ArrayConfig, mesh, nsec_per_call: int = 1,
                 (bp2, bpk2, tail2))
 
     def make_inputs(seed: int = 0):
-        """This rank's shards of the JAX step's make_inputs(seed) draw:
-        the same numpy sequence (raw, then the random tail levels), so
-        any mesh gives the inputs of a one-rank run."""
+        """This rank's shards of the first call's inputs: raw from the
+        JAX step's make_inputs(seed) draw (the same numpy sequence, so
+        any mesh gives the inputs of a one-rank run), zero bandpasses,
+        and no history (tail None: the JAX step draws `halo` rows of
+        random levels there, which its search reads before sample 0)."""
         rng = np.random.default_rng(seed)
         nsamp = nsec_per_call * rate
         lo = mesh.d * m
@@ -285,15 +318,8 @@ def build_array_step(acfg: ArrayConfig, mesh, nsec_per_call: int = 1,
                 raw[a - lo] = np.clip(x / 0.05914 + 128.5, 0,
                                       255).astype(np.uint8)
         bp = np.zeros((m, cfg.npol_in, cfg.nchan), np.float32)
-        # the first call's warm-up history (there is no data before the
-        # observation): RANDOM quantizer levels, not a constant — a
-        # constant fill makes the per-trial robust noise estimate of
-        # fill-dominated rows collapse to ~0, exploding S/N at the stream
-        # head; random levels over-estimate sigma there instead
-        tail = rng.integers(0, 256, (nant, halo, nbytes),
-                            dtype=np.uint8)[lo:lo + m]
         put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-        return put(raw), put(bp), put(bp.copy()), put(tail)
+        return put(raw), put(bp), put(bp.copy()), None
 
     return step_fn, make_inputs, plan, info
 
@@ -324,7 +350,8 @@ def extract_candidates(out: ArrayStepOutput, info: ArraySearchInfo,
     Returns ({beam: [Candidate]}, [coadd Candidate], stats) with peak/
     i0/i1 sample indices ABSOLUTE in the observation's output-sample
     stream (call_base = T * call_index).  The searched span of call k is
-    [call_base - halo, call_base + T - halo): the trailing halo samples
+    [call_base - halo, call_base + T - halo) (from sample 0 on a first
+    call, which has no history): the trailing halo samples
     wait for the next call's lookahead, exactly like heimdall's gulp
     overlap.  Crossings below scfg.snr_thresh or before sample 0 are
     dropped; clustering is the single-beam cluster_hits.  stats carries

@@ -124,10 +124,9 @@ class DeviceGulpStream:
     def append(self, block: torch.Tensor) -> None:
         self.blocks.append(block)
 
-    def window(self, start: int, stop: int, pad_to: int = 0,
-               fill: int = 0) -> Optional[torch.Tensor]:
-        """[start, stop) as one device tensor, padded on the device with
-        `fill` bytes up to pad_to rows; None if not resident/aligned."""
+    def window(self, start: int, stop: int) -> Optional[torch.Tensor]:
+        """[start, stop) as one device tensor; None if not
+        resident/aligned."""
         off = self.start
         if start < off:
             return None
@@ -147,12 +146,7 @@ class DeviceGulpStream:
         if have < stop - start:
             return None
         cat = parts[0] if len(parts) == 1 else torch.cat(parts, dim=0)
-        cat = cat[:stop - start]
-        if pad_to > stop - start:
-            cat = torch.cat([cat, torch.full(
-                (pad_to - (stop - start), int(cat.shape[1])), fill,
-                dtype=torch.uint8, device=cat.device)], dim=0)
-        return cat
+        return cat[:stop - start]
 
     def host_window(self, start: int, stop: int) -> np.ndarray:
         parts = []
@@ -360,7 +354,7 @@ class StationPipeline:
         self.search.search_gulp_device(
             torch.full((gulp + self.search.overlap, row),
                        q_ops.NEAR_ZERO_FILL[cfg.nbit], dtype=torch.uint8,
-                       device=self.device), cfg.nbit, 0, gulp)
+                       device=self.device), cfg.nbit)
         # the pinned host blocks of the seconds' rows that the stream
         # holds at once (the host gulp window, and a few in flight to the
         # .fil and the taps), allocated once here: the caching host
@@ -600,9 +594,8 @@ class StationPipeline:
                 flush and total - self._searched_to > overlap + 64):
             stop = min(self._searched_to + gulp + overlap, total)
             nrows = stop - self._searched_to
-            fill = q_ops.NEAR_ZERO_FILL[self.cfg.nbit]
             with torch.profiler.record_function("vfast.gulp_search"):
-                found = self._search_window(stop, nrows, fill)
+                found = self._search_window(stop)
             out.extend(found)
             st = self.search.last_gulp_stats
             self.metrics.set("vfast_gulp_crossings", st["n_crossings"])
@@ -622,17 +615,13 @@ class StationPipeline:
                 break
         return out
 
-    def _search_window(self, stop: int, nrows: int, fill: int
-                       ) -> List[dd.Candidate]:
-        """One gulp [searched_to, stop) from the device stream (padded
-        there), else from host bytes."""
-        gulp, overlap = self.scfg.gulp_samps, self.search.overlap
-        dev_win = self._fb_dev.window(self._searched_to, stop,
-                                      pad_to=gulp + overlap, fill=fill)
+    def _search_window(self, stop: int) -> List[dd.Candidate]:
+        """One gulp [searched_to, stop), at its own length, from the
+        device stream, else from host bytes."""
+        dev_win = self._fb_dev.window(self._searched_to, stop)
         if dev_win is not None:
             return self.search.search_gulp_device(
-                dev_win, self.cfg.nbit, t_offset=self._searched_to,
-                nvalid=nrows - overlap)
+                dev_win, self.cfg.nbit, t_offset=self._searched_to)
         packed = (self._fb.window(self._searched_to, stop)
                   if self._fb.total >= stop
                   else self._fb_dev.host_window(self._searched_to, stop))

@@ -102,8 +102,7 @@ def main() -> None:
     eng = search_mod.SinglePulseSearch(scfg, cfg.tsamp, cfg.freqs_mhz(),
                                        device=dev)
     full = scfg.gulp_samps + eng.overlap
-    gulp = lambda: eng.search_gulp_device(packed, cfg.nbit, 0,
-                                          scfg.gulp_samps)
+    gulp = lambda: eng.search_gulp_device(packed, cfg.nbit)
     traced("armed, cold", lambda: dsp.process_second(cfg, raw, state, True),
            warm=False)
     out, state = twin(twin_cfg, raw, state)
