@@ -21,7 +21,12 @@ Phases, each printing a line:
      dequantize, then the plain version);
   4. the main path: StationPipeline over 40 s of one antenna
      (PipelineConfig(inject_frb=True), SearchConfig()), prewarmed, the
-     injected FRB recovered, every twin second through the chain kernel,
+     injected FRB recovered within 0.2 of DM 80 at S/N 28-32 with no
+     candidate below DM 20 in the first 0.5 s (the bandpass seeded from
+     0.25 s, baseband_dsp.seed_bandpass, timed; rfi_front once more on
+     second 0 for it, and at that shape held against rfi_front_plain,
+     the kernel's seed against the plain front's within 1e-6 relative),
+     every twin second through the chain kernel,
      every armed second through the RFI front and both EMA kernels, and
      every gulp through the dedispersion kernel's packed entry (launch
      counts); the first armed second within 2x of the second, the 'auto'
@@ -91,7 +96,8 @@ Phases, each printing a line:
      rings wrap after the first trigger: the FRB in every beam, the coadd
      candidate above every beam's, a trigger near DM 80 before the wrap
      with one dump a station equal to the staged seconds it lists, no
-     trigger from the last gulp (searched over its own rows), every
+     other trigger (none from the last gulp, searched over its own
+     rows), every
      dump equal to its seconds, each .fil of the right size, nothing
      dropped, and the launches (the chain kernel once a twin second, the
      armed kernels once an armed second, the dedispersion's packed entry
@@ -122,10 +128,12 @@ Phases, each printing a line:
      kernels, DOHISTO) and SearchConfig() over 72 staged seconds through
      StationPipeline.run_observation(profile_dir=...) after prewarm, with
      .fils: every second through rfi_front and both EMA kernels and each
-     gulp through the dedispersion kernel, the FRB armed at second 60
-     near DM 80 at S/N >= 20 (the one armed at second 0 lies under the
-     start-up transient), the first two seconds (the pipeline's rows and
-     process_second in full) against process_second_plain at the chain
+     gulp through the dedispersion kernel (rfi_front once more for the
+     bandpass seed), the FRBs armed at seconds 0 and 60 near DM 80 at
+     S/N >= 20 and no candidate below DM 20 in the first 0.5 s, the
+     first two seconds (the pipeline's rows and process_second in full,
+     from the kernel's and the plain front's seeds, each held against
+     the other as in [4]) against process_second_plain at the chain
      bar, the _histo.npz
      equal to numpy's bincount of the staged seconds, the trace holding
      the pipeline's ranges (and whether the CUDA libraries' kernels are in
@@ -158,12 +166,11 @@ Phases, each printing a line:
      call's wall, antenna-seconds a second, device ms by part (CUDA
      events) and peak memory; before call 0, the first call with no
      history (the JAX step's random bytes are none in the port) from zero
-     bandpasses, as the JAX script starts it, and from the warm-up's: the
-     FRB in every beam and in the coadd from both, no DM band's top-k
-     saturated from the warm bandpasses, and from zero ones only bands
-     holding crossings of the first second (the cold bandpass's start-up
-     transient), the saturated bands and each start's crossings beside
-     call 0's;
+     bandpasses, as the JAX script starts it (the port seeds them from
+     each antenna's first second), and from the warm-up's: the FRB in
+     every beam and in the coadd from both, no DM band's top-k saturated
+     from either, the crossings from zero bandpasses within 1.5x of the
+     warm ones', each start's crossings beside call 0's;
      [18b] coherent_dedisperse_sharded at 128
      MS/s, a 64 MHz band, DM 30, 2 s of two-pol voltages dispersed by one
      chirp: equal to the unsharded ops/coherent path (1e-4 of its rms)
@@ -179,7 +186,10 @@ Phases, each printing a line:
  19. the port's headline bench, `python -m vlite_fast_tpu_torch.cli bench`
      (vlite_fast_tpu_torch/bench.py) in a process of its own at the
      reference geometry: exit 0 and one JSON line on its stdout holding
-     every key of BENCH_KEYS, the FRB recovered in both loops,
+     every key of BENCH_KEYS, the FRB recovered in both loops (within
+     0.2 of DM 80 at S/N 28-32 on the linear grid), no candidate below
+     DM 20 in
+     an observation's first 0.5 s,
      twin_agreement >= 0.9999, every utilization share in (0, 100],
      value_tolgrid <= 1.02 x value, and the main path's kernels launched
      in its integrated loops; the line and the phase's seconds printed;
@@ -212,6 +222,7 @@ import time
 import numpy as np
 import torch
 
+from vlite_fast_tpu_torch import bench
 from vlite_fast_tpu_torch import launches as kernel_launches
 from vlite_fast_tpu_torch.utils import perf
 
@@ -609,6 +620,16 @@ def phase_ct_chains(dev, raws, v2_gots, wants, plain_ms) -> list:
 
 ARMED_KERNELS = ("rfi_front", "normalize_ema_pallas",
                  "normalize_ema_weighted_pallas")
+# an observation's first bench.START_S seconds raise no candidate below
+# bench.START_MAX_DM at the search's threshold (bench.start_transient):
+# the bandpass is seeded from the EMA's own length of spectra
+# (baseband_dsp.seed_bandpass), where the tile seed's start-up transient
+# gave a DM-2.00, S/N-29.81 candidate at 0.049 s on an H100
+# the FRB (DM 80) is found within FRB_DM_TOL of its DM, at S/N 28-32: at
+# DM 80.04 on the linear grid ([19]), at 79.90 or 80.04 on the tolerance
+# grid ([4])
+FRB_DM_TOL = 0.2
+FRB_SNR = (28.0, 32.0)
 CHAIN_KERNELS = ("chain_second_v2", "pallas_pretranspose", "chain_second",
                  "chain_second_v4")
 # the kernels each twin second launches once, by twin_chain_impl
@@ -640,6 +661,51 @@ def check_fil(path: str, nrows: int, row_bytes: int, digest: str = None,
 
 
 _MAIN_PATH_SECONDS = []
+
+
+def seed_check(dev, cfg, raw, tag: str) -> tuple:
+    """The bandpass seed on the card against its plain version: rfi_front
+    against rfi_front_plain on the seed's slice of `raw` (its first
+    seed_spectra(cfg) spectra, the shape an observation's first second
+    launches it at), masked voltages, weights and flags equal and the TS
+    within 1e-5; then baseband_dsp.seed_bandpass through the kernel
+    against it through the plain front, from a fresh state: every entry
+    seeded, bandpasses within 1e-6 relative.  Returns (the kernel's
+    seeded state, the plain front's, a note for the log)."""
+    from vlite_fast_tpu_torch.models import baseband_dsp as dsp
+    from vlite_fast_tpu_torch.ops import rfi_pallas
+    n = dsp.seed_spectra(cfg)
+    u = raw[:, :n * cfg.nfft].contiguous()
+    args = (cfg.nkurto, cfg.nfft, cfg.dag_thresh, cfg.dag_fb_thresh)
+    got = rfi_pallas.rfi_front(u, *args)
+    want = rfi_pallas.rfi_front_plain(u, *args)
+    check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+          f"{tag} rfi_front on the seed's {tuple(u.shape)}: masked voltages "
+          f"or weights differ from rfi_front_plain")
+    flags = got[2] >= cfg.dag_thresh
+    check(torch.equal(flags, want[2] >= cfg.dag_thresh),
+          f"{tag} rfi_front on the seed's slice: fine-window flags differ")
+    ts = float((got[2] - want[2]).abs().max())
+    check(ts <= 1e-5, f"{tag} rfi_front on the seed's slice: TS off by {ts}")
+    nflag = int(flags.sum())
+    del got, want
+    st0 = dsp.init_state(cfg, dev)
+    st_k = dsp.seed_bandpass(cfg, raw, st0)
+    st_p = dsp.seed_bandpass(cfg, raw, st0, front=rfi_pallas.rfi_front_plain)
+    fields = ("bp", "bp_kur")
+    check(all(bool((getattr(st, f) > 0).all()) for st in (st_k, st_p)
+              for f in fields), f"{tag} the seed left a zero bandpass entry")
+    rel = max(rel_err(getattr(st_k, f), getattr(st_p, f), 1e-6)
+              for f in fields)
+    check(rel <= 1e-6, f"{tag} the kernel's seed off the plain front's by "
+          f"{rel} relative")
+    same = all(torch.equal(getattr(st_k, f), getattr(st_p, f))
+               for f in fields)
+    return st_k, st_p, (
+        f"the seed's rfi_front on {tuple(u.shape)} u8 equal to "
+        f"rfi_front_plain (masked voltages, weights, {nflag} windows "
+        f"flagged; TS diff {ts:.2e}, bar 1e-5), its bandpasses against the "
+        f"plain front's rel {rel:.2e} (bar 1e-6; bit-equal: {same})")
 
 
 def main_path_seconds(dev, cfg) -> list:
@@ -728,12 +794,14 @@ def phase_main_path(dev, twin: str = "auto", tag: str = "[4]",
     check(len(armed) == window, f"{len(armed)} armed seconds")
     twin_kernels = TWIN_KERNELS[twin]
     for sec, n in enumerate(per_sec):
+        # second 0 also seeds the bandpass: one more rfi_front launch
+        want = {k: int(sec < window) + (sec == 0 and k == "rfi_front")
+                for k in ARMED_KERNELS}
         if sec < window:        # armed at second 0
-            ok = not any(n[k] for k in CHAIN_KERNELS) and all(
-                n[k] == 1 for k in ARMED_KERNELS)
+            ok = not any(n[k] for k in CHAIN_KERNELS)
         else:
-            ok = all(n[k] == (k in twin_kernels) for k in CHAIN_KERNELS) \
-                and not any(n[k] for k in ARMED_KERNELS)
+            ok = all(n[k] == (k in twin_kernels) for k in CHAIN_KERNELS)
+        ok = ok and all(n[k] == want[k] for k in ARMED_KERNELS)
         check(ok, f"{tag} second {sec} "
               f"({'armed' if sec < window else 'twin'}) launched {n}")
     twin_s = pipe.feed_seconds["twin"]
@@ -741,8 +809,10 @@ def phase_main_path(dev, twin: str = "auto", tag: str = "[4]",
         launches[k] == (len(twin_s) if k in twin_kernels else 0)
         for k in CHAIN_KERNELS),
         f"chain kernel launches {launches} vs {len(twin_s)} twin seconds")
-    check(all(launches[k] == len(armed) for k in ARMED_KERNELS),
-          f"armed kernel launches {launches} vs {len(armed)} armed seconds")
+    check(all(launches[k] == len(armed) + (k == "rfi_front")
+              for k in ARMED_KERNELS),
+          f"armed kernel launches {launches} vs {len(armed)} armed seconds "
+          f"and one bandpass seed")
     check(gulps >= 1 and launches["dedisperse_pallas"] == gulps
           and launches["dedisperse_pallas_packed"] == gulps,
           f"dedispersion launches {launches} vs {gulps} gulps (each through "
@@ -761,6 +831,18 @@ def phase_main_path(dev, twin: str = "auto", tag: str = "[4]",
         if prod.candidates else None
     check(best is not None and best.snr >= 10.0,
           f"injected FRB not recovered: best near DM 80 {best}, top {top}")
+    # the observation starts from a settled bandpass: no start-up
+    # transient, and the FRB armed at second 0 at its own S/N
+    early = bench.start_transient(prod.candidates, scfg)
+    check(not early, f"{tag} candidates below DM {bench.START_MAX_DM:g} in "
+          f"the first {bench.START_S:g} s: {early}")
+    check(abs(best.dm - cfg.inject_dm) < FRB_DM_TOL
+          and FRB_SNR[0] <= best.snr <= FRB_SNR[1],
+          f"{tag} the FRB at DM {best.dm:.2f} S/N {best.snr:.2f}, not within "
+          f"{FRB_DM_TOL} of DM {cfg.inject_dm:g} at S/N {FRB_SNR}")
+    seed_ms = cuda_ms(lambda: dsp.seed_bandpass(
+        cfg, staged[0], dsp.init_state(cfg, dev)), 3)
+    _, _, seed_note = seed_check(dev, cfg, staged[0], tag)
     vs = f" ({twin_med / twin_device_ms:.3f}x phase 2's " \
         f"{twin_device_ms:.2f} ms)" if twin_device_ms else ""
     log(f"{tag} main path, twin_chain_impl={twin!r}: {prod.seconds} s of "
@@ -772,9 +854,15 @@ def phase_main_path(dev, twin: str = "auto", tag: str = "[4]",
         f"{1e3 * np.mean(twin_s):.2f} ms x{len(twin_s)} (median "
         f"{twin_med:.2f}{vs}); {gulps} gulps; FRB at DM "
         f"{best.dm:.2f} S/N {best.snr:.2f} (top candidate DM {top.dm:.2f} "
-        f"S/N {top.snr:.2f}, {len(prod.candidates)} candidates); peak "
+        f"S/N {top.snr:.2f}, {len(prod.candidates)} candidates; none below "
+        f"DM {bench.START_MAX_DM:g} in the first {bench.START_S:g} s); "
+        f"bandpass seed "
+        f"(seed_bandpass, {dsp.seed_spectra(cfg)} spectra) {seed_ms:.2f} "
+        f"ms (CUDA events, 3 reps), armed second 0 - second 1 "
+        f"{1e3 * (armed[0] - armed[1]):.2f} ms, {seed_note}; peak "
         f"device memory {peak:.2f} GiB; launches {launches} (each armed "
-        f"second: rfi_front and both EMA kernels once; each twin second: "
+        f"second: rfi_front and both EMA kernels once, second 0 rfi_front "
+        f"once more for the seed; each twin second: "
         f"{' and '.join(twin_kernels)} once; each gulp: the dedispersion "
         f"kernel's packed entry once){fil_note}")
     for c in sorted(prod.candidates, key=lambda c: -c.snr)[:5]:
@@ -1439,6 +1527,8 @@ def phase_array(dev, n_sec: int = 46) -> dict:
             f"[15] dumps of the DM-{cfg.inject_dm:g} trigger by station "
             f"{frb_dumps}")
         others = len(res["triggers"]) - 1
+        check(others == 0, f"[15] triggers other than the FRB's: "
+              f"{res['triggers']}")
         twin = sum(len(st.feed_seconds["twin"]) for st in ap.stations)
         armed = sum(len(st.feed_seconds["armed"]) for st in ap.stations)
         gulps = sum(int(st.metrics.get("vfast_gulps_searched"))
@@ -1447,12 +1537,13 @@ def phase_array(dev, n_sec: int = 46) -> dict:
             launches["dedisperse_pallas_packed"]
         check(twin + armed == nant * n_sec
               and launches["chain_second_v2"] == twin
-              and all(launches[k] == armed for k in ARMED_KERNELS)
+              and all(launches[k] == armed + nant * (k == "rfi_front")
+                      for k in ARMED_KERNELS)
               and launches["dedisperse_pallas_packed"] == gulps >= nant
               and f32 == ap.coadd.gulps >= 1,
               f"[15] launches {launches} vs {twin} twin and {armed} armed "
-              f"station-seconds, {gulps} station gulps, {ap.coadd.gulps} "
-              f"coadd gulps")
+              f"station-seconds, {nant} bandpass seeds, {gulps} station "
+              f"gulps, {ap.coadd.gulps} coadd gulps")
         host = {}
         for when, lo, hi in (("before", 0, RING_SECONDS),
                              ("after", RING_SECONDS, n_sec)):
@@ -1704,8 +1795,10 @@ def phase_process(cfg, path: str, out_dir: str, device: str = "cuda",
     check(got["seconds"] == ENTRY_SECONDS, f"[16a] {got['seconds']} seconds")
     check_fil(got["fil"], rows, cfg.nchanout * cfg.nbit // 8, what="[16a]")
     launched = got["launches"]
-    armed = launched.get("rfi_front", 0)
-    check(armed >= 1 and all(launched.get(k) == armed for k in ARMED_KERNELS)
+    # armed seconds; rfi_front once more for the observation's seed
+    armed = launched.get("normalize_ema_pallas", 0)
+    check(armed >= 1 and all(launched.get(k) == armed + (k == "rfi_front")
+                             for k in ARMED_KERNELS)
           and launched.get("chain_second_v2", 0) + armed == ENTRY_SECONDS
           and launched.get("dedisperse_pallas_packed", 0) >= 2,
           f"[16a] launches {launched}")
@@ -1792,8 +1885,10 @@ def phase_launch(cfg, scfg, path: str, secs: list, t0_unix: float,
                   for sid in summ}
     check(all(by_station.values()), f"[16b] dumps by station {by_station}")
     _check_dumps(dumps, secs, t0_unix, "[16b]")
-    armed = launched.get("rfi_front", 0)
-    check(all(launched.get(k) == armed >= 2 for k in ARMED_KERNELS)
+    # armed station-seconds; rfi_front once more for each station's seed
+    armed = launched.get("normalize_ema_pallas", 0)
+    check(armed >= 2 and all(launched.get(k) == armed + 2 * (k == "rfi_front")
+                             for k in ARMED_KERNELS)
           and launched.get("chain_second_v2", 0) + armed
           == 2 * ENTRY_SECONDS
           and launched.get("dedisperse_pallas_packed", 0) >= 4,
@@ -2023,7 +2118,7 @@ def phase_entry_points(dev) -> dict:
 
 # [17a]: two arms, at seconds 0 and 60 (C.INJECT_PERIOD_S), and 12 s after
 # the second, so that the gulps (12 s + the DM-1000 overlap, 9.3 s) search
-# it; the first arm's FRB lies under the start-up transient (see [17a])
+# it
 PFB_SECONDS = 72
 PFB_FRB_S = 60
 # the CUDA kernels of the armed program and the search, by a word of their
@@ -2123,11 +2218,11 @@ def pfb_parts(dev, cfg, raw) -> dict:
 def phase_pfb(dev) -> tuple:
     """[17a] the polyphase channelizer's observation, DOHISTO and the
     profile: PFB_SECONDS staged seconds through run_observation with a
-    profile_dir, after prewarm.  The FRB is held to the second arm's: at
-    the first, the WOLA's zero tail (a fresh state's, as the JAX
-    package's) lowers the bandpass seed and the start-up transient covers
-    the FRB.  Returns (its kernel launches, the packed
-    rows the block tap received, by second)."""
+    profile_dir, after prewarm.  Both arms' FRBs are held to S/N >= 20:
+    the bandpass seed leaves out the spectra that the WOLA's zero tail (a
+    fresh state's) makes partial, so no start-up transient covers the
+    first.  Returns (its kernel launches, the packed rows the block tap
+    received, by second)."""
     import os
     from vlite_fast_tpu_torch import PipelineConfig, SearchConfig
     from vlite_fast_tpu_torch.models import baseband_dsp as dsp
@@ -2198,9 +2293,11 @@ def phase_pfb(dev) -> tuple:
     # the dedispersion kernel's packed entry, never a chain kernel
     check(prod.seconds == PFB_SECONDS and len(armed) + len(twin_s)
           == PFB_SECONDS, f"[17a] {prod.seconds} seconds")
-    check(all(launches[k] == PFB_SECONDS for k in ARMED_KERNELS)
+    check(all(launches[k] == PFB_SECONDS + (k == "rfi_front")
+              for k in ARMED_KERNELS)
           and not any(launches[k] for k in CHAIN_KERNELS),
-          f"[17a] launches {launches} vs {PFB_SECONDS} seconds")
+          f"[17a] launches {launches} vs {PFB_SECONDS} seconds and one "
+          f"bandpass seed")
     check(gulps >= 1 and launches["dedisperse_pallas_packed"] == gulps,
           f"[17a] dedispersion launches {launches} vs {gulps} gulps")
     def frb(at):          # the best candidate near DM 80 within 1.5 s of at
@@ -2214,6 +2311,12 @@ def phase_pfb(dev) -> tuple:
     check(best is not None and best.snr >= 20.0,
           f"[17a] FRB armed at {PFB_FRB_S} s not recovered at S/N >= 20: "
           f"best near DM 80 {best}, top {top}")
+    check(first is not None and first.snr >= 20.0,
+          f"[17a] FRB armed at 0 s not recovered at S/N >= 20: best near "
+          f"DM 80 {first}, top {top}")
+    early = bench.start_transient(prod.candidates, scfg)
+    check(not early, f"[17a] candidates below DM {bench.START_MAX_DM:g} in "
+          f"the first {bench.START_S:g} s: {early}")
     # DOHISTO: the product is the staged seconds' bincount, every sample
     per_sec = [np.stack([np.bincount(r, minlength=256) for r in
                          s.cpu().numpy()]) for s in staged]
@@ -2223,8 +2326,8 @@ def phase_pfb(dev) -> tuple:
           f"[17a] _histo.npz differs from the staged seconds' bincount "
           f"(sum {int(hist.sum())})")
     # the first two seconds against the plain program, and the kernel
-    # program against the plain one in full
-    st_k = st_p = dsp.init_state(cfg, dev)
+    # program against the plain one in full, each from its own seed
+    st_k, st_p, seed_note = seed_check(dev, cfg, staged[0], "[17a]")
     worst, same, t_plain = {}, [], []
     for sec in range(2):
         got, st_k = dsp.process_second(cfg, staged[sec], st_k, sec == 0)
@@ -2257,12 +2360,15 @@ def phase_pfb(dev) -> tuple:
         f"{1e3 * float(np.median(twin_s)):.2f} ms x{len(twin_s)}, summed "
         f"{sum(spans):.2f} s; {gulps} gulps; the FRB armed at {PFB_FRB_S} s "
         f"at DM {best.dm:.2f} S/N {best.snr:.2f}, {best.peak_time:.3f} s; "
-        f"the one armed at 0 s: best near DM 80 in its 1.5 s {first} (top "
-        f"candidate DM {top.dm:.2f} S/N {top.snr:.2f} at "
-        f"{top.peak_time:.3f} s, {len(prod.candidates)} candidates); peak "
+        f"the one armed at 0 s at DM {first.dm:.2f} S/N {first.snr:.2f}, "
+        f"{first.peak_time:.3f} s; none below DM {bench.START_MAX_DM:g} in "
+        f"the first {bench.START_S:g} s (top candidate DM {top.dm:.2f} S/N "
+        f"{top.snr:.2f} at {top.peak_time:.3f} s, {len(prod.candidates)} "
+        f"candidates); peak "
         f"device memory "
         f"{peak:.2f} GiB; launches {launches}")
-    log(f"[17a] first 2 seconds vs process_second_plain: the pipeline's "
+    log(f"[17a] {seed_note}; first 2 seconds from the kernel's seed vs "
+        f"process_second_plain from the plain front's: the pipeline's "
         f".fil and _plain.fil rows and process_second's outputs, level "
         f"agreement >= {worst['agree']:.6f} (bar 0.9999), weights rel "
         f"{worst['weights_rel']:.2e}, dag_frac diff {worst['dag']:.2e}, "
@@ -2561,13 +2667,16 @@ def saturated_bands(full, info, scfg) -> list:
 def mesh_jax_start(step_fn, raw, mesh, cfg, info, scfg, warm_bp) -> dict:
     """[18a]'s first call as the JAX script starts it, not counted: zero
     bandpasses and the step's make_inputs history, which in the port is
-    none (tail None: the search starts at the stream's first row; the
-    JAX step's make_inputs draws `halo` rows of random bytes there).
-    Then the same call from the warm-up's bandpasses (`warm_bp`) and no
-    history.  Checked: the FRB in every beam and in the coadd from both
-    starts; no DM band's top-k saturated from the warm bandpasses; from
-    zero bandpasses only bands whose top-k holds crossings of the first
-    second, the cold bandpass's start-up transient (ROADMAP Queue 3 #2).
+    none (tail None: the search starts at the stream's first row, and
+    the zero bandpasses are seeded from each antenna's first second,
+    baseband_dsp.seed_bandpass; the JAX step's make_inputs draws `halo`
+    rows of random bytes there).  Then the same call from the warm-up's
+    bandpasses (`warm_bp`, which the seed passes through) and no history.
+    Checked: the FRB in every beam and in the coadd from both starts; no
+    DM band's top-k saturated from either; the crossings from zero
+    bandpasses within 1.5x of the warm ones' (the start-up transient of
+    a tile seed, ROADMAP Queue 3 #2, gave 6.81x and 4 saturated bands on
+    an H100).
     Returns each start's crossings."""
     from vlite_fast_tpu_torch.benchmarks import fullgeom_mesh as fg
     from vlite_fast_tpu_torch.parallel import sharded_pipeline as sp
@@ -2595,15 +2704,13 @@ def mesh_jax_start(step_fn, raw, mesh, cfg, info, scfg, warm_bp) -> dict:
               f"FRB: {verdict}")
         check(len(sat) == stats["saturated_bands"],
               f"[18a] saturated bands {sat} vs {stats}")
-        if start == "warm bandpasses":
-            check(not sat, f"[18a] the first call from {start} and no "
-                  f"history saturated DM bands: {sat}")
-        else:
-            check(all(t0 < 1.0 for _, _, t0, _ in sat),
-                  f"[18a] the first call from {start} and no history "
-                  f"saturated DM bands holding no crossing of the first "
-                  f"second: {sat}")
+        check(not sat, f"[18a] the first call from {start} and no history "
+              f"saturated DM bands: {sat}")
         crossings[start] = stats["n_crossings"]
+    ratio = crossings["zero bandpasses"] / max(
+        crossings["warm bandpasses"], 1)
+    check(1 / 1.5 <= ratio <= 1.5, f"[18a] the first call's crossings from "
+          f"zero bandpasses {ratio:.2f}x the warm ones' ({crossings})")
     return crossings
 
 
@@ -2902,7 +3009,8 @@ BENCH_KEYS = (
     "cand_latency_data_s", "search_engine", "dsp_f32_tflops",
     "dsp_f32_util_pct", "dsp_hbm_gbps_min", "dsp_hbm_util_pct_min",
     "dedisp_gulp_s", "dedisp_hbm_gbps", "dedisp_hbm_util_pct",
-    "dedisp_gadds_per_s", "dedisp_sol_hbm_s", "device", "launches")
+    "dedisp_gadds_per_s", "dedisp_sol_hbm_s", "device", "launches",
+    "start_lowdm_candidates")
 
 
 def phase_bench() -> dict:
@@ -2930,6 +3038,16 @@ def phase_bench() -> dict:
           f"{got['frb_dm']}, S/N {got['frb_snr']}")
     check(got["twin_agreement"] >= 0.9999,
           f"[19] twin agreement {got['twin_agreement']}")
+    check(got["start_lowdm_candidates"] == 0,
+          f"[19] {got['start_lowdm_candidates']} candidates below DM "
+          f"{bench.START_MAX_DM:g} in an observation's first "
+          f"{bench.START_S:g} s")
+    from vlite_fast_tpu_torch import PipelineConfig
+    inject_dm = PipelineConfig().inject_dm
+    check(abs(got["frb_dm"] - inject_dm) < FRB_DM_TOL
+          and FRB_SNR[0] <= got["frb_snr"] <= FRB_SNR[1],
+          f"[19] the FRB at DM {got['frb_dm']} S/N {got['frb_snr']}, not "
+          f"within {FRB_DM_TOL} of DM {inject_dm:g} at S/N {FRB_SNR}")
     shares = {k: v for k, v in got.items() if "_util_pct" in k}
     check(len(shares) == 3 and all(
         isinstance(v, (int, float)) and 0 < v <= 100
@@ -2945,7 +3063,9 @@ def phase_bench() -> dict:
     log(f"[19] cli bench passed in {took:.1f} s (the process, its start-up "
         f"and builds' loading included): value {got['value']:.3f}, "
         f"value_tolgrid {got['value_tolgrid']:.3f}, FRB S/N "
-        f"{got['frb_snr']:.2f} at DM {got['frb_dm']:.2f}; launches "
+        f"{got['frb_snr']:.2f} at DM {got['frb_dm']:.2f}, "
+        f"{got['start_lowdm_candidates']} candidates below DM "
+        f"{bench.START_MAX_DM:g} in the first {bench.START_S:g} s; launches "
         f"{launched}")
     return launched
 

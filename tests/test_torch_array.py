@@ -3,7 +3,10 @@ CoaddSearcher, ArrayPipeline) against the JAX package's, on the CPU.
 
 The JAX side's gulp search runs at each gulp's own length, as the port's
 does (tests/jax_true_length.py; the JAX package as shipped pads a
-stream's last gulp, tests/test_torch_pipeline.py pins that departure).
+stream's last gulp, tests/test_torch_pipeline.py pins that departure),
+and its stations start from the port's first bandpass
+(tests/jax_seeded.py; the JAX package as shipped seeds it from the first
+segment's tile).
 
 - ArrayPipeline.run_streaming with two antennas on the verify recipe's
   synthesized DM-300 pulse, rings on: per-beam and coadd candidates
@@ -80,7 +83,9 @@ def _run_both(tmp, acfg, method, seconds, **kw):
     seconds, each pipeline closed after its run.  The JAX package's gulp
     search runs at each gulp's own length (jax_true_length), as the
     port's does: the stations' and the coadd's last gulps are short, and
-    the JAX package as shipped pads them."""
+    the JAX package as shipped pads them.  Its stations start from the
+    port's seed (jax_seeded)."""
+    from jax_seeded import seeded
     from jax_true_length import true_length
     out = []
     for pkg, cls, doc in (("jax", JArray, JDoc), ("port", TArray, TDoc)):
@@ -91,7 +96,7 @@ def _run_both(tmp, acfg, method, seconds, **kw):
             od = doc(name="ARRAY", ra=1.0, dec=0.5, scan_no=2,
                      start_time=1.7e9)
             per_ant = {sid: list(secs) for sid, secs in seconds.items()}
-            with true_length():
+            with true_length(), seeded():
                 out.append(getattr(ap, method)(per_ant, od))
         finally:
             ap.close()
@@ -272,7 +277,9 @@ def test_station_taps_kurto_and_ring(tmp_path):
     chain, no injection: byte-exact between the packages), the
     _kurto.npz weights are equal; the port's ring holds each fed second
     (FLAG_OBS_START on the first, the observation header), drops
-    nothing, and close() unlinks its segment."""
+    nothing, and close() unlinks its segment.  The JAX station starts
+    from the port's seed (jax_seeded)."""
+    from jax_seeded import seeded
     cfg = PipelineConfig.tiny(nbit=2, ema_impl="scan")
     scfg = SearchConfig.tiny()
     secs = _noise_seconds(cfg, 4)
@@ -289,9 +296,10 @@ def test_station_taps_kurto_and_ring(tmp_path):
             doc = TDoc
         pipe.block_taps.append(
             lambda sid, off, b: taps.append((sid, off, b.copy())))
-        prod = pipe.run_observation(
-            ((1.6e9 + s, b) for s, b in enumerate(secs)),
-            doc(name="TAPS", start_time=1.6e9, scan_no=3))
+        with seeded():
+            prod = pipe.run_observation(
+                ((1.6e9 + s, b) for s, b in enumerate(secs)),
+                doc(name="TAPS", start_time=1.6e9, scan_no=3))
         kurto = np.load(prod.fil_path.replace(".fil", "_kurto.npz"))
         got[pkg] = (taps, kurto["weights"], prod)
         if pkg == "port":

@@ -5,7 +5,8 @@ DM 60, SearchConfig.tiny's linear grid and its tolerance grid, 5 s a loop
 
 Bars: every key of the bench's line is there; every number is finite;
 the shares of the card's peaks are None (not measured on the CPU) and the
-device is 'cpu'; the FRB is recovered in both loops; the twin agrees with
+device is 'cpu'; the FRB is recovered in both loops, and no candidate
+below DM 20 comes in an observation's first 0.5 s; the twin agrees with
 the armed program to its bar (1.0 where it is the same program, else
 0.9999 of 2-bit levels).  The CLI's bench reaches bench.main with its
 --device; a card asked for where there is none raises.
@@ -32,7 +33,7 @@ KEYS = ("value", "value_tolgrid", "tolgrid_trials", "dsp_only_rt_factor",
         "dsp_f32_tflops", "dsp_f32_util_pct", "dsp_hbm_gbps_min",
         "dsp_hbm_util_pct_min", "dedisp_gulp_s", "dedisp_hbm_gbps",
         "dedisp_hbm_util_pct", "dedisp_gadds_per_s", "dedisp_sol_hbm_s",
-        "device", "launches")
+        "device", "launches", "start_lowdm_candidates")
 CFG = PipelineConfig.tiny(inject_frb=True, nbit=2, sample_rate=500_000,
                           inject_dm=60.0, inject_amp=2.0,
                           inject_width_s=8e-3)
@@ -58,6 +59,8 @@ def test_bench_on_the_cpu_gives_every_key(result):
     assert result["frb_recovered"]
     assert abs(result["frb_dm"] - CFG.inject_dm) <= 0.1 * CFG.inject_dm
     assert result["frb_snr"] >= bench.FRB_MIN_SNR
+    # every observation starts from a settled bandpass
+    assert result["start_lowdm_candidates"] == 0
     assert result["gulps_searched"] >= 1 and result["candidates"] >= 1
     assert result["tolgrid_trials"] >= 128
     assert result["cand_latency_data_s"] > 0

@@ -5,7 +5,8 @@ and `launch --fake --device cpu` with two station daemons of the port
 over real sockets.
 
 Bar: synth byte-equal; candidates (the JAX package's gulp search at each
-gulp's own length, as the port's: tests/jax_true_length.py) to
+gulp's own length, as the port's: tests/jax_true_length.py; its station
+from the port's first bandpass: tests/jax_seeded.py) to
 tests/test_torch_pipeline.py's bar
 (those clear of the threshold by 0.5 have equal DM index, peak index and
 width, S/N within rtol 1e-3); the operator commands print the same.
@@ -76,7 +77,9 @@ def _same(got, want):
 def processed(vdif_path, tmp_path_factory):
     """Both packages' `process` on the same file (and its .fil), the JAX
     package's gulp search at each gulp's own length, as the port's
-    (jax_true_length: the stream's last gulp is short)."""
+    (jax_true_length: the stream's last gulp is short), its station from
+    the port's first bandpass (jax_seeded)."""
+    from jax_seeded import seeded
     from jax_true_length import true_length
     out = {}
     for name, main, extra in (("torch", tcli.main, ["--device", "cpu"]),
@@ -85,7 +88,7 @@ def processed(vdif_path, tmp_path_factory):
         import io
         from contextlib import redirect_stdout
         buf = io.StringIO()
-        with redirect_stdout(buf), true_length():
+        with redirect_stdout(buf), true_length(), seeded():
             main(["process", vdif_path, *TINY, "--ndm", "61", "-o", d,
                   *extra])
         out[name] = json.loads(buf.getvalue().strip().splitlines()[-1])

@@ -8,6 +8,9 @@ the array step on meshes 1x1, 1x2, 2x1 and 2x2 (and a second 2x2 call
 continuing the JAX step's state), the 2-bit first call on 1x1 (from
 make_inputs, which gives the port's step no history and the JAX step
 random bytes, and from a warm-up), and the dry run at world 1 and 4.
+The port's step seeds an observation's zero bandpasses from each
+antenna's first second (baseband_dsp.seed_bandpass); the JAX step's
+first calls compared with it take the port's seed (tests/jax_seeded.py).
 The JAX side runs here, on the conftest's 8-device CPU mesh.  The ranks import
 this module to find their job, so jax is imported inside the tests only.
 
@@ -66,6 +69,16 @@ def _warm_state(acfg, halo):
     info = types.SimpleNamespace(m=acfg.nant, halo=halo)
     return tuple(a.numpy() for a in fg.initial_state(
         mesh, _port_acfg(acfg).pipeline, info, seed=0))
+
+
+def _port_seed(acfg, raw):
+    """(bp, bp_kur) numpy (nant, npol, nchan): the port's seed_bandpass of
+    each antenna's first second of raw (nant, npol, nsamp)."""
+    from jax_seeded import port_seed
+    cfg = acfg.pipeline
+    seeds = [port_seed(cfg, raw[a, :, :cfg.sample_rate])
+             for a in range(acfg.nant)]
+    return tuple(np.stack([s[i] for s in seeds]) for i in (0, 1))
 
 
 def _raw2(nant, npol, nsamp):
@@ -204,11 +217,14 @@ def run():
     acfg = _acfg()
     step_fn, make_inputs, _, jinfo = build_array_step(
         acfg, m22, nsec_per_call=NSEC, inject_sec=0)
-    out, state = step_fn(*make_inputs(seed=SEED))
+    raw, _, _, history = make_inputs(seed=SEED)
+    sh = NamedSharding(m22, P(("ant", "time")))
+    seeded = [jax.device_put(a, sh) for a in _port_seed(acfg,
+                                                         np.asarray(raw))]
+    out, state = step_fn(raw, *seeded, history)
     jax_state = tuple(np.asarray(a) for a in state)
     cfg = acfg.pipeline
     raw2 = _raw2(acfg.nant, cfg.npol_in, NSEC * cfg.sample_rate)
-    sh = NamedSharding(m22, P(("ant", "time")))
     out2, state2 = step_fn(jax.device_put(raw2, sh), *state)
     jx["calls"] = [(jax.tree.map(np.asarray, o), [np.asarray(a) for a in s])
                    for o, s in ((out, state), (out2, state2))]
@@ -220,9 +236,13 @@ def run():
         nsec_per_call=NSEC, inject_sec=0)
     raw, *history = make_inputs(seed=SEED)
     warm = _warm_state(acfg2, info2.halo)
+    # "zero": the warm-up's history, but the zero bandpasses of a fresh
+    # state, which the JAX step seeds from its first tile
+    zero = [history[0], history[1], jnp.asarray(warm[2])]
     jx["2bit"] = ({start: jax.tree.map(np.asarray, step_fn(raw, *state)[0])
                    for start, state in (("history", history),
-                                        ("warm", [jnp.asarray(a) for a in warm]))},
+                                        ("warm", [jnp.asarray(a) for a in warm]),
+                                        ("zero", zero))},
                   info2)
 
     ranks = spawn(_rank_job, WORLD, _port_acfg(acfg).to_json(), dispersed,
@@ -398,7 +418,8 @@ def _shard_hits(out, info, thresh):
 @pytest.mark.parametrize("call", [0, 1])
 def test_array_step_against_jax(run, call):
     """The 2x2 port step against the JAX package's 2x2 step: call 0 from
-    make_inputs, call 1 continuing the JAX step's state
+    make_inputs (the JAX step's zero bandpasses replaced by the port's
+    seed, _port_seed), call 1 continuing the JAX step's state
     (interop.array_state_from_jax) on fresh noise.  Call 0 departs in
     time chunk 0 alone (#6): the JAX step's make_inputs gives it `halo`
     rows of random bytes before sample 0, whose outputs it searches and
@@ -579,6 +600,45 @@ def test_first_call_2bit_as_jax(run, start):
         np.testing.assert_allclose([c.snr for c in got],
                                    [c.snr for c in want], rtol=1e-3)
     keeps_the_burst(want_b, want_c)
+
+
+def test_first_call_from_zero_bandpasses_as_a_warm_start(run):
+    """#2 in the sharded step (_acfg_2bit, 1x1).  From zero bandpasses the
+    port's first call seeds them (seed_bandpass) and reads as a warm
+    start: no saturated DM band, crossings within 1.5x of the warm-up's,
+    the burst in every beam and in the coadd.  The JAX step from zero
+    bandpasses (with the warm-up's history, so its random bytes play no
+    part) seeds each from its first tile: at this geometry it saturates
+    no band either (chip_smoke [18a] counted four at the reference
+    geometry, PERF.md section 6), but the start-up transient lifts every
+    DM's noise, so it
+    counts fewer than 3/4 of its warm start's crossings, and its coadd's
+    burst reads lower."""
+    from vlite_fast_tpu.parallel.sharded_pipeline import (
+        ArrayStepOutput, extract_candidates)
+    from vlite_fast_tpu_torch.parallel import sharded_pipeline as tsp
+    acfg = _acfg_2bit()
+    outs, info = run["ranks"][0]["2bit"]
+    jouts, jinfo = run["jax"]["2bit"]
+    port = {k: tsp.extract_candidates(outs[k], info,
+                                      _port_acfg(acfg).search)
+            for k in ("history", "warm")}
+    jax_ = {k: extract_candidates(ArrayStepOutput(*jouts[k]), jinfo,
+                                  acfg.search)
+            for k in ("zero", "warm")}
+    dm = acfg.pipeline.inject_dm
+    best = lambda cands: max(cands, key=lambda c: c.snr)
+    cold, warm = port["history"], port["warm"]
+    assert cold[2]["saturated_bands"] == 0
+    ratio = cold[2]["n_crossings"] / warm[2]["n_crossings"]
+    assert 1 / 1.5 <= ratio <= 1.5, ratio
+    assert sorted(cold[0]) == list(range(acfg.nant))
+    for cands in list(cold[0].values()) + [cold[1]]:
+        assert abs(best(cands).dm - dm) < 5.0
+    assert best(cold[1]).snr >= 0.95 * best(warm[1]).snr
+    jz, jw = jax_["zero"], jax_["warm"]
+    assert jz[2]["n_crossings"] < 0.75 * jw[2]["n_crossings"]
+    assert best(jz[1]).snr < 0.9 * best(jw[1]).snr
 
 
 def test_sharded_coherent_future_halo_is_the_shards_own_past(run):

@@ -13,7 +13,8 @@ JAX package's, on the CPU.
   dag_frac equal, bandpasses within 1e-4 relative, the carried tail and
   weight tail bit-equal.
 - runtime/pipeline: a StationPipeline with channelizer='pfb' and an
-  injected FRB gives the JAX pipeline's clear candidates.
+  injected FRB gives the JAX pipeline's clear candidates, the JAX
+  pipeline started from the port's first bandpass (tests/jax_seeded.py).
 """
 
 import dataclasses
@@ -198,6 +199,7 @@ def _seconds(cfg, n):
 
 
 def test_pipeline_pfb_recovers_the_jax_candidates(tmp_path):
+    from jax_seeded import seeded
     cfg = PipelineConfig.tiny(channelizer="pfb", inject_frb=True, nbit=2,
                               ema_impl="scan", inject_dm=60.0,
                               inject_amp=2.0, inject_width_s=8e-3)
@@ -212,9 +214,10 @@ def test_pipeline_pfb_recovers_the_jax_candidates(tmp_path):
         else:
             pipe = TPipe(1, _t(cfg), _t(scfg), device="cpu", **kw)
             assert pipe._twin is tdsp.process_second
-        results.append(pipe.run_observation(
-            ((1.6e9 + s, buf) for s, buf in enumerate(secs)),
-            doc(name="PFB", start_time=1.6e9), write_fil=False))
+        with seeded():
+            results.append(pipe.run_observation(
+                ((1.6e9 + s, buf) for s, buf in enumerate(secs)),
+                doc(name="PFB", start_time=1.6e9), write_fil=False))
         if pipe_cls is JPipe:
             pipe.close()
     prod_j, prod_t = results

@@ -3,6 +3,12 @@ CPU: the same tiny seconds (an injected FRB armed at second 0, the
 armed window then the injection-free twin) through both, live gulp
 search, keep_ring=False.
 
+The port seeds an observation's first bandpasses from the EMA's own
+length of spectra (models/baseband_dsp.seed_bandpass), the JAX package
+from each program's first tile: every comparison from a cold start runs
+the JAX pipeline from the port's seed (tests/jax_seeded.py), and
+test_cold_start_candidates_match_jax pins the departure.
+
 Bar: the candidates clear of the threshold (S/N > snr_thresh + 0.5, so a
 crossing that sits on the threshold in one package and just under it in
 the other cannot decide the comparison) have equal DM index, peak index
@@ -51,6 +57,20 @@ def _seconds(cfg, n):
             for _ in range(n)]
 
 
+def _run(pipe_cls, doc, cfg, scfg, secs, out_dir, name, write_fil=False):
+    """One observation of `secs` through pipe_cls; the JAX pipeline starts
+    from the port's seed (jax_seeded)."""
+    from jax_seeded import seeded
+    pipe = _pipe(pipe_cls, cfg, scfg, out_dir=str(out_dir), keep_ring=False,
+                 write_cands=False)
+    with seeded():
+        prod = pipe.run_observation(
+            ((1.6e9 + s, buf) for s, buf in enumerate(secs)),
+            doc(name=name, start_time=1.6e9), write_fil=write_fil)
+    pipe.close()
+    return prod
+
+
 def test_pipeline_candidates_match_jax(tmp_path, monkeypatch):
     cfg = PipelineConfig.tiny(inject_frb=True, nbit=2, ema_impl="scan",
                               inject_dm=60.0, inject_amp=2.0,
@@ -61,17 +81,9 @@ def test_pipeline_candidates_match_jax(tmp_path, monkeypatch):
     chain = tmk.chain_second_v2
     monkeypatch.setattr(tmk, "chain_second_v2",
                         lambda *a: twin_calls.append(1) or chain(*a))
-    results = []
-    for pipe_cls, doc in ((JPipe, JDoc), (TPipe, TDoc)):
-        pipe = _pipe(pipe_cls, cfg, scfg,
-                     out_dir=str(tmp_path / doc.__module__),
-                     keep_ring=False, write_cands=False)
-        prod = pipe.run_observation(
-            ((1.6e9 + s, buf) for s, buf in enumerate(secs)),
-            doc(name="PARITY", start_time=1.6e9), write_fil=True)
-        results.append(prod)
-        if pipe_cls is JPipe:
-            pipe.close()
+    results = [_run(pipe_cls, doc, cfg, scfg, secs,
+                    tmp_path / doc.__module__, "PARITY", write_fil=True)
+               for pipe_cls, doc in ((JPipe, JDoc), (TPipe, TDoc))]
     prod_j, prod_t = results
     assert prod_t.seconds == prod_j.seconds == len(secs)
     assert 1 < tdsp.inject_window_seconds(_t(cfg)) < len(secs)
@@ -99,25 +111,27 @@ def test_pipeline_candidates_match_jax(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("seg_per_sec", [10, 100])
 def test_cold_start_candidates_match_jax(tmp_path, seg_per_sec):
-    """Both pipelines from a cold bandpass on 5 s of pure noise, injection
-    off: the same candidates.  Each segment seeds the bandpass from its
-    ffts_per_seg spectra; with the tiny geometry's 200 neither finds
-    anything, with 20 (seg_per_sec 100) both find the same start-up
-    transient in the first 0.1 s (the production geometry seeds from 32)."""
+    """5 s of pure noise from a cold bandpass, injection off.  The JAX
+    pipeline as shipped seeds each zero bandpass entry from its first
+    tile of ffts_per_seg spectra: with the tiny geometry's 200 it finds
+    nothing in the first 0.1 s, with 20 (seg_per_sec 100) the start-up
+    transient (ROADMAP Queue 3 #2).  The port seeds from the EMA's own
+    length (seed_bandpass) and finds nothing there at either.  From the
+    port's seed (jax_seeded) the JAX pipeline gives the port's
+    candidates."""
     cfg = PipelineConfig.tiny(nbit=2, ema_impl="scan",
                               seg_per_sec=seg_per_sec)
     scfg = SearchConfig.tiny()
     secs = _seconds(cfg, 5)
-    results = []
-    for pipe_cls, doc in ((JPipe, JDoc), (TPipe, TDoc)):
-        pipe = _pipe(pipe_cls, cfg, scfg,
-                     out_dir=str(tmp_path / doc.__module__),
-                     keep_ring=False, write_cands=False)
-        results.append(pipe.run_observation(
-            ((1.6e9 + s, buf) for s, buf in enumerate(secs)),
-            doc(name="COLD", start_time=1.6e9), write_fil=False))
-        if pipe_cls is JPipe:
-            pipe.close()
+    cold = JPipe(1, cfg, scfg, out_dir=str(tmp_path / "cold"),
+                 keep_ring=False, write_cands=False)
+    prod_cold = cold.run_observation(
+        ((1.6e9 + s, buf) for s, buf in enumerate(secs)),
+        JDoc(name="COLD", start_time=1.6e9), write_fil=False)
+    cold.close()
+    results = [_run(pipe_cls, doc, cfg, scfg, secs,
+                    tmp_path / doc.__module__, "COLD")
+               for pipe_cls, doc in ((JPipe, JDoc), (TPipe, TDoc))]
     clear = scfg.snr_thresh + 0.5
     cands = [sorted(((c.dmi, c.peak_idx, c.tfilt, c.snr)
                      for c in r.candidates if c.snr > clear))
@@ -125,9 +139,11 @@ def test_cold_start_candidates_match_jax(tmp_path, seg_per_sec):
     assert [c[:3] for c in cands[1]] == [c[:3] for c in cands[0]]
     np.testing.assert_allclose([c[3] for c in cands[1]],
                                [c[3] for c in cands[0]], rtol=1e-3)
+    early = lambda r: [c for c in r.candidates if c.peak_time < 0.1]
+    assert bool(early(prod_cold)) == (seg_per_sec == 100), \
+        prod_cold.candidates
     for r in results:
-        early = [c for c in r.candidates if c.peak_time < 0.1]
-        assert bool(early) == (seg_per_sec == 100), r.candidates
+        assert not early(r), r.candidates
 
 
 def test_flush_gulp_candidates_match_jax(tmp_path):
@@ -139,15 +155,9 @@ def test_flush_gulp_candidates_match_jax(tmp_path):
     cfg = PipelineConfig.tiny(nbit=2)
     scfg = SearchConfig.tiny(gulp_samps=2400)
     secs = _seconds(cfg, 6)
-    results = []
-    for pipe_cls, doc in ((JPipe, JDoc), (TPipe, TDoc)):
-        pipe = _pipe(pipe_cls, cfg, scfg,
-                     out_dir=str(tmp_path / doc.__module__),
-                     keep_ring=False, write_cands=False)
-        results.append(pipe.run_observation(
-            ((1.6e9 + s, buf) for s, buf in enumerate(secs)),
-            doc(name="FLUSH", start_time=1.6e9), write_fil=False))
-        pipe.close()
+    results = [_run(pipe_cls, doc, cfg, scfg, secs,
+                    tmp_path / doc.__module__, "FLUSH")
+               for pipe_cls, doc in ((JPipe, JDoc), (TPipe, TDoc))]
     flush_start = scfg.gulp_samps
     key = lambda r: sorted((c.dmi, c.peak_idx, c.tfilt, c.i0, c.i1)
                            for c in r.candidates if c.snr > scfg.snr_thresh
@@ -182,7 +192,8 @@ def test_fil_rows_equal_the_programs_outputs(tmp_path):
     second's rows from the host copy started at its dispatch, so the
     .fil holds the excised stream's packed rows and _plain.fil the plain
     stream's, equal to those of process_second and the twin called
-    directly on the same seconds with the same arm schedule; every fed
+    directly on the same seconds with the same arm schedule, from the
+    first second's seed_bandpass; every fed
     second has its span and its host time by part."""
     from vlite_fast_tpu_torch import constants as tC
     from vlite_fast_tpu_torch.runtime.pipeline import HOST_PARTS
@@ -201,7 +212,8 @@ def test_fil_rows_equal_the_programs_outputs(tmp_path):
     assert len(pipe.feed_seconds["armed"]) == window
     assert len(pipe.feed_seconds["twin"]) == 4 - window
     assert all(len(pipe.host_seconds[k]) == 4 for k in HOST_PARTS)
-    st = tdsp.init_state(cfg, "cpu")
+    st = tdsp.seed_bandpass(cfg, torch.from_numpy(secs[0]),
+                            tdsp.init_state(cfg, "cpu"))
     twin, twin_cfg = tdsp.twin_program(cfg), tdsp.twin_config(cfg)
     kur, plain = [], []
     for s, buf in enumerate(secs):

@@ -228,6 +228,26 @@ def test_search_gulp_matches_jax(dtype):
     assert (snr(padded) > snr(got) * 1.001).all()
 
 
+def test_host_seconds_sum_every_gulps_parts():
+    """host_seconds holds GULP_HOST_PARTS, each summed over the gulps
+    searched: it grows with each gulp, whatever its entry, and searching
+    changes none of the candidates."""
+    te, _ = _engines()
+    assert tuple(te.host_seconds) == tsearch.GULP_HOST_PARTS
+    assert not any(te.host_seconds.values())
+    fb = _pulsed(te, te.scfg.gulp_samps + te.overlap, 43)
+    first = te.search_gulp(fb)
+    once = dict(te.host_seconds)
+    assert once["dispatch"] > 0 and once["decode"] > 0
+    assert once["cluster"] > 0 and once["fetch"] >= 0
+    packed = tq.sel_and_dig(torch.from_numpy(fb)[None], 0, NCHAN - 1,
+                            2).numpy()
+    te.search_gulp_packed(packed, 2)
+    assert all(te.host_seconds[k] > once[k] for k in ("dispatch", "decode",
+                                                      "cluster"))
+    _same(te.search_gulp(fb), first)
+
+
 def test_snr_cube_matches_jax():
     te, je = _engines()
     fb = _pulsed(te, te.scfg.gulp_samps + te.overlap, 42)

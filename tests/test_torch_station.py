@@ -97,7 +97,10 @@ def _assert_same_candidates(got, want):
 def test_shipped_candidates_match_jax(synth_vdif, tmp_path, start_time):
     """The batches each daemon ships per gulp, from an observation
     document without a usable epoch (the data's own start) and with the
-    data's start: the same UTC key, beam and candidates."""
+    data's start: the same UTC key, beam and candidates.  The JAX
+    daemon's station starts from the port's first bandpass
+    (jax_seeded)."""
+    from jax_seeded import seeded
     secs = _secs(synth_vdif)
     t0 = secs[0][0] if start_time == "data" else start_time
     out = {}
@@ -105,8 +108,9 @@ def test_shipped_candidates_match_jax(synth_vdif, tmp_path, start_time):
         d = _daemon(pkg, sid, str(tmp_path / pkg))
         d.cands = fake = _FakeCandClient()
         try:
-            prod = d.run_observation(iter(secs), doc(name="p", scan_no=2,
-                                                     start_time=t0))
+            with seeded():
+                prod = d.run_observation(iter(secs), doc(
+                    name="p", scan_no=2, start_time=t0))
         finally:
             d.shutdown()
         assert prod.seconds == 2 and len(fake.batches) >= 2
@@ -120,7 +124,9 @@ def test_candidate_utc_rebase_across_skewed_stations(synth_vdif, tmp_path):
     """Station 2's capture locks one second late: both packages key its
     batches by the observation's UTC and rebase its indices alike.  The
     JAX daemon's gulp search runs at each gulp's own length, as the
-    port's (jax_true_length: the last gulp is short)."""
+    port's (jax_true_length: the last gulp is short), and its station
+    starts from the port's first bandpass (jax_seeded)."""
+    from jax_seeded import seeded
     from jax_true_length import true_length
     secs = _secs(synth_vdif)
     out = {}
@@ -129,7 +135,7 @@ def test_candidate_utc_rebase_across_skewed_stations(synth_vdif, tmp_path):
             d = _daemon(pkg, sid, str(tmp_path / f"{pkg}{sid}"), gulp=512)
             d.cands = fake = _FakeCandClient()
             try:
-                with true_length():
+                with true_length(), seeded():
                     d.run_observation(iter(ss), doc(
                         name="p", scan_no=2, start_time=secs[0][0]))
             finally:

@@ -154,7 +154,9 @@ def test_pipeline_megakernel3_matches_jax(tmp_path, monkeypatch):
     """twin_chain_impl='megakernel3' in both packages: the clear
     candidates agree, and every twin second went through the port's
     chain_second entry point (its plain version on the CPU) in the
-    'pallas' mode, never through chain_second_v2."""
+    'pallas' mode, never through chain_second_v2.  The JAX pipeline
+    starts from the port's first bandpass (jax_seeded)."""
+    from jax_seeded import seeded
     cfg = PipelineConfig.tiny(inject_frb=True, nbit=2, ema_impl="scan",
                               inject_dm=60.0, inject_amp=2.0,
                               inject_width_s=8e-3,
@@ -173,7 +175,8 @@ def test_pipeline_megakernel3_matches_jax(tmp_path, monkeypatch):
         pipe = _pipe(pipe_cls, cfg, scfg,
                      out_dir=str(tmp_path / doc.__module__),
                      keep_ring=False, write_cands=False)
-        results.append(_feed(pipe, secs, doc))
+        with seeded():
+            results.append(_feed(pipe, secs, doc))
         if pipe_cls is JPipe:
             pipe.close()
     prod_j, prod_t = results

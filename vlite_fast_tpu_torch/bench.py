@@ -54,6 +54,10 @@ from vlite_fast_tpu_torch import devices, launches
 from vlite_fast_tpu_torch.config import PipelineConfig, SearchConfig
 
 FRB_MIN_SNR = 10.0     # PERF.md §2's bar: within 10% of the DM, S/N >= 10
+# an observation's start: its first START_S seconds below the trigger's
+# minimum DM, where a cold bandpass's start-up transient would read
+START_S = 0.5
+START_MAX_DM = C.TRIGGER_MIN_DM
 DSP_SECONDS = 10       # seconds in each DSP-only loop
 GULP_REPS = 3          # timed calls of each gulp timer (after a warm one)
 
@@ -103,6 +107,14 @@ def _frb(cands, cfg: PipelineConfig):
     return max(near, key=lambda c: c.snr) if near else None
 
 
+def start_transient(cands, scfg: SearchConfig) -> list:
+    """The candidates of an observation's first START_S seconds below
+    START_MAX_DM at or above scfg.snr_thresh: none since the bandpass is
+    seeded from the EMA's own length (baseband_dsp.seed_bandpass)."""
+    return [c for c in cands if c.peak_time < START_S
+            and c.dm < START_MAX_DM and c.snr >= scfg.snr_thresh]
+
+
 def _levels(packed: torch.Tensor, nbit: int) -> torch.Tensor:
     from vlite_fast_tpu_torch.ops import quantize as q_ops
     return q_ops.unpack_bits(packed, nbit).to(torch.int32)
@@ -147,6 +159,7 @@ def _observe(cfg: PipelineConfig, scfg: SearchConfig, staged: list,
             lat_wall = lat_data = None
             feed_times = {}
             pipe.begin_observation(od, write_fil=False)
+            gulp_host = dict(pipe.search.host_seconds)
             _sync(dev)
             t0 = time.perf_counter()
             for s in range(n_sec):
@@ -171,7 +184,14 @@ def _observe(cfg: PipelineConfig, scfg: SearchConfig, staged: list,
                  + f" ms, all seconds' spans {summed:.3f} s of {wall:.3f}"
                  " s wall; host ms a second (median): "
                  + ", ".join(f"{k} {1e3 * np.median(v):.3f}"
-                             for k, v in pipe.host_seconds.items()))
+                             for k, v in pipe.host_seconds.items())
+                 + "; host ms summed over the loop: "
+                 + ", ".join(f"{k} {1e3 * sum(v):.3f}"
+                             for k, v in pipe.host_seconds.items())
+                 + " (its gulps' search: "
+                 + ", ".join(f"{k} {1e3 * (v - gulp_host[k]):.3f}"
+                             for k, v in pipe.search.host_seconds.items())
+                 + ")")
             return {"wall": wall, "cands": prod.candidates,
                     "gulps": int(pipe.metrics.get("vfast_gulps_searched")
                                  - gulps0),
@@ -340,6 +360,10 @@ def run(device="cuda", cfg: PipelineConfig = None,
         "frb_snr": frb_lin.snr if frb_lin else None,
         "frb_snr_tolgrid": frb_tol.snr if frb_tol else None,
         "frb_recovered": frb_lin is not None and frb_tol is not None,
+        # both loops' candidates of the observation's first START_S s
+        # below START_MAX_DM (start_transient)
+        "start_lowdm_candidates": len(start_transient(lin["cands"], scfg))
+        + len(start_transient(tol["cands"], scfg_tol)),
         "cand_latency_wall_s": lin["lat_wall"],
         "cand_latency_data_s": lin["lat_data"],
         "search_engine": lin["engine"],

@@ -35,6 +35,13 @@ ops/megakernel ('megakernel2' chain_second_v2; 'megakernel',
 ops only, the oracle of all of them; `reference_chain_numpy` is the JAX
 package's numpy oracle of the unweighted chain, copied.
 
+An observation starts from `seed_bandpass`, which has no JAX
+counterpart: the zero bandpasses of a fresh state are seeded from the
+mean of the first seed_spectra(cfg) spectra (the EMA's own length, 0.25 s
+at production), not from each program's first tile of ffts_per_seg (32
+at production), whose mean reads every channel ~3% hot at once.  The
+programs keep the JAX package's "a zero entry seeds from its tile".
+
 The port reads the JAX package's "on the TPU backend" of
 twin_chain_impl='auto' as "on any device": 'auto' gives the v2 chain
 kernel wherever it takes the geometry, so the CPU tests go through its
@@ -100,6 +107,76 @@ def init_state(cfg: PipelineConfig, device="cuda") -> DSPState:
         bp=z(), bp_kur=z(), segs_since_inject=-1,
         tail=torch.zeros((2, cfg.npol_in, ntail * cfg.nfft), device=device),
         wtail=torch.ones((cfg.npol_in, ntail), device=device))
+
+
+def seed_spectra(cfg: PipelineConfig) -> int:
+    """Spectra a cold bandpass is seeded from (seed_bandpass): the EMA's
+    own effective length N = (2 - s) / s, s = cfg.bp_scale, rounded up to
+    whole segments and capped at the spectra of one second.
+
+    A seed averaged over n exponential powers reads E[1/seed] = n/(n - 1):
+    every channel then normalizes ~1/n hot at once, and the EMA relaxes
+    that over ~1/s spectra.  With n >= N the seed's bias, ~1/N, is no
+    larger than the EMA's own steady-state bias, ~s/2.  At production s =
+    tsamp / 1 s = 7.8125e-4: N = 2559, 80 segments of 32, 2560 spectra
+    (0.25 s); in PipelineConfig.tiny() s = 0.002: N = 999, 5 segments of
+    200.  Whole segments hold whole FFT blocks and kurtosis windows, so no
+    sample is padded."""
+    s = cfg.bp_scale
+    segs = int(np.ceil((2.0 - s) / s / cfg.ffts_per_seg))
+    return min(segs, cfg.seg_per_sec) * cfg.ffts_per_seg
+
+
+def seed_bandpass(cfg: PipelineConfig, raw_second: torch.Tensor,
+                  state: DSPState, front=rfi_pallas.rfi_front) -> DSPState:
+    """An observation's first bandpass: each zero entry of state.bp and
+    state.bp_kur seeded from the mean of that stream's first
+    seed_spectra(cfg) spectra of raw_second (npol_in, sample_rate) uint8;
+    a non-zero entry passes through.  Taken once, before the first second
+    runs; an entry it leaves at zero (a kurtosis-stream channel of zero
+    power, or a stream the configuration does not run) the programs seed
+    from their first tile, as before.
+
+    The spectra are the armed program's: the RFI front (`front`:
+    rfi_front, the kernel on a card; rfi_pallas.rfi_front_plain gives the
+    plain seed it is held against), then `_power` (channelize + detect)
+    with injection off, so the seed never sees an injected FRB.  The plain stream's seed
+    is the mean power (1 where it is 0); the kurtosis stream's the mean
+    of p/w over the spectra with weight w > 0 (1 where there is none), as
+    the EMAs seed a tile.  With channelizer='pfb' the first pfb_ntap - 1
+    spectra draw on the state's tail (zeros when fresh) and are left out.
+    tail, wtail and segs_since_inject pass through, so process_second
+    from the result is the JAX package's from the same bandpasses.
+    Nothing is read back to the host."""
+    torch.backends.cuda.matmul.allow_tf32 = False   # the DFT stays f32
+    n = seed_spectra(cfg)
+    raw = raw_second[:, :n * cfg.nfft].contiguous()
+    skip = cfg.pfb_ntap - 1 if cfg.channelizer == "pfb" else 0
+    bp, bp_kur = state.bp, state.bp_kur
+    if cfg.rfi_mode != 1:
+        p = _power(cfg, unpack_ops.convert_uint8(raw), -1,
+                   state.tail[0])[:, skip:]
+        seed = p.mean(dim=1)
+        seed = torch.where(seed == 0.0, torch.ones_like(seed), seed)
+        bp = torch.where(bp == 0.0, seed, bp)
+    if cfg.rfi_mode != 0:
+        x_kur, weights, _ = front(
+            raw, cfg.nkurto, cfg.nfft, dag_thresh=cfg.dag_thresh,
+            dag_fb_thresh=cfg.dag_fb_thresh)
+        if cfg.channelizer == "pfb":
+            weights = ch_ops.pfb_weights(
+                torch.cat([state.wtail, weights], dim=1), cfg.pfb_ntap,
+                cfg.nfft)
+        p = _power(cfg, x_kur, -1, state.tail[1])
+        w3 = weights[:, :, None]
+        good = w3 > 0.0
+        pw = torch.where(good, p / torch.where(good, w3, torch.ones_like(w3)),
+                         torch.zeros_like(p))[:, skip:]
+        ngood = good[:, skip:].sum(dim=1)
+        seed = torch.where(ngood > 0, pw.sum(dim=1) / ngood.clamp(min=1),
+                           torch.ones_like(bp_kur))
+        bp_kur = torch.where(bp_kur == 0.0, seed, bp_kur)
+    return state._replace(bp=bp, bp_kur=bp_kur)
 
 
 def _histo(cfg: PipelineConfig, raw_second: torch.Tensor) -> torch.Tensor:

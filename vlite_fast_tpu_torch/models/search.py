@@ -22,6 +22,7 @@ read as low noise, and make the real head read hot.
 
 from __future__ import annotations
 
+import time
 from typing import List
 
 import numpy as np
@@ -146,8 +147,16 @@ def _device_gulp(fb: torch.Tensor, plan: dd.DedispPlan, *,
     return pack_topk_banded(snr, k, nbands, thresh)
 
 
+# the host's work of a gulp, by part (SinglePulseSearch.host_seconds): the
+# device passes' dispatch, the wait for them and the crossings' copy back,
+# decode_crossings, cluster_hits
+GULP_HOST_PARTS = ("dispatch", "fetch", "decode", "cluster")
+
+
 class SinglePulseSearch:
-    """One beam's search engine.  Stateless across gulps except the plan."""
+    """One beam's search engine.  Stateless across gulps except the plan
+    and host_seconds, the host's seconds by part (GULP_HOST_PARTS) summed
+    over every gulp it has searched."""
 
     def __init__(self, scfg: SearchConfig, tsamp: float,
                  freqs_mhz: np.ndarray, nsub: int = 0, nbatch: int = 0,
@@ -166,6 +175,7 @@ class SinglePulseSearch:
                                  device=self.device)
         self.nbands = effective_nbands(len(self.dms), scfg.topk_dm_bands)
         self.last_gulp_stats = {"n_crossings": 0, "saturated_bands": 0}
+        self.host_seconds = dict.fromkeys(GULP_HOST_PARTS, 0.0)
 
     @property
     def overlap(self) -> int:
@@ -183,12 +193,14 @@ class SinglePulseSearch:
 
     def _top_crossings(self, fb_dev: torch.Tensor, nbit: int = 0):
         """fb_dev: packed rows when nbit > 0, else a float filterbank."""
+        t = time.perf_counter()
         k = self.scfg.topk or min(16 * self.scfg.max_candidates, 20000)
         packed = _device_gulp(
             fb_dev, self.plan, widths=self.widths, k=k, nbit=nbit,
             nchan=len(self.freqs_mhz), nbands=self.nbands,
             thresh=float(self.scfg.snr_thresh), engine=self.engine)
         ntime_out = fb_dev.shape[0] - self.plan.max_delay
+        self.host_seconds["dispatch"] += time.perf_counter() - t
         return packed, (len(self.widths), len(self.dms), ntime_out)
 
     def _check_rows(self, rows: int) -> None:
@@ -199,14 +211,21 @@ class SinglePulseSearch:
     def _cands_from_crossings(self, packed, shape, t_offset
                               ) -> List[dd.Candidate]:
         nw, ndm, ntime = [int(s) for s in shape]
+        t0 = time.perf_counter()
+        packed = packed.cpu().numpy()
+        t1 = time.perf_counter()
         vals, hits, n_cross, saturated = decode_crossings(
-            packed.cpu().numpy(), nw, ndm, ntime, self.nbands,
-            self.scfg.snr_thresh)
+            packed, nw, ndm, ntime, self.nbands, self.scfg.snr_thresh)
         self.last_gulp_stats = {"n_crossings": n_cross,
                                 "saturated_bands": saturated}
-        return dd.cluster_hits(
+        t2 = time.perf_counter()
+        cands = dd.cluster_hits(
             hits, vals, self.dms, self.tsamp, widths=self.widths,
             t_offset=t_offset, max_cands=self.scfg.max_candidates)
+        for k, v in zip(GULP_HOST_PARTS[1:],
+                        (t1 - t0, t2 - t1, time.perf_counter() - t2)):
+            self.host_seconds[k] += v
+        return cands
 
     def search_gulp(self, fb_block: np.ndarray,
                     t_offset: int = 0) -> List[dd.Candidate]:

@@ -13,9 +13,11 @@ scripts/start_process:21) with collectives:
     antenna's seconds stream one after another through the armed program
     (models/baseband_dsp.process_second: rfi_front and the two EMA
     kernels on a card), so the EMA bandpass carry is the sequential one
-    by construction (ref pb_kernels.cu:406-411).  The carried (bp,
-    bp_kur) state enters and leaves the step, so consecutive calls
-    continue one unbroken observation.
+    by construction (ref pb_kernels.cu:406-411).  An observation's first
+    call seeds each antenna's zero bandpass entries from its first
+    second (models/baseband_dsp.seed_bandpass), as a station does.  The
+    carried (bp, bp_kur) state enters and leaves the step, so
+    consecutive calls continue one unbroken observation.
   * Reshard — one all_to_all_single over 'time' moves each antenna
     group's packed filterbank (2-bit bytes, not floats) from "whole
     stream on one rank" to "time chunk per rank": rank (a, t) then holds
@@ -147,7 +149,8 @@ def build_array_step(acfg: ArrayConfig, mesh, nsec_per_call: int = 1,
       or None on an observation's first call: there is no history, and
       the search starts at the stream's first row, as heimdall's first
       gulp does (the outputs before sample 0 are S/N 0, and no DM's mean
-      or noise reads them)
+      or noise reads them), and the zero entries of bp(_kur) are seeded
+      from each antenna's first second (baseband_dsp.seed_bandpass)
       (rows [d*m, (d+1)*m) of the JAX step's P(('ant','time')) arrays,
       on the mesh's device).  Collective: every rank of the mesh calls
       it.  With `marks` (a list, on a card) the step appends ("start",
@@ -237,6 +240,11 @@ def build_array_step(acfg: ArrayConfig, mesh, nsec_per_call: int = 1,
             wm = torch.empty(nsec_per_call, dtype=torch.float32, device=dev)
             for s in range(nsec_per_call):
                 sec = raw[i, :, s * rate:(s + 1) * rate].contiguous()
+                if s == 0 and tail is None:
+                    # an observation's first call: its zero bandpass
+                    # entries are seeded as a station's (a warm start's
+                    # non-zero ones pass through)
+                    st = dsp.seed_bandpass(cfg, sec, st)
                 o, st = dsp.process_second(cfg, sec, st, s == inject_sec)
                 packed[i, s * rows:(s + 1) * rows] = \
                     o.packed_kur if use_kur else o.packed

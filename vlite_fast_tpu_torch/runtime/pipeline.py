@@ -11,6 +11,11 @@ ObservationProducts, StationPipeline, CoaddSearcher, ArrayPipeline):
 and an ArrayPipeline fans N stations on one device into the coadd
 search, the coincidencer and the triggered dumper.
 
+An observation's first second starts from baseband_dsp.seed_bandpass:
+its bandpasses are seeded from the EMA's own length of spectra (0.25 s at
+production) before the first program runs, where the JAX pipeline seeds
+each from the first segment's tile.
+
 Host gating of the FRB injection is the JAX pipeline's: for the
 inject_window_seconds after each minute's arm the armed program
 (baseband_dsp.process_second with injection) runs; every other second
@@ -331,10 +336,11 @@ class StationPipeline:
     def prewarm(self) -> None:
         """Before the first second is fed (once per pipeline;
         begin_observation calls it, a caller may call it before): build the
-        CUDA kernels, then run each program the observation dispatches
-        (the armed one if the configuration injects, and the twin) on a
-        zero second from a fresh state, and one near-zero gulp through
-        the search, discarding what they return.  The stream's first
+        CUDA kernels, then run the bandpass seed and each program the
+        observation dispatches (the armed one if the configuration
+        injects, and the twin) on a zero second from a fresh state, and
+        one near-zero gulp through the search, discarding what they
+        return.  The stream's first
         seconds then pay no first-use cost (cuBLAS handles, the caching
         allocator's first blocks, the kernels' attributes); the JAX
         package's _prewarm compiles both programs the same way."""
@@ -344,6 +350,7 @@ class StationPipeline:
         cfg = self.cfg
         zero = torch.zeros((cfg.npol_in, cfg.sample_rate), dtype=torch.uint8,
                            device=self.device)
+        dsp.seed_bandpass(cfg, zero, dsp.init_state(cfg, self.device))
         if cfg.inject_frb:
             dsp.process_second(cfg, zero, dsp.init_state(cfg, self.device),
                                False)
@@ -464,6 +471,9 @@ class StationPipeline:
         armed = cfg.inject_frb and self._nsec < self._inject_until
         kind = "armed" if armed else "twin"
         with torch.profiler.record_function(f"vfast.{kind}_second"):
+            if self._nsec == 0:
+                # the observation's first bandpass (dsp.seed_bandpass)
+                self.state = dsp.seed_bandpass(cfg, raw, self.state)
             if armed:
                 out, self.state = dsp.process_second(cfg, raw, self.state,
                                                      arm)
