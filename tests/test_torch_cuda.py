@@ -1286,3 +1286,52 @@ def test_pipeline_takes_a_device_second_in_place(cuda):
                       device=cuda)
     assert pipe.device == raw.device
     assert pipe._to_device(raw) is raw
+
+
+def test_stage_events_sum_to_the_spans(cuda):
+    """At the production geometry (channelizer 'pfb', so that every
+    second runs process_second), the device stages of each second after
+    the first (which also seeds the bandpass) sum to within 10% of its
+    feed_seconds span, and a gulp's stages to within 10% of its device
+    time between CUDA events recorded around the search's dispatch."""
+    from vlite_fast_tpu_torch.utils import spans
+    cfg = PipelineConfig(channelizer="pfb", inject_frb=True)
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    secs = [(torch.randn((cfg.npol_in, cfg.sample_rate), generator=gen,
+                         device=cuda) / 0.05914 + 128.5).clamp(0, 255)
+            .to(torch.uint8) for _ in range(4)]
+    pipe = StationPipeline(1, cfg, SearchConfig(), keep_ring=False,
+                           write_cands=False, device=cuda)
+    pipe.run_observation(((1.7e9 + s, b) for s, b in enumerate(secs)),
+                         ObservationDocument(name="STAGES"), write_fil=False)
+    recs = list(pipe.records.seconds)
+    spans_by_kind = {k: list(v) for k, v in pipe.feed_seconds.items()}
+    for r in recs:
+        span = spans_by_kind["armed" if r.counters["armed"]
+                             else "twin"].pop(0)
+        assert r.device_s == span
+        assert {"front", "wola", "dft", "detect", "ema", "pack"} == \
+            set(r.stages)
+        if r.id:
+            assert abs(sum(r.stages.values()) - span) <= 0.1 * span, (
+                r.id, r.stages, span)
+    search = pipe.search
+    nrows = cfg.seg_per_sec * cfg.out_samps_per_seg * 12 + search.overlap
+    nbytes = cfg.npol_out * cfg.nchanout * cfg.nbit // 8
+    rows = torch.randint(0, 256, (nrows, nbytes), dtype=torch.uint8,
+                         device=cuda, generator=gen)
+    search._top_crossings(rows, cfg.nbit)       # warm
+    torch.cuda.synchronize()
+    rec = spans.Record("gulp", 0, on_card=True)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    with spans.bound(rec):
+        search._top_crossings(rows, cfg.nbit)
+    end.record()
+    torch.cuda.synchronize()
+    rec.resolve(wait=True)
+    device = start.elapsed_time(end) / 1e3
+    assert set(rec.stages) == {"dedisperse", "boxcar", "topk"}
+    assert abs(sum(rec.stages.values()) - device) <= 0.1 * device, (
+        rec.stages, device)

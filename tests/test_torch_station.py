@@ -34,6 +34,7 @@ from vlite_fast_tpu_torch.runtime import control as tctl
 from vlite_fast_tpu_torch.runtime import pipeline as tpipe
 from vlite_fast_tpu_torch.runtime.station_main import StationDaemon as TDaemon
 from vlite_fast_tpu_torch.runtime.trigger import Trigger, TriggerSender
+from vlite_fast_tpu_torch.utils import spans
 from vlite_fast_tpu_torch.utils import vdif as tvdif
 
 torch.set_num_threads(1)
@@ -212,6 +213,10 @@ def test_deferred_start_after_stop_batch(synth_vdif, tmp_path):
     assert all(0 <= s["host_ms_median"][k] <= s["host_ms_max"][k]
                for k in tpipe.HOST_PARTS)
     assert s["candidates"] > 0 and s["fil"].endswith(".fil")
+    g = s["gulp"]
+    assert g["gulps"] >= 1 and g["cluster_rows_mean"] >= 0
+    assert 0 < g["latency_ms_p50"] <= g["latency_ms_p95"]
+    assert set(g["parts_ms_mean"]) == set(spans.GULP_PARTS)
 
 
 def test_quit_leaves_no_ring(synth_vdif, tmp_path):

@@ -71,6 +71,7 @@ from vlite_fast_tpu_torch.ops import pallas_kernels as pk
 from vlite_fast_tpu_torch.ops import quantize as q_ops
 from vlite_fast_tpu_torch.ops import rfi_pallas
 from vlite_fast_tpu_torch.ops import unpack as unpack_ops
+from vlite_fast_tpu_torch.utils import spans
 
 
 class DSPState(NamedTuple):
@@ -357,12 +358,20 @@ def _power(cfg: PipelineConfig, v: torch.Tensor, since: int,
     nsamp) -> power f32 (npol, nsamp // nfft, nchan).  `since` counts the
     segments from the arm to the first of them (< 0: not armed);
     spectrum t lies in segment since + t // ffts_per_seg of the track.
-    With channelizer='pfb', `tail` is the stream's carried voltages."""
+    With channelizer='pfb', `tail` is the stream's carried voltages.
+    Device stages (spans.stage): "wola" (pfb), "dft", "detect" (with the
+    injection)."""
     if cfg.channelizer == "pfb":
-        spec = ch_ops.polyphase_channelize(v, cfg.nfft, cfg.pfb_ntap,
-                                           method="matmul", tail=tail)
+        # ch_ops.polyphase_channelize(method="matmul"), by its stages
+        spans.stage("wola")
+        frames = ch_ops.wola(v, cfg.nfft, cfg.pfb_ntap, tail)
+        spans.stage("dft")
+        spec = ch_ops.matmul_rfft(frames, cfg.nfft)
+        del frames
     else:
+        spans.stage("dft")
         spec = ch_ops.channelize(v, cfg.nfft, method=cfg.channelizer)
+    spans.stage("detect")
     if cfg.inject_frb and since >= 0:
         delays = torch.from_numpy(_frb_delays_np(cfg)).to(spec.device)
         width = cfg.inject_width_s * cfg.seg_per_sec * cfg.ffts_per_seg
@@ -469,11 +478,17 @@ def process_second(cfg: PipelineConfig, raw_second: torch.Tensor,
     channelizer='pfb' one WOLA runs over [carried tail, whole second]
     per stream (the segments are contiguous, so its spectra are the
     segment-by-segment ones); the masked tail is rfi_front's, and the
-    raw block weights are carried before the WOLA bookkeeping."""
+    raw block weights are carried before the WOLA bookkeeping.
+
+    Device stages of a bound span record (utils/spans; none without
+    one): "front" (convert, the RFI front, the WOLA carry), then for each
+    stream "wola" (pfb), "dft", "detect", "ema", "pack" (the scrunches
+    and sel_and_dig)."""
     torch.backends.cuda.matmul.allow_tf32 = False   # the DFT stays f32
     dev = raw_second.device
     since = 0 if arm_inject else state.segs_since_inject
     nspec = cfg.seg_per_sec * cfg.ffts_per_seg
+    spans.stage("front")
     if cfg.rfi_mode > 0:
         x_kur, weights, dag = rfi_pallas.rfi_front(
             raw_second, cfg.nkurto, cfg.nfft, dag_thresh=cfg.dag_thresh,
@@ -504,17 +519,22 @@ def process_second(cfg: PipelineConfig, raw_second: torch.Tensor,
     if cfg.rfi_mode != 1:
         power = _power(cfg, unpack_ops.convert_uint8(raw_second), since,
                        state.tail[0])
+        spans.stage("ema")
         out, bp = pk.normalize_ema_pallas(power, bp, cfg.bp_scale,
                                           time_tile=tt)
         del power
+        spans.stage("pack")
         packed = _finish_stream(cfg, out, None)
     if cfg.rfi_mode != 0:
         power = _power(cfg, x_kur, since, state.tail[1])
         del x_kur
+        spans.stage("ema")
         out, bp_kur = pk.normalize_ema_weighted_pallas(
             power, weights, bp_kur, cfg.bp_scale, time_tile=tt)
         del power
+        spans.stage("pack")
         packed_kur = _finish_stream(cfg, out, weights)
+    spans.stage(None)
     new_state = state._replace(
         bp=bp, bp_kur=bp_kur, tail=tail, wtail=wtail,
         segs_since_inject=since + cfg.seg_per_sec if since >= 0 else since)
@@ -532,19 +552,22 @@ def twin_second(cfg: PipelineConfig, raw_second: torch.Tensor,
     a CPU one.  The state is the natural DSPState of every program:
     the bandpasses come back from the kernel, segs_since_inject advances
     by seg_per_sec, the channelizer tails pass through.  With do_histo
-    the second's histogram is computed beside the kernel."""
+    the second's histogram is computed beside the kernel.  It marks no
+    device stage (utils/spans): on a card it is one launch, and its
+    plain version's segments are not the stages of a second."""
     from vlite_fast_tpu_torch.ops import megakernel as mk
     since = 0 if arm_inject else state.segs_since_inject
     bp = torch.stack([state.bp, state.bp_kur])
     impl = cfg.chain_impl
-    if impl == "megakernel4":
-        out = mk.chain_second_v4(raw_second, bp, cfg, pre_dtype="u8",
-                                 pre_impl="xlu")
-    elif impl in _PRETRANSPOSE:
-        out = mk.chain_second(raw_second, bp, cfg,
-                              pretranspose=_PRETRANSPOSE[impl])
-    else:
-        out = mk.chain_second_v2(raw_second, bp, cfg)
+    with spans.bound(None):
+        if impl == "megakernel4":
+            out = mk.chain_second_v4(raw_second, bp, cfg, pre_dtype="u8",
+                                     pre_impl="xlu")
+        elif impl in _PRETRANSPOSE:
+            out = mk.chain_second(raw_second, bp, cfg,
+                                  pretranspose=_PRETRANSPOSE[impl])
+        else:
+            out = mk.chain_second_v2(raw_second, bp, cfg)
     packed, packed_kur, weights, dag, bp_new = out
     new_state = state._replace(
         bp=bp_new[0], bp_kur=bp_new[1],

@@ -22,7 +22,6 @@ read as low noise, and make the real head read hot.
 
 from __future__ import annotations
 
-import time
 from typing import List
 
 import numpy as np
@@ -33,6 +32,7 @@ from vlite_fast_tpu_torch.config import SearchConfig
 from vlite_fast_tpu_torch.ops import dedisperse as dd
 from vlite_fast_tpu_torch.ops import dedisperse_pallas as ddp
 from vlite_fast_tpu_torch.ops import quantize as q_ops
+from vlite_fast_tpu_torch.utils import spans
 
 
 def make_dm_grid(scfg: SearchConfig, tsamp: float,
@@ -139,24 +139,40 @@ def _device_gulp(fb: torch.Tensor, plan: dd.DedispPlan, *,
                  widths: tuple, k: int, nbit: int, nchan: int, nbands: int,
                  thresh: float, engine: str = "auto") -> torch.Tensor:
     """One gulp on fb's device: dedisperse (see `dedisperse`) -> boxcar
-    S/N -> banded top-k crossings."""
+    S/N -> banded top-k crossings, each a device stage of the bound
+    record (spans.stage; nothing is recorded without one)."""
     ntime_out = fb.shape[0] - plan.max_delay
+    spans.stage("dedisperse")
     dmt = dedisperse(fb, plan, ntime_out, engine=engine, nbit=nbit,
                      nchan=nchan)
+    spans.stage("boxcar")
     snr = dd.boxcar_snr(dmt, plan.nchan_eff, widths)
-    return pack_topk_banded(snr, k, nbands, thresh)
+    spans.stage("topk")
+    out = pack_topk_banded(snr, k, nbands, thresh)
+    spans.stage(None)
+    return out
+
+
+def _gulp_record() -> spans.Record:
+    """The gulp record the caller bound (StationPipeline), else one of
+    the search's own that nobody reads."""
+    rec = spans.bound_record()
+    return rec if rec is not None else spans.Record("gulp", -1)
 
 
 # the host's work of a gulp, by part (SinglePulseSearch.host_seconds): the
 # device passes' dispatch, the wait for them and the crossings' copy back,
-# decode_crossings, cluster_hits
+# decode_crossings, cluster_hits; timed as the gulp record's spans
+# "dispatch", "wait", "decode", "cluster"
 GULP_HOST_PARTS = ("dispatch", "fetch", "decode", "cluster")
 
 
 class SinglePulseSearch:
     """One beam's search engine.  Stateless across gulps except the plan
     and host_seconds, the host's seconds by part (GULP_HOST_PARTS) summed
-    over every gulp it has searched."""
+    over every gulp it has searched.  Each gulp's host parts are spans,
+    and the rows it hands to the clustering the counter "cluster_rows",
+    of the gulp record its caller bound (spans.bound), if any."""
 
     def __init__(self, scfg: SearchConfig, tsamp: float,
                  freqs_mhz: np.ndarray, nsub: int = 0, nbatch: int = 0,
@@ -193,14 +209,14 @@ class SinglePulseSearch:
 
     def _top_crossings(self, fb_dev: torch.Tensor, nbit: int = 0):
         """fb_dev: packed rows when nbit > 0, else a float filterbank."""
-        t = time.perf_counter()
         k = self.scfg.topk or min(16 * self.scfg.max_candidates, 20000)
-        packed = _device_gulp(
-            fb_dev, self.plan, widths=self.widths, k=k, nbit=nbit,
-            nchan=len(self.freqs_mhz), nbands=self.nbands,
-            thresh=float(self.scfg.snr_thresh), engine=self.engine)
+        with _gulp_record().span("dispatch") as dispatch:
+            packed = _device_gulp(
+                fb_dev, self.plan, widths=self.widths, k=k, nbit=nbit,
+                nchan=len(self.freqs_mhz), nbands=self.nbands,
+                thresh=float(self.scfg.snr_thresh), engine=self.engine)
         ntime_out = fb_dev.shape[0] - self.plan.max_delay
-        self.host_seconds["dispatch"] += time.perf_counter() - t
+        self.host_seconds["dispatch"] += dispatch.seconds
         return packed, (len(self.widths), len(self.dms), ntime_out)
 
     def _check_rows(self, rows: int) -> None:
@@ -211,20 +227,21 @@ class SinglePulseSearch:
     def _cands_from_crossings(self, packed, shape, t_offset
                               ) -> List[dd.Candidate]:
         nw, ndm, ntime = [int(s) for s in shape]
-        t0 = time.perf_counter()
-        packed = packed.cpu().numpy()
-        t1 = time.perf_counter()
-        vals, hits, n_cross, saturated = decode_crossings(
-            packed, nw, ndm, ntime, self.nbands, self.scfg.snr_thresh)
+        rec = _gulp_record()
+        with rec.span("wait") as wait:
+            packed = packed.cpu().numpy()
+        with rec.span("decode") as decode:
+            vals, hits, n_cross, saturated = decode_crossings(
+                packed, nw, ndm, ntime, self.nbands, self.scfg.snr_thresh)
         self.last_gulp_stats = {"n_crossings": n_cross,
                                 "saturated_bands": saturated}
-        t2 = time.perf_counter()
-        cands = dd.cluster_hits(
-            hits, vals, self.dms, self.tsamp, widths=self.widths,
-            t_offset=t_offset, max_cands=self.scfg.max_candidates)
-        for k, v in zip(GULP_HOST_PARTS[1:],
-                        (t1 - t0, t2 - t1, time.perf_counter() - t2)):
-            self.host_seconds[k] += v
+        with rec.span("cluster") as cluster:
+            cands = dd.cluster_hits(
+                hits, vals, self.dms, self.tsamp, widths=self.widths,
+                t_offset=t_offset, max_cands=self.scfg.max_candidates)
+        rec.counters["cluster_rows"] = len(hits)
+        for k, sp in zip(GULP_HOST_PARTS[1:], (wait, decode, cluster)):
+            self.host_seconds[k] += sp.seconds
         return cands
 
     def search_gulp(self, fb_block: np.ndarray,

@@ -42,10 +42,23 @@ there; each second's program, each gulp's search and each drain is a
 `record_function` range: "vfast.armed_second" / "vfast.twin_second",
 "vfast.gulp_search", "vfast.drain" (the wait for a second's bytes,
 the .fil and the taps; PROFILE_RANGES).
+
+Each fed second and each gulp is a record of utils/spans: its host
+spans (the second's parts, HOST_PARTS and the program's dispatch; the
+gulp's latency from the start of the call that handed over its last row,
+split into lag, dispatch, wait, decode and cluster, and the card's stall
+after its fetch), counters (the seconds queued ahead of a gulp on the
+card, the rows the clustering took, whether the gulp holds an injected
+second) and device stages (process_second's and the gulp's, marked
+while the record is bound).  host_seconds, feed_seconds and the search's
+host_seconds are read from them; end_observation publishes the
+observation's records (spans.last_observation).  While torch.profiler
+records, the host spans are "vfast/..." ranges too.
 """
 
 from __future__ import annotations
 
+import collections
 import os
 import tempfile
 import time
@@ -63,6 +76,7 @@ from vlite_fast_tpu_torch.models import baseband_dsp as dsp
 from vlite_fast_tpu_torch.models import search as search_mod
 from vlite_fast_tpu_torch.ops import dedisperse as dd
 from vlite_fast_tpu_torch.ops import quantize as q_ops
+from vlite_fast_tpu_torch.utils import spans
 from vlite_fast_tpu_torch.runtime import trigger as trig
 # ObservationDocument is imported from here too (chip_smoke, the tests)
 from vlite_fast_tpu_torch.runtime.control import ObservationDocument
@@ -242,7 +256,7 @@ class StationPipeline:
         self._pending = None
         self._prewarmed = False
         self._staging = []      # pinned host copies of fed seconds
-        self._times = []        # (program, start event, end event) unread
+        self._new_records()
         # seconds per fed second, by program ('armed' / 'twin'): on a
         # card, the span on the device's timeline from the start to the
         # end of the work feed_second enqueued for that second (its device
@@ -256,7 +270,6 @@ class StationPipeline:
         # second's bytes, the drain (.fil and block taps) and the gulp
         # searches the drain started
         self.host_seconds = {k: [] for k in HOST_PARTS}
-        self._clock = dict.fromkeys(HOST_PARTS, 0.0)
         # taps: callables (station_id, abs_offset, packed_block) called on
         # every drained block (the coadd-ring writer role)
         self.block_taps: List = []
@@ -315,7 +328,7 @@ class StationPipeline:
         self._pending = None
         self._weights_accum = []
         self._histo_accum = None
-        self._times = []
+        self._new_records()
         self._od = od
         self._write_fil = write_fil
         self._search_live = search_live
@@ -410,12 +423,46 @@ class StationPipeline:
         host.copy_(t, non_blocking=True)
         return host
 
+    def _new_records(self) -> None:
+        """An observation's span records (utils/spans) start empty."""
+        self.records = spans.Recorder()
+        self._rec = None        # the record of the call in progress
+        self._unread = collections.deque()   # records with unread marks
+        self._rows = collections.deque()     # (first row, end, second)
+        self._rows_in = 0       # rows that have joined the search stream
+        self._ngulps = 0
+        # the last gulp's stall: (its record, the start of the part now
+        # open, None between calls)
+        self._stall = None
+
     def _read_times(self, wait: bool = False) -> None:
-        """Move the spans of seconds whose end event has completed (every
-        one with wait, after a synchronize) into feed_seconds, in order."""
-        while self._times and (wait or self._times[0][2].query()):
-            kind, start, end = self._times.pop(0)
-            self.feed_seconds[kind].append(start.elapsed_time(end) / 1e3)
+        """Read the device marks of the records whose last mark has
+        completed (every one with wait, after a synchronize), in order; a
+        second's device span joins feed_seconds."""
+        while self._unread and self._unread[0].resolve(wait):
+            rec = self._unread.popleft()
+            if rec.layer == "second":
+                self.feed_seconds["armed" if rec.counters["armed"]
+                                  else "twin"].append(rec.device_s)
+
+    def _stall_to(self, t: float, dispatch: bool) -> None:
+        """The stall after the last gulp's fetch: the card idles while the
+        program works on the host, from the fetch's return to the end of
+        its call and from the start of each later call to the next
+        dispatch onto the card (dispatch: the stall ends at t); the
+        caller's time between calls is not the program's."""
+        if self._stall is not None:
+            gulp, t0 = self._stall
+            if t0 is not None:
+                gulp.add("stall", t0, t, parent=None)
+            self._stall = None if dispatch else (gulp, None)
+
+    def _begin_call(self, rec: spans.Record) -> None:
+        """A call into the pipeline starts: its spans go to `rec`, and the
+        last gulp's stall goes on."""
+        self._rec = rec
+        if self._stall is not None:
+            self._stall = (self._stall[0], rec.start)
 
     def feed_second(self, sec: float, buf) -> List[dd.Candidate]:
         """Run one second; returns candidates that became final while it
@@ -429,11 +476,9 @@ class StationPipeline:
                 f"not a tensor on {buf.device}: the ring holds the host's "
                 "bytes, and copying a device second back would cost a "
                 "device-to-host copy of every second")
-        t_start = time.perf_counter()
-        on_card = self.device.type == "cuda"
-        if on_card:
-            start = torch.cuda.Event(enable_timing=True)
-            start.record()
+        rec = spans.Record("second", self._nsec, self.device.type == "cuda")
+        self._begin_call(rec)
+        rec.mark(None)
         if self._t0_unix is None:
             self._t0_unix = float(sec)
             if self._write_fil:
@@ -450,18 +495,15 @@ class StationPipeline:
                     self._fil_plain = sigproc.FilterbankWriter(
                         self._fil_path.replace(".fil", "_plain.fil"),
                         self._fil_header(self._od, self._t0_unix))
-        clock = self._clock = dict.fromkeys(HOST_PARTS, 0.0)
-        t = time.perf_counter()
         if self.ring is not None:
-            host = buf.numpy() if isinstance(buf, torch.Tensor) \
-                else np.asarray(buf)
-            self.ring.write(host.reshape(-1), timestamp=float(sec),
-                            flags=FLAG_OBS_START if self._nsec == 0 else 0,
-                            overwrite=True)
-        clock["ring"] = time.perf_counter() - t
-        t = time.perf_counter()
-        raw = self._to_device(buf)
-        clock["staging"] = time.perf_counter() - t
+            with rec.span("ring"):
+                host = buf.numpy() if isinstance(buf, torch.Tensor) \
+                    else np.asarray(buf)
+                self.ring.write(host.reshape(-1), timestamp=float(sec),
+                                flags=FLAG_OBS_START if self._nsec == 0
+                                else 0, overwrite=True)
+        with rec.span("staging"):
+            raw = self._to_device(buf)
         arm = bool(cfg.inject_frb and self._nsec % C.INJECT_PERIOD_S == 0)
         if arm:
             self._inject_until = self._nsec + dsp.inject_window_seconds(cfg)
@@ -470,16 +512,20 @@ class StationPipeline:
         # runs (byte-exact: the skipped path multiplies by all-ones)
         armed = cfg.inject_frb and self._nsec < self._inject_until
         kind = "armed" if armed else "twin"
-        with torch.profiler.record_function(f"vfast.{kind}_second"):
+        rec.counters["armed"] = int(armed)
+        self._stall_to(time.perf_counter(), dispatch=True)
+        with rec.span("program"), \
+                torch.profiler.record_function(f"vfast.{kind}_second"):
             if self._nsec == 0:
                 # the observation's first bandpass (dsp.seed_bandpass)
                 self.state = dsp.seed_bandpass(cfg, raw, self.state)
-            if armed:
-                out, self.state = dsp.process_second(cfg, raw, self.state,
-                                                     arm)
-            else:
-                out, self.state = self._twin(self._cfg_noinject, raw,
-                                             self.state, arm)
+            with spans.bound(rec):
+                if armed:
+                    out, self.state = dsp.process_second(cfg, raw,
+                                                         self.state, arm)
+                else:
+                    out, self.state = self._twin(self._cfg_noinject, raw,
+                                                 self.state, arm)
         if cfg.do_histo:
             # summed on the device; read at the observation's end
             h = out.histo.to(torch.int64)
@@ -490,40 +536,42 @@ class StationPipeline:
                                     and self._fil_plain is not None)
                      else None)
         host_new = plain_host = done = None
-        t = time.perf_counter()
-        if self._fil is not None or self.block_taps:
-            # the copies start now, behind this second's kernels; the next
-            # second's drain waits for them, not for the device's queue
-            host_new = self._to_host(pending_new)
-            if plain_new is not None:
-                plain_host = self._to_host(plain_new)
-            if on_card:
-                done = torch.cuda.Event()
-                done.record()
-        if self.write_kurto:
-            # read after end_observation's synchronize
-            self._weights_accum.append(self._to_host(out.weights))
-        clock["copy"] = time.perf_counter() - t
+        with rec.span("copy"):
+            if self._fil is not None or self.block_taps:
+                # the copies start now, behind this second's kernels; the
+                # next second's drain waits for them, not for the device's
+                # queue
+                host_new = self._to_host(pending_new)
+                if plain_new is not None:
+                    plain_host = self._to_host(plain_new)
+                if self.device.type == "cuda":
+                    done = torch.cuda.Event()
+                    done.record()
+            if self.write_kurto:
+                # read after end_observation's synchronize
+                self._weights_accum.append(self._to_host(out.weights))
         before = len(self._cands)
         if self._pending is not None:
             self._drain(*self._pending)
-        self._pending = (pending_new, host_new, plain_host, done)
+        self._pending = (pending_new, host_new, plain_host, done, rec)
         self._nsec += 1
         deficit = self._rt.add(1.0)
         if deficit is not None:
             self.log.warning("falling behind real time by %.2f s", deficit)
-        for k, v in clock.items():
+        rec.mark(None)
+        self.records.seconds.append(rec)
+        self._unread.append(rec)
+        self._read_times()
+        for k, v in rec.parts(HOST_PARTS).items():
             self.host_seconds[k].append(v)
-        if on_card:
-            end = torch.cuda.Event(enable_timing=True)
-            end.record()
-            self._times.append((kind, start, end))
-            self._read_times()
-        else:
-            self.feed_seconds[kind].append(time.perf_counter() - t_start)
+        t = time.perf_counter()
+        rec.add("second", rec.start, t, parent=None)
+        self._stall_to(t, dispatch=False)
         return self._cands[before:]
 
     def end_observation(self) -> ObservationProducts:
+        # the last drain and the flush gulp: spans of no fed second
+        self._begin_call(spans.Record("end", self._nsec))
         if self._pending is not None:
             self._drain(*self._pending)
             self._pending = None
@@ -535,10 +583,10 @@ class StationPipeline:
             self._fil_plain.close()
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
-            self._read_times(wait=True)
+        self._read_times(wait=True)
+        self._stall = None      # the card waits for the next observation
+        spans.publish(self.records)
         cands, fil_path = self._cands, self._fil_path
-        self.metrics.set("vfast_rt_factor", self._rt.realtime_factor)
-        self.metrics.set("vfast_candidates", len(cands))
         if fil_path and self.write_cands and cands:
             with open(fil_path.replace(".fil", ".cand"), "w") as fp:
                 for c in cands:
@@ -561,38 +609,41 @@ class StationPipeline:
             start_unix=self._t0_unix or 0.0)
 
     def _drain(self, packed_dev: torch.Tensor,
-               packed_host: Optional[torch.Tensor] = None,
-               plain_host: Optional[torch.Tensor] = None,
-               done: Optional[torch.cuda.Event] = None) -> None:
-        """The previous second's products: its device rows join the
-        search's stream; its host bytes (copied at its dispatch) go to
-        the .fil files and the block taps once its copy has completed."""
-        clock = self._clock
+               packed_host: Optional[torch.Tensor],
+               plain_host: Optional[torch.Tensor],
+               done: Optional[torch.cuda.Event],
+               second: spans.Record) -> None:
+        """The previous second's products (`second` its record): its
+        device rows join the search's stream; its host bytes (copied at
+        its dispatch) go to the .fil files and the block taps once its
+        copy has completed."""
+        rec = self._rec
         if self._search_live:
             # kept on the device only while a search will consume it
             self._fb_dev.append(packed_dev)
+            rows = int(packed_dev.shape[0])
+            self._rows.append((self._rows_in, self._rows_in + rows, second))
+            self._rows_in += rows
         if packed_host is not None:
             with torch.profiler.record_function("vfast.drain"):
-                t = time.perf_counter()
-                if done is not None:
-                    done.synchronize()
-                t1 = time.perf_counter()
-                clock["wait"] = t1 - t
-                packed = packed_host.numpy()
-                if self._fil is not None:
-                    self._fil.write_block(packed)
-                if plain_host is not None and self._fil_plain is not None:
-                    self._fil_plain.write_block(plain_host.numpy())
-                if self._search_live:
-                    self._fb.append(packed)
-                for tap in self.block_taps:
-                    tap(self.station_id, self._taps_offset, packed)
-                self._taps_offset += packed.shape[0]
-                clock["drain"] = time.perf_counter() - t1
+                with rec.span("wait"):
+                    if done is not None:
+                        done.synchronize()
+                with rec.span("drain"):
+                    packed = packed_host.numpy()
+                    if self._fil is not None:
+                        self._fil.write_block(packed)
+                    if plain_host is not None \
+                            and self._fil_plain is not None:
+                        self._fil_plain.write_block(plain_host.numpy())
+                    if self._search_live:
+                        self._fb.append(packed)
+                    for tap in self.block_taps:
+                        tap(self.station_id, self._taps_offset, packed)
+                    self._taps_offset += packed.shape[0]
         if self._search_live:
-            t = time.perf_counter()
-            self._cands.extend(self._search_ready())
-            clock["search"] = time.perf_counter() - t
+            with rec.span("search"):
+                self._cands.extend(self._search_ready())
 
     def _search_ready(self, flush: bool = False) -> List[dd.Candidate]:
         """Search every complete gulp accumulated since the last call."""
@@ -604,8 +655,17 @@ class StationPipeline:
                 flush and total - self._searched_to > overlap + 64):
             stop = min(self._searched_to + gulp + overlap, total)
             nrows = stop - self._searched_to
-            with torch.profiler.record_function("vfast.gulp_search"):
+            rec = spans.Record("gulp", self._ngulps,
+                               self.device.type == "cuda")
+            self._ngulps += 1
+            self._read_times()
+            rec.counters["ahead_s"] = sum(
+                r.layer == "second" for r in self._unread) + (
+                self._rec.layer == "second")
+            with torch.profiler.record_function("vfast.gulp_search"), \
+                    spans.bound(rec):
                 found = self._search_window(stop)
+            self._gulp_done(rec, stop)
             out.extend(found)
             st = self.search.last_gulp_stats
             self.metrics.set("vfast_gulp_crossings", st["n_crossings"])
@@ -621,9 +681,32 @@ class StationPipeline:
             self._searched_to += min(gulp, nrows - overlap)
             self._fb.prune(self._searched_to)
             self._fb_dev.prune(self._searched_to)
+            while self._rows and self._rows[0][1] <= self._searched_to:
+                self._rows.popleft()
             if flush and total - self._searched_to <= overlap + 64:
                 break
         return out
+
+    def _gulp_done(self, rec: spans.Record, stop: int) -> None:
+        """The gulp [searched_to, stop) has its candidates: its latency
+        from the start of the call that fed its last row, whether it
+        holds an armed second, the call it was searched in (none for a
+        gulp of end_observation), and the stall it leaves the card in
+        (_stall_to)."""
+        t = time.perf_counter()
+        held = [sec for lo, hi, sec in self._rows
+                if lo < stop and hi > self._searched_to]
+        dispatch = rec.first("dispatch")
+        rec.add("gulp", held[-1].start, t, parent=None)
+        rec.add("lag", held[-1].start, dispatch.start)
+        rec.counters["injected"] = int(any(sec.counters["armed"]
+                                           for sec in held))
+        if self._rec.layer == "second":
+            rec.counters["searched_in"] = self._rec.id
+        self._stall_to(dispatch.start, dispatch=True)
+        self._stall = (rec, rec.first("wait").end)
+        self.records.gulps.append(rec)
+        self._unread.append(rec)
 
     def _search_window(self, stop: int) -> List[dd.Candidate]:
         """One gulp [searched_to, stop), at its own length, from the

@@ -19,7 +19,11 @@ daemon raises at start), where the JAX daemon took a jax platform; each
 observation ends with one log line, "observation summary {json}": its
 seconds, wall, real-time factor, candidate count, the kernel launches it
 made, peak device memory, the median and the largest of the host's ms a
-second by part and, from a live source, the capture's counters; and a
+second by part, the gulps' in-program latency (p50, p95, and the p95 of
+the gulps with and without an injected second), its mean by part, the
+mean stall of the card after a gulp's fetch and the mean rows clustered
+(utils/spans.gulp_summary) and, from a live source, the capture's
+counters; and a
 live observation ends after ~20 s in which no datagram came, where the
 JAX daemon counted every poll that completed no second, so that at the
 reference rate (200 polls of 256 frames a second) it ended before its
@@ -48,6 +52,7 @@ from vlite_fast_tpu_torch.runtime.control import Command, CommandClient, \
 from vlite_fast_tpu_torch.runtime.dumper import TriggeredDumper
 from vlite_fast_tpu_torch.runtime.pipeline import StationPipeline
 from vlite_fast_tpu_torch.runtime.trigger import TriggerReceiver
+from vlite_fast_tpu_torch.utils import spans
 from vlite_fast_tpu_torch.utils.log import make_logger
 
 # the log line that ends each observation (`launch --fake` waits for it)
@@ -194,7 +199,8 @@ class StationDaemon:
                "host_ms_median": {k: 1e3 * statistics.median(v)
                                   for k, v in pipe.host_seconds.items() if v},
                "host_ms_max": {k: 1e3 * max(v)
-                               for k, v in pipe.host_seconds.items() if v}}
+                               for k, v in pipe.host_seconds.items() if v},
+               "gulp": spans.gulp_summary(pipe.records.gulps)}
         if self._capture is not None:
             st = self._capture.asm.stats
             out["capture"] = {"frames": st.frames, "skipped": st.skipped,
