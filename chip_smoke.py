@@ -138,7 +138,12 @@ Phases, each printing a line:
      equal to numpy's bincount of the staged seconds, the trace holding
      the pipeline's ranges (and whether the CUDA libraries' kernels are in
      it); one second's device ms by part, the real-time factor, peak
-     device memory; [17b] the 'fourier' search engine on [17a]'s gulps
+     device memory (the fused WOLA kernel twice a twin second); [17a']
+     that kernel (ops/megakernel.wola_dft_detect_power) at production
+     shapes, one stream and both, against its bound, its plain version
+     (within 1e-4 of the mean power) and the torch passes it replaces,
+     with ptxas's registers of every dft_tc_kernel instantiation;
+     [17b] the 'fourier' search engine on [17a]'s gulps
      and [3]'s production gulp: the FRB at the fold kernel's trial +-1
      with its S/N within 2%, the DM-time planes' difference, the gulp's
      time and peak memory; [17c] the config matrix (config.CONFIG_MATRIX,
@@ -2295,9 +2300,11 @@ def phase_pfb(dev) -> tuple:
           == PFB_SECONDS, f"[17a] {prod.seconds} seconds")
     check(all(launches[k] == PFB_SECONDS + (k == "rfi_front")
               for k in ARMED_KERNELS)
-          and not any(launches[k] for k in CHAIN_KERNELS),
-          f"[17a] launches {launches} vs {PFB_SECONDS} seconds and one "
-          f"bandpass seed")
+          and not any(launches[k] for k in CHAIN_KERNELS)
+          and launches["wola_dft_detect_power"] == 2 * len(twin_s),
+          f"[17a] launches {launches} vs {PFB_SECONDS} seconds, one "
+          f"bandpass seed and the fused WOLA kernel twice a twin second "
+          f"({len(twin_s)})")
     check(gulps >= 1 and launches["dedisperse_pallas_packed"] == gulps,
           f"[17a] dedispersion launches {launches} vs {gulps} gulps")
     def frb(at):          # the best candidate near DM 80 within 1.5 s of at
@@ -2387,6 +2394,79 @@ def phase_pfb(dev) -> tuple:
         f"{sorted(PROFILE_RANGES)} present, {len(kernels)} kernel events, "
         f"the CUDA libraries' kernels in it: {seen or 'none'}")
     return launches, blocks
+
+
+def phase_wola(dev) -> dict:
+    """[17a'] the pfb station's fused WOLA, DFT and detect
+    (ops/megakernel.wola_dft_detect_power) at production shapes, one
+    stream (stream 0's u8 bytes, stream 1's masked f32 voltages) and both,
+    by CUDA events, beside its bound, its plain version's wall and the
+    torch WOLA + matmul_rfft + detect it replaces in the twin second; the
+    kernel within 1e-4 of the mean power of the plain version; ptxas's
+    registers and spills of every dft_tc_kernel instantiation."""
+    from vlite_fast_tpu_torch import PipelineConfig
+    from vlite_fast_tpu_torch.ops import channelize as ch_ops
+    from vlite_fast_tpu_torch.ops import megakernel as mk
+    from vlite_fast_tpu_torch.ops import normalize as norm_ops
+    from vlite_fast_tpu_torch.ops import rfi_pallas
+    from vlite_fast_tpu_torch.ops import unpack as unpack_ops
+    cfg = PipelineConfig(channelizer="pfb", inject_frb=True)
+    raw = noise_on_card(dev, cfg.npol_in, cfg.sample_rate, 1721)
+    x_kur, _, _ = rfi_pallas.rfi_front(
+        raw, cfg.nkurto, cfg.nfft, dag_thresh=cfg.dag_thresh,
+        dag_fb_thresh=cfg.dag_fb_thresh)
+    gen = torch.Generator(device=dev).manual_seed(1722)
+    tail = 0.3 * torch.randn((cfg.npol_in, (cfg.pfb_ntap - 1) * cfg.nfft),
+                             generator=gen, device=dev)
+    run = lambda v: mk.wola_dft_detect_power(v, tail, cfg)
+    ms = {"u8": cuda_ms(lambda: run(raw), 5),
+          "f32": cuda_ms(lambda: run(x_kur), 5),
+          "both": cuda_ms(lambda: (run(raw), run(x_kur)), 5)}
+
+    def torch_stream(v):
+        frames = ch_ops.wola(v, cfg.nfft, cfg.pfb_ntap, tail)
+        return norm_ops.detect(ch_ops.matmul_rfft(frames, cfg.nfft))
+    ms_torch = cuda_ms(lambda: (torch_stream(unpack_ops.convert_uint8(raw)),
+                                torch_stream(x_kur)), 3)
+    err = 0.0
+    for v in (raw, x_kur):
+        want, plain_ms = timed_wall(lambda: mk.wola_dft_detect_plain(
+            v, tail, cfg))
+        got = run(v)
+        torch.cuda.synchronize()
+        err = max(err, float((got - want).abs().max() / want.mean()))
+        del got, want
+    check(err < 1e-4, f"[17a'] the fused WOLA kernel off its plain version "
+          f"by {err:.3e} of the mean power")
+    # both streams: the second's bytes and masked voltages read once, the
+    # two power planes written once, the padded products of 2 x frames
+    frames = cfg.npol_in * (cfg.sample_rate // cfg.nfft)
+    ops = perf.tc_dft_ops(cfg, 2 * frames, planes1=6)
+    moved = cfg.npol_in * cfg.sample_rate * 5 + 2 * 4 * frames * cfg.nchan
+    bound = perf.bound(moved, ops, "bf16")
+    regs = {}
+    for lib in ("wola_tc", "chain", "stage_ab"):
+        regs.update(ptxas_kernels(lib, "dft_tc_kernel"))
+    geo = {"wola": mk.tc_geometry(cfg.nfft, wola=True).smem,
+           "raw second": mk.tc_geometry(cfg.nfft).smem,
+           "CT u8": mk.tc_geometry(cfg.nfft, 1).smem,
+           "CT bf16": mk.tc_geometry(cfg.nfft, 2).smem}
+    log(f"[17a'] the fused WOLA kernel (wola_dft_detect_power, "
+        f"{cfg.pfb_ntap} taps, nfft {cfg.nfft}) per data-second: stream 0 "
+        f"(u8) {ms['u8']:.3f} ms, stream 1 (f32) {ms['f32']:.3f} ms, both "
+        f"{ms['both']:.3f} ms (CUDA events, 5 reps); bound, both streams, "
+        f"{bound['bound_ms']:.3f} ms ({bound['bound_by']}: "
+        f"{ops / 1e12:.3f} TFLOP of padded bf16 products); the torch WOLA + matmul_rfft + detect it "
+        f"replaces, both streams, {ms_torch:.2f} ms; plain version "
+        f"{plain_ms:.0f} ms a stream (wall), the kernel within "
+        f"{err:.2e} of its mean power; shared memory by loader "
+        f"{geo}; ptxas {regs}")
+    return {"name": "wola_dft_detect_power", "source": "wola_tc.cu",
+            "replaces": "none (vlite_fast_tpu/ops/channelize.py "
+            "polyphase_channelize is XLA)", "ms": ms["u8"],
+            "ms_both": ms["both"], "plain_ms": plain_ms,
+            "library_ms": None, "torch_path_ms_both": ms_torch,
+            "max_rel_err_of_mean": err, **bound}
 
 
 def phase_fourier(dev, blocks) -> None:
@@ -2509,6 +2589,8 @@ def phase_options(dev, raw) -> dict:
     [17c]'s programs, summed."""
     t0 = time.perf_counter()
     launched, blocks = phase_pfb(dev)
+    torch.cuda.empty_cache()
+    phase_wola(dev)
     torch.cuda.empty_cache()
     phase_fourier(dev, blocks)
     torch.cuda.empty_cache()

@@ -33,7 +33,10 @@ stage B (chain_second_plain) to the 2-bit bar and a bandpass within 1e-4
 relative; the roll+select dedispersion bit-equal to its plain version
 (the same adds in the same order) and allclose(rtol=1e-5, atol=1e-4) to
 the fold kernel, whose planes (both entries) equal stored sha-256 digests
-of the kernel before the roll+select stages moved into its source.
+of the kernel before the roll+select stages moved into its source; the
+fused WOLA kernel (wola_dft_detect_power) within 1e-4 of the mean power
+of its plain version (the same frames, the f32 sums in another order),
+and the pfb seconds it serves to the chain bar against the f32 path.
 """
 
 import ctypes
@@ -942,6 +945,122 @@ def test_tensor_core_kernels_keep_their_bits(cuda):
     assert _tc_digests(cuda) == TC_SHA256
 
 
+def _wola_cfg(nfft, nblk):
+    return PipelineConfig(channelizer="pfb", nfft=nfft,
+                          sample_rate=nfft * nblk, seg_per_sec=1,
+                          nscrunch=1, nkurto=nfft, chanmin=0, chanmax=3)
+
+
+# the fused WOLA kernel against its plain version from the same frames:
+# the production split (12500 = 100 x 125), n1 = 20 (500, not a multiple
+# of 16), n2 = 100 (10000, not a multiple of 32), n1 = 21 and n2 = 30
+# (630: a partial core block of W1 rows and of the frame), and the split
+# mode (15376 = 124 x 124: two blocks per frame)
+@pytest.mark.parametrize("src", ["u8", "f32"])
+@pytest.mark.parametrize("npol", [1, 2])
+@pytest.mark.parametrize("nfft,nblk", [(12500, 9), (500, 40), (10000, 7),
+                                       (630, 20), (15376, 6)])
+def test_wola_kernel_matches_plain(cuda, nfft, nblk, npol, src):
+    """wola_dft_detect_power against wola_dft_detect_plain on the card.
+    Both form the same frame tiles (the tap-ordered f32 sums, split
+    hi + lo: tests/test_torch_wola_tc.py holds the plain ones to numpy
+    bit for bit) and take the same bf16 products; they differ only in the
+    order of the f32 sums (the tensor cores' k16 steps against cuBLAS's).
+    On the CPU that order moves the power by at most 3.6e-5 of its mean
+    against float64 sums of the same products at 12500; so 1e-4 of the
+    mean (dropping the lo pass moves it 9e-2)."""
+    cfg = _wola_cfg(nfft, nblk)
+    gen = torch.Generator(device=cuda).manual_seed(nfft + npol)
+    raw = (torch.randn((npol, nfft * nblk), generator=gen, device=cuda)
+           / 0.0591 + 128.5).clamp(0, 255).to(torch.uint8)
+    raw[0, :50] = 0                         # zero bytes convert to 0.0
+    v = raw if src == "u8" else tdsp.unpack_ops.convert_uint8(raw) * (
+        torch.rand(raw.shape, generator=gen, device=cuda) > 0.1)
+    tail = torch.randn((npol, 3 * nfft), generator=gen, device=cuda) * 0.3
+    before = dict(tmk.LAUNCHES)
+    got = tmk.wola_dft_detect_power(v, tail, cfg)
+    want = tmk.wola_dft_detect_plain(v, tail, cfg)
+    torch.cuda.synchronize()
+    assert tmk.LAUNCHES == dict(
+        before, wola_dft_detect_power=before["wola_dft_detect_power"] + 1)
+    assert got.shape == want.shape == (npol, nblk, nfft // 2 + 1)
+    err = float((got - want).abs().max() / want.mean())
+    assert err < 1e-4, err
+
+
+def test_wola_kernel_over_the_plain_rows_is_the_masked_stream(cuda):
+    """The masked stream computed only in wola_masked_frames' frames, over
+    the plain stream's rows, equals it computed whole, bit for bit (each
+    frame's bits do not depend on which block transforms it)."""
+    cfg = PipelineConfig.tiny(channelizer="pfb", nbit=2, rfi_mode=2)
+    raw = torch.from_numpy(_noise(cfg.sample_rate, seed=14,
+                                  burst_at=40000)).to(cuda)
+    x_kur, w, _ = trfi.rfi_front(raw, cfg.nkurto, cfg.nfft,
+                                 dag_thresh=cfg.dag_thresh,
+                                 dag_fb_thresh=cfg.dag_fb_thresh)
+    gen = torch.Generator(device=cuda).manual_seed(15)
+    tail = torch.randn((2, 3 * cfg.nfft), generator=gen, device=cuda)
+    frames = tmk.wola_masked_frames(w, torch.ones((2, 3), device=cuda), 4)
+    n = int(frames[1][0])
+    assert 0 < n < w.numel()
+    plain = tmk.wola_dft_detect_power(raw, tail, cfg)
+    whole = tmk.wola_dft_detect_power(x_kur, tail, cfg)
+    got = tmk.wola_dft_detect_power(x_kur, tail, cfg, frames, plain.clone())
+    torch.cuda.synchronize()
+    assert torch.equal(got, whole)
+
+
+def test_wola_kernel_rejects_what_it_does_not_take(cuda):
+    cfg = _wola_cfg(500, 8)
+    raw = torch.zeros((2, 500 * 8), dtype=torch.uint8, device=cuda)
+    tail = torch.zeros((2, 1500), device=cuda)
+    for bad in (dict(pfb_ntap=3), dict(channelizer="matmul")):
+        with pytest.raises(ValueError):
+            tmk.wola_dft_detect_power(
+                raw, tail[:, :500 * (bad.get("pfb_ntap", 4) - 1)],
+                dataclasses.replace(cfg, **bad))
+    for v, t in ((raw[:, :-1], tail), (raw.double(), tail),
+                 (raw, tail[:, :-1]), (raw, tail.cpu())):
+        with pytest.raises(ValueError):
+            tmk.wola_dft_detect_power(v, t, cfg)
+
+
+def test_pfb_seconds_through_the_wola_kernel_match_f32(cuda):
+    """Three consecutive un-armed pfb seconds through process_second on
+    the card (the fused kernel, its tails carried) against
+    process_second_plain (the f32 WOLA, DFT and detect, segment by
+    segment): >= 0.9999 of 2-bit levels agree (bench.py's twin bar), none
+    off by more than one, the bandpasses' median relative gap within
+    portbench's bandpass_rel_median limit (4.5e-5), weights, dag_frac and
+    tails equal; two launches a second (both streams), and none on an fft
+    station's seconds."""
+    cfg = PipelineConfig.tiny(channelizer="pfb", nbit=2, rfi_mode=2)
+    st_k = st_p = tdsp.init_state(cfg, cuda)
+    before = tmk.LAUNCHES["wola_dft_detect_power"]
+    for seed in (11, 12, 13):
+        raw = torch.from_numpy(_noise(cfg.sample_rate, seed=seed,
+                                      burst_at=40000)).to(cuda)
+        got, st_k = tdsp.process_second(cfg, raw, st_k)
+        want, st_p = tdsp.process_second_plain(cfg, raw, st_p)
+        torch.cuda.synchronize()
+        for field in ("packed", "packed_kur"):
+            _assert_levels(getattr(got, field), getattr(want, field))
+        assert torch.equal(got.weights, want.weights)
+        assert abs(float(got.dag_frac) - float(want.dag_frac)) < 1e-6
+        for a, b in ((st_k.bp, st_p.bp), (st_k.bp_kur, st_p.bp_kur)):
+            rel = ((a - b).abs() / b.abs().clamp(min=1e-6)).median()
+            assert float(rel) <= 4.5e-5, float(rel)
+        assert torch.equal(st_k.tail, st_p.tail)
+        assert torch.equal(st_k.wtail, st_p.wtail)
+    assert tmk.LAUNCHES["wola_dft_detect_power"] - before == 6
+    fft = dataclasses.replace(cfg, channelizer="matmul")
+    st = tdsp.init_state(fft, cuda)
+    before = tmk.LAUNCHES["wola_dft_detect_power"]
+    tdsp.process_second(fft, raw, st)
+    tdsp.twin_second(tdsp.twin_config(fft), raw, st)
+    assert tmk.LAUNCHES["wola_dft_detect_power"] == before
+
+
 # (grid mode, nsub, sub_chunk, ndm, nbatch, ntime_out, the last batch's
 # in-subband delays raised by): 256 channels, 2 ms samples, DM 0-100
 ROLLSEL_CASES = [
@@ -1307,11 +1426,13 @@ def test_stage_events_sum_to_the_spans(cuda):
     recs = list(pipe.records.seconds)
     spans_by_kind = {k: list(v) for k, v in pipe.feed_seconds.items()}
     for r in recs:
-        span = spans_by_kind["armed" if r.counters["armed"]
-                             else "twin"].pop(0)
+        armed = r.counters["armed"]
+        span = spans_by_kind["armed" if armed else "twin"].pop(0)
         assert r.device_s == span
-        assert {"front", "wola", "dft", "detect", "ema", "pack"} == \
-            set(r.stages)
+        # an un-armed second's WOLA, DFT and detect are one launch ("dft")
+        assert set(r.stages) == ({"front", "wola", "dft", "detect", "ema",
+                                  "pack"} if armed else
+                                 {"front", "dft", "ema", "pack"})
         if r.id:
             assert abs(sum(r.stages.values()) - span) <= 0.1 * span, (
                 r.id, r.stages, span)

@@ -4,9 +4,10 @@
 // (the staged chain: dft_detect_power and chain_second_plain) and by every
 // layout of chain.cu: the raw second (chain_second_v2) and the
 // Cooley-Tukey-major u8 or bf16 tiles (chain_second, chain_second_v4),
-// both streams.  The frames come through a loader (front.cuh), which
-// sets how they reach the frame tile; every loader puts the same bf16
-// values at the same places there, so the three chains give the same bits.
+// both streams; and by wola_tc.cu (the pfb station's WOLA frames).  The
+// frames come through a loader (front.cuh, and Wola below), which sets how
+// they reach the frame tile; the byte loaders put the same bf16 values at
+// the same places there, so the three chains give the same bits.
 //
 // Same function as the JAX package's _dft_detect_body
 // (vlite_fast_tpu/ops/megakernel.py:290-325) and the port's
@@ -85,6 +86,23 @@
 // n2 to 32 (passes), n2_out to 64.  The padded entries of every constant
 // plane are zero and the converter writes zeros in the frame's padding,
 // so they add nothing.
+//
+// The WOLA loader (Wola<T, kTap>, wola_tc.cu): its frames are f32 sums,
+// not exact in bf16, so the converter writes each as hi = bf16(x) and lo
+// = bf16(x - hi) into two frame tiles and stage 1 takes a third pass,
+//   A = W1hi xhi + (W1lo xhi + W1hi xlo)                  lo * lo dropped
+// (the configuration's bf16x3).  Each k16 step chains its three products
+// from zero, the small ones first, as stage 2 chains its six, and adds
+// them to the running sum rounded to nearest: two accumulator planes, not
+// four, which leaves the converter the registers it needs (four planes
+// spilled more and ran 4-7% slower).  It brings no frame by bulk copy: a WOLA
+// frame draws on kTap source frames (200 KB of f32 at production), so the
+// converter reads its taps from device memory (L2: the ~132 frames in
+// flight share their source frames) and the window in its own order
+// (16-byte loads), and the ring's room holds the lo tile: 93 + 64 + 28 +
+// 28 = 213 KB.  The converter, not the tensor cores, sets the pace: it
+// costs ~1.5 ms a stream beyond the DFT's own ~2.5 (PERF.md §6).
+// The byte loaders' code is as before (kSplit is false).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -115,6 +133,7 @@ struct Geom {
   int slot;   // bytes of one ring slot: a raw frame, or a CT slice
   int nslot;  // ring slots: kSlots raw frames, or up to kCtSlots slices
   int split;  // 1: two blocks per frame, one warpgroup's 64 rows each
+  int wola;   // 1: the WOLA loader (a lo frame tile, no ring)
   // shared memory: byte sizes and offsets
   int w1_plane, w2_plane, tile, ring, bars, smem;
 };
@@ -122,8 +141,9 @@ struct Geom {
 // ct: 0 for the raw second (NaturalU8), else the element bytes of the
 // CT-major tiles (CtMajor<uint8_t> 1, CtMajor<__nv_bfloat16> 2), whose
 // ring holds slices of 32 tile rows (m2) and needs npass + 1 of them: one
-// pass of lead over the slice the consumers convert next
-inline Geom make_geom(int nfft, int n1, int n2, int ct = 0) {
+// pass of lead over the slice the consumers convert next.  wola: the WOLA
+// loader (ct 0), whose lo frame tile takes the ring's place
+inline Geom make_geom(int nfft, int n1, int n2, int ct = 0, int wola = 0) {
   Geom g;
   g.nfft = nfft;
   g.n1 = n1;
@@ -136,13 +156,16 @@ inline Geom make_geom(int nfft, int n1, int n2, int ct = 0) {
   g.npass = (n2 + 31) / 32;
   g.kb2 = 4 * g.npass;
   g.ct = ct;
-  g.slot = ct ? (n2 < 32 ? n2 : 32) * 128 * ct : (nfft + 15) / 16 * 16 + 16;
+  g.wola = wola;
+  g.slot = wola ? 0
+                : ct ? (n2 < 32 ? n2 : 32) * 128 * ct
+                     : (nfft + 15) / 16 * 16 + 16;
   g.w2_plane = 8 * g.kb2 * 128;             // 64 k2 rows x 8 kb2 m2
   for (g.split = 0; g.split < 2; ++g.split) {
     g.w1_plane = (g.split ? 8 : g.rg1) * g.kb1 * 128;
     g.tile = 4 * g.w1_plane + 4 * g.w2_plane;
-    g.ring = g.tile + 4 * g.npass * g.kb1 * 128;
-    g.nslot = kSlots;
+    g.ring = g.tile + (wola ? 2 : 1) * 4 * g.npass * g.kb1 * 128;
+    g.nslot = wola ? 0 : kSlots;
     if (ct) {
       const int room = (kSmemMax - g.ring - kCtSlots * 8) / g.slot;
       g.nslot = room < kCtSlots ? room : kCtSlots;
@@ -264,6 +287,32 @@ __device__ __forceinline__ float volt_u8(uint8_t u) {
   return u ? x : 0.0f;
 }
 
+// ---------------------------------------------------------------- WOLA ---
+
+// The WOLA frames of one stream of the pfb channelizer (the port's
+// ops/channelize.wola): frame j of pol p is, at sample n,
+//   sum_t win[t, n] src(p, j + t, n)       t = 0 .. kTap - 1, in tap order
+// in f32, each product and sum rounded (__fmul_rn, __fadd_rn), where block
+// b < nh = kTap - 1 is the carried tail's, (npol, nh * nfft) f32, and
+// block b >= nh the second's x (npol, nsamp) at b - nh: raw bytes
+// (T = uint8_t, converted as conv_u8) or f32 voltages.  The window is laid
+// out in the converter's order (ops/megakernel.wola_window_tiles): for
+// pass h, core block c, tap t and half eh, 32 float4s, lane r's holding
+// win[t, (8c + 4eh + i) n2 + 32h + r] for i = 0..3 (0 past n1 and n2), so
+// each of an item's 8 window loads is one aligned 16-byte load per lane.
+template <class T, int kTap>
+struct Wola {
+  const T* x;
+  const float* tail;
+  const float4* win;
+  long long nsamp;
+};
+
+__device__ __forceinline__ float wola_src(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float wola_src(const uint8_t* p) {
+  return volt_u8(__ldg(p));
+}
+
 // ---------------------------------------------------------------- jobs ---
 
 // The frames a launch transforms, read through the loader Ld: NaturalU8
@@ -309,6 +358,11 @@ __device__ __forceinline__ long long frame_src(const CtMajor<T>& ld,
                                                long long p, long long j) {
   return ld.tile(p, j);
 }
+template <class T, int kTap>
+__device__ __forceinline__ long long frame_src(const Wola<T, kTap>& ld,
+                                               long long p, long long j) {
+  return (p << 32) | j;    // pol and block, decoded by the converter
+}
 
 template <class Ld>
 __device__ __forceinline__ Job job_of(const Jobs<Ld>& J, long long i,
@@ -337,6 +391,21 @@ __device__ __forceinline__ Job job_of(const Jobs<Ld>& J, long long i,
   return o;
 }
 
+// The WOLA loader's jobs: job i is frame f = i (pol-major, row f of
+// `power`), or with a list f = list[i], i < *nlist: only the listed rows
+// are written.
+template <class T, int kTap>
+__device__ __forceinline__ Job job_of(const Jobs<Wola<T, kTap>>& J,
+                                      long long i, int nchan) {
+  const long long f = J.list ? J.list[i] : i;
+  const long long p = f / J.nblk;
+  Job o;
+  o.keep = nullptr;
+  o.out = J.power + f * nchan;
+  o.src = frame_src(J.ld, p, f - p * J.nblk);
+  return o;
+}
+
 // [lo, hi): the bytes of the frame at `src` that one bulk copy brings, the
 // 16-byte-aligned span around it clamped to the buffer (hi == lo: none)
 __device__ __forceinline__ void span(const Jobs<NaturalU8>& J, long long src,
@@ -362,6 +431,18 @@ template <class T>
 struct ElemOf<CtMajor<T>> {
   using type = T;
 };
+template <class T, int kTap>
+struct ElemOf<Wola<T, kTap>> {
+  using type = T;
+};
+
+// the WOLA loader's taps, 0 for the byte loaders: frames that are not
+// exact in bf16 (WolaTaps > 0) take a lo frame tile beside the hi one and
+// a third stage-1 pass
+template <class Ld>
+struct WolaTaps : std::integral_constant<int, 0> {};
+template <class T, int kTap>
+struct WolaTaps<Wola<T, kTap>> : std::integral_constant<int, kTap> {};
 
 // ---------------------------------------------------------------- kernel -
 
@@ -370,7 +451,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     dft_tc_kernel(Geom G, Jobs<Ld> J, const uint4* __restrict__ w1,
                   const float4* __restrict__ tw,
                   const uint4* __restrict__ w2) {
-  constexpr bool kCt = !std::is_same<Ld, NaturalU8>::value;
+  constexpr bool kSplit = WolaTaps<Ld>::value > 0;
+  constexpr bool kCt = !std::is_same<Ld, NaturalU8>::value && !kSplit;
   using Elem = typename ElemOf<Ld>::type;
   extern __shared__ __align__(128) unsigned char smem[];
   uint64_t* full = (uint64_t*)(smem + G.bars);
@@ -400,17 +482,20 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
   fence_async_smem();
   if (tid == 0) {
-    for (int s = 0; s < (kCt ? G.nslot : kSlots); ++s) mbar_init(&full[s], 1);
+    for (int s = 0; s < (kSplit ? 0 : kCt ? G.nslot : kSlots); ++s)
+      mbar_init(&full[s], 1);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
-  const long long njobs = (long long)J.npol * J.nblk +
-                          (J.nlist ? (long long)J.npol * *J.nlist : 0);
+  const long long njobs =
+      kSplit ? (J.nlist ? (long long)*J.nlist : (long long)J.npol * J.nblk)
+             : (long long)J.npol * J.nblk +
+                   (J.nlist ? (long long)J.npol * *J.nlist : 0);
   // thread 0 brings the raw frame of local job k into slot k % kSlots
   // (kSlots jobs ahead; a slot is refilled once every thread has passed
   // the barrier after converting it)
   auto fetch = [&](int k) {
-    if constexpr (!kCt) {
+    if constexpr (!kCt && !kSplit) {
       const long long i = j0 + k * jstep;
       if (i >= njobs) return;
       long long lo, hi;
@@ -470,7 +555,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   // take the sample-by-sample path.
   auto convert = [&](const Job& jb, int slot, long long lo, long long hi,
                      int h) {
-    if constexpr (!kCt) {
+    if constexpr (!kCt && !kSplit) {
       const unsigned char* sl = ring + slot * G.slot;
       const bool whole = jb.src >= lo && jb.src + G.nfft <= hi;
       const uint32_t fr = saddr(sl) + (uint32_t)(whole ? jb.src - lo : 0);
@@ -580,12 +665,91 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
     }
   };
+  // The WOLA loader: items [i0, i1) of slice h of a job's frame (item it:
+  // core block it >> 5, m2 = 32 h + (it & 31), as in `convert`), each
+  // sample formed from its taps and the window in device memory, into the
+  // hi and lo tiles.  A frame whose taps all lie in the second (j >= nh:
+  // all but a pol's first nh) reads them at one base, every load of an
+  // item issued before the sums (lanes m1 >= n1 read lane 8c's sample and
+  // give 0); the first nh pick the tail or the second tap by tap.
+  auto convert_wola = [&](const Job& jb, int h, int i0, int i1) {
+    if constexpr (kSplit) {
+      constexpr int kTap = WolaTaps<Ld>::value;
+      constexpr int nh = kTap - 1;
+      const long long p = jb.src >> 32, j = jb.src & 0xFFFFFFFFll;
+      const Elem* xb = J.ld.x + p * J.ld.nsamp + (j - nh) * G.nfft;
+      const uint32_t fbytes = 4 * G.npass * sbo1;
+      const int iend = i1 < 32 * G.kb1 ? i1 : 32 * G.kb1;
+      for (int it = i0 + tid; it < iend; it += nthr) {
+        const int r = it & 31, m2 = 32 * h + r, c = it >> 5;
+        const int n0 = 8 * c * G.n2 + m2;
+        const int nv = G.n1 - 8 * c;      // lanes of the core block in n1
+        // this item's window: tap t, lanes e = 4 eh .. 4 eh + 3
+        const float4* wb = J.ld.win + (h * G.kb1 + c) * kTap * 64 + r;
+        float v[8] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+        if (m2 < G.n2 && nv > 0) {
+          float wv[kTap][8];
+#pragma unroll
+          for (int t = 0; t < kTap; ++t)
+#pragma unroll
+            for (int eh = 0; eh < 2; ++eh) {
+              const float4 w4 = __ldg(wb + (2 * t + eh) * 32);
+              wv[t][4 * eh] = w4.x;
+              wv[t][4 * eh + 1] = w4.y;
+              wv[t][4 * eh + 2] = w4.z;
+              wv[t][4 * eh + 3] = w4.w;
+            }
+          float sv[kTap][8];
+          if (j >= nh) {
+#pragma unroll
+            for (int t = 0; t < kTap; ++t)
+#pragma unroll
+              for (int e = 0; e < 8; ++e)
+                sv[t][e] = wola_src(xb + (e < nv ? n0 + e * G.n2 : n0) +
+                                    t * G.nfft);
+          } else {
+#pragma unroll
+            for (int t = 0; t < kTap; ++t) {
+              const long long b = j + t;
+#pragma unroll
+              for (int e = 0; e < 8; ++e) {
+                const int n = e < nv ? n0 + e * G.n2 : n0;
+                sv[t][e] = b < nh
+                               ? __ldg(J.ld.tail + (p * nh + b) * G.nfft + n)
+                               : wola_src(J.ld.x + p * J.ld.nsamp +
+                                          (b - nh) * G.nfft + n);
+              }
+            }
+          }
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            float a = __fmul_rn(wv[0][e], sv[0][e]);
+#pragma unroll
+            for (int t = 1; t < kTap; ++t)
+              a = __fadd_rn(a, __fmul_rn(wv[t][e], sv[t][e]));
+            v[e] = e < nv ? a : 0.0f;
+          }
+        }
+        uint32_t hi[4], lo[4];
+#pragma unroll
+        for (int e = 0; e < 8; e += 2)
+          split2(v[e], v[e + 1], hi[e >> 1], lo[e >> 1]);
+        unsigned char* at =
+            smem + G.tile + (m2 >> 3) * sbo1 + c * 128 + (m2 & 7) * 16;
+        *(uint4*)at = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+        *(uint4*)(at + fbytes) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+      }
+    }
+  };
 
   long long i = j0;
   if (i >= njobs) return;
   Job cur = job_of(J, i, G.nchan);
   if constexpr (kCt) {
     for (int h = 0; h < G.npass; ++h) convert_ct(cur, h, h);
+    fence_async_smem();
+  } else if constexpr (kSplit) {
+    for (int h = 0; h < G.npass; ++h) convert_wola(cur, h, 0, 32 * G.kb1);
     fence_async_smem();
   } else {
     long long lo, hi;
@@ -601,7 +765,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     long long nlo = 0, nhi = 0;
     if (more) {
       nxt = job_of(J, i + jstep, G.nchan);
-      if constexpr (!kCt) {
+      if constexpr (!kCt && !kSplit) {
         span(J, nxt.src, nlo, nhi);
         mbar_wait(&full[nslot], (uint32_t)((k + 1) / kSlots) & 1);
       }
@@ -631,22 +795,47 @@ __global__ void __launch_bounds__(kThreads, 1)
         const uint32_t a0 = a_base + ks * 256;
         const uint64_t b = desc(b_base + ks * 256, 128, sbo1);
         wg_fence();
-        wgmma_n32_ss<0>(c0, desc(a0, 128, sbo1), b);
-        wgmma_n32_ss<0>(c1, desc(a0 + G.w1_plane, 128, sbo1), b);
-        wgmma_n32_ss<0>(c2, desc(a0 + 2 * G.w1_plane, 128, sbo1), b);
-        wgmma_n32_ss<0>(c3, desc(a0 + 3 * G.w1_plane, 128, sbo1), b);
-        wg_commit();
-        wg_wait<0>();
-        reg_fence(c0);
-        reg_fence(c1);
-        reg_fence(c2);
-        reg_fence(c3);
+        if constexpr (kSplit) {
+          // the lo frame tile lies one tile (4 npass sbo1 bytes) on; each
+          // k16 step's three products chained from zero, the small first,
+          // into acc[1] and acc[3] (acc[0] and acc[2] stay 0)
+          const uint64_t bl =
+              desc(b_base + 4 * G.npass * sbo1 + ks * 256, 128, sbo1);
+          const uint64_t wrh = desc(a0, 128, sbo1);
+          const uint64_t wih = desc(a0 + 2 * G.w1_plane, 128, sbo1);
+          wgmma_n32_ss<0>(c1, desc(a0 + G.w1_plane, 128, sbo1), b);
+          wgmma_n32_ss<1>(c1, wrh, bl);
+          wgmma_n32_ss<1>(c1, wrh, b);
+          wgmma_n32_ss<0>(c3, desc(a0 + 3 * G.w1_plane, 128, sbo1), b);
+          wgmma_n32_ss<1>(c3, wih, bl);
+          wgmma_n32_ss<1>(c3, wih, b);
+          wg_commit();
+          wg_wait<0>();
+          reg_fence(c1);
+          reg_fence(c3);
 #pragma unroll
-        for (int e = 0; e < 16; ++e) {
-          acc[0][e] = __fadd_rn(acc[0][e], c0[e]);
-          acc[1][e] = __fadd_rn(acc[1][e], c1[e]);
-          acc[2][e] = __fadd_rn(acc[2][e], c2[e]);
-          acc[3][e] = __fadd_rn(acc[3][e], c3[e]);
+          for (int e = 0; e < 16; ++e) {
+            acc[1][e] = __fadd_rn(acc[1][e], c1[e]);
+            acc[3][e] = __fadd_rn(acc[3][e], c3[e]);
+          }
+        } else {
+          wgmma_n32_ss<0>(c0, desc(a0, 128, sbo1), b);
+          wgmma_n32_ss<0>(c1, desc(a0 + G.w1_plane, 128, sbo1), b);
+          wgmma_n32_ss<0>(c2, desc(a0 + 2 * G.w1_plane, 128, sbo1), b);
+          wgmma_n32_ss<0>(c3, desc(a0 + 3 * G.w1_plane, 128, sbo1), b);
+          wg_commit();
+          wg_wait<0>();
+          reg_fence(c0);
+          reg_fence(c1);
+          reg_fence(c2);
+          reg_fence(c3);
+#pragma unroll
+          for (int e = 0; e < 16; ++e) {
+            acc[0][e] = __fadd_rn(acc[0][e], c0[e]);
+            acc[1][e] = __fadd_rn(acc[1][e], c1[e]);
+            acc[2][e] = __fadd_rn(acc[2][e], c2[e]);
+            acc[3][e] = __fadd_rn(acc[3][e], c3[e]);
+          }
         }
       }
       named_sync(2, nthr);    // every thread is done reading slice h
@@ -708,7 +897,12 @@ __global__ void __launch_bounds__(kThreads, 1)
         wgmma_n64_rs<1>(ci, rh[e], wih);
         wgmma_n64_rs<1>(ci, ih[e], wrh);
         wg_commit();
-        if (e == 0 && more) {
+        if constexpr (kSplit) {
+          // the next frame's slice h in two parts, one behind each
+          // k-step's products
+          if (more)
+            convert_wola(nxt, h, e ? nthr : 0, e ? 32 * G.kb1 : nthr);
+        } else if (e == 0 && more) {
           if constexpr (kCt)
             convert_ct(nxt, (k + 1) * G.npass + h, h);
           else
@@ -750,10 +944,12 @@ template <class Ld>
 inline cudaError_t launch(const Geom& G, const Jobs<Ld>& J,
                           long long max_jobs, const void* w1, const void* tw,
                           const void* w2, cudaStream_t st) {
-  const int ct = std::is_same<Ld, NaturalU8>::value
+  constexpr bool split = WolaTaps<Ld>::value > 0;
+  const int ct = std::is_same<Ld, NaturalU8>::value || split
                      ? 0
                      : (int)sizeof(typename ElemOf<Ld>::type);
-  if (!fits(G) || G.ct != ct) return cudaErrorInvalidValue;
+  if (!fits(G) || G.ct != ct || G.wola != (int)split)
+    return cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(
       dft_tc_kernel<Ld>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       G.smem);

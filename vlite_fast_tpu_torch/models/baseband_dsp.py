@@ -33,7 +33,10 @@ ops/megakernel ('megakernel2' chain_second_v2; 'megakernel',
 'pallas', 'pallas_bf16'; 'megakernel4' chain_second_v4).
 `process_second_plain` is the same function segment by segment on torch
 ops only, the oracle of all of them; `reference_chain_numpy` is the JAX
-package's numpy oracle of the unweighted chain, copied.
+package's numpy oracle of the unweighted chain, copied.  With
+channelizer='pfb', a second on a card that injects nothing takes each
+stream's WOLA, DFT and detect in one launch
+(ops/megakernel.wola_dft_detect_power; `wola_kernel_takes`).
 
 An observation starts from `seed_bandpass`, which has no JAX
 counterpart: the zero bandpasses of a fresh state are seeded from the
@@ -47,10 +50,14 @@ twin_chain_impl='auto' as "on any device": 'auto' gives the v2 chain
 kernel wherever it takes the geometry, so the CPU tests go through its
 entry point too.  Knobs that only pick a TPU implementation inside a
 program (ema_impl, rfi_impl, front_layout, batch_streams,
-dft_exact_input, dft_stage2, dft_precision) are ignored: every ema_impl
-and rfi_impl gives the sequential EMA's results; the DFT is f32, except
-in the v2 chain kernel, which runs the TPU kernels' split-plane bf16 DFT
-on the tensor cores (held to the f32 plain version at the chain bar).
+dft_exact_input, dft_stage2) are ignored: every ema_impl and rfi_impl
+gives the sequential EMA's results.  The DFT is f32, except in the v2
+chain kernel, which runs the TPU kernels' split-plane bf16 DFT on the
+tensor cores whatever dft_precision says, and in process_second's pfb
+seconds on a card that inject nothing, whose fused WOLA kernel runs it
+at bf16x3 where dft_precision is 'high' (as the JAX package's pfb path
+computes at dft_precision); both are held to the f32 plain version at
+the chain bar.
 """
 
 from __future__ import annotations
@@ -380,6 +387,21 @@ def _power(cfg: PipelineConfig, v: torch.Tensor, since: int,
     return norm_ops.detect(spec)
 
 
+def wola_kernel_takes(cfg: PipelineConfig, v: torch.Tensor,
+                      since: int) -> bool:
+    """Whether process_second takes a stream's power from the fused WOLA
+    kernel (ops/megakernel.wola_dft_detect_power) rather than `_power`:
+    the pfb channelizer at dft_precision 'high' (the kernel's bf16x3;
+    'highest' keeps the f32 DFT), voltages on a CUDA device, a call that
+    injects nothing (the injection sits between the DFT and detect) and
+    a geometry the kernel takes (megakernel.wola_fits)."""
+    from vlite_fast_tpu_torch.ops import megakernel as mk
+    return (cfg.channelizer == "pfb" and cfg.dft_precision == "high"
+            and v.device.type == "cuda"
+            and not (cfg.inject_frb and since >= 0)
+            and mk.wola_fits(cfg.nfft, cfg.pfb_ntap))
+
+
 def _finish_stream(cfg: PipelineConfig, out: torch.Tensor,
                    weights: torch.Tensor | None) -> torch.Tensor:
     """Back half of the chain: pscrunch -> tscrunch -> trim + quantize +
@@ -478,15 +500,34 @@ def process_second(cfg: PipelineConfig, raw_second: torch.Tensor,
     channelizer='pfb' one WOLA runs over [carried tail, whole second]
     per stream (the segments are contiguous, so its spectra are the
     segment-by-segment ones); the masked tail is rfi_front's, and the
-    raw block weights are carried before the WOLA bookkeeping.
+    raw block weights are carried before the WOLA bookkeeping.  Where
+    wola_kernel_takes, each stream's WOLA, DFT and detect are one launch
+    of the fused kernel (stream 0 reading the raw bytes), at bf16x3; with
+    both streams, stream 1's computes only the frames whose taps reach a
+    block the front masked (megakernel.wola_masked_frames) and keeps
+    stream 0's rows elsewhere, which are the same bits.
 
     Device stages of a bound span record (utils/spans; none without
     one): "front" (convert, the RFI front, the WOLA carry), then for each
     stream "wola" (pfb), "dft", "detect", "ema", "pack" (the scrunches
-    and sel_and_dig)."""
+    and sel_and_dig); the fused kernel's launch is "dft" alone."""
+    from vlite_fast_tpu_torch.ops import megakernel as mk
     torch.backends.cuda.matmul.allow_tf32 = False   # the DFT stays f32
     dev = raw_second.device
     since = 0 if arm_inject else state.segs_since_inject
+    fused = wola_kernel_takes(cfg, raw_second, since)
+
+    def power_of(v: torch.Tensor, s: int, over=None) -> torch.Tensor:
+        if fused:
+            spans.stage("dft")
+            frames = None if over is None else mk.wola_masked_frames(
+                w_raw, state.wtail, cfg.pfb_ntap)
+            return mk.wola_dft_detect_power(v.contiguous(), state.tail[s],
+                                            cfg, frames, over)
+        if v.dtype == torch.uint8:
+            v = unpack_ops.convert_uint8(v)
+        return _power(cfg, v, since, state.tail[s])
+
     nspec = cfg.seg_per_sec * cfg.ffts_per_seg
     spans.stage("front")
     if cfg.rfi_mode > 0:
@@ -507,6 +548,7 @@ def process_second(cfg: PipelineConfig, raw_second: torch.Tensor,
         dtype=torch.uint8, device=dev)
     bp, bp_kur = state.bp, state.bp_kur
     tail, wtail = state.tail, state.wtail
+    w_raw = weights
     if cfg.channelizer == "pfb":
         tl = (cfg.pfb_ntap - 1) * cfg.nfft
         x_tail = unpack_ops.convert_uint8(
@@ -515,19 +557,22 @@ def process_second(cfg: PipelineConfig, raw_second: torch.Tensor,
             else x_tail
         tail, wtail, weights = _pfb_carry(cfg, x_tail, kur_tail, weights,
                                           state)
+    plain_power = None
     tt = cfg.ffts_per_seg        # one tile per segment: per-segment seeds
     if cfg.rfi_mode != 1:
-        power = _power(cfg, unpack_ops.convert_uint8(raw_second), since,
-                       state.tail[0])
+        power = power_of(raw_second, 0)
         spans.stage("ema")
         out, bp = pk.normalize_ema_pallas(power, bp, cfg.bp_scale,
                                           time_tile=tt)
+        # the fused kernel computes the masked stream only in the frames
+        # whose taps reach a masked block, over the plain stream's rows
+        plain_power = power if fused and cfg.rfi_mode == 2 else None
         del power
         spans.stage("pack")
         packed = _finish_stream(cfg, out, None)
     if cfg.rfi_mode != 0:
-        power = _power(cfg, x_kur, since, state.tail[1])
-        del x_kur
+        power = power_of(x_kur, 1, plain_power)
+        del x_kur, plain_power
         spans.stage("ema")
         out, bp_kur = pk.normalize_ema_weighted_pallas(
             power, weights, bp_kur, cfg.bp_scale, time_tile=tt)

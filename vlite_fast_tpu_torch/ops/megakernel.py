@@ -27,6 +27,17 @@ them; no configuration does):
                        the bandpass carried: the same DFT, then chain.cuh's
                        EMA launch in rfi_mode 0.
 
+One replaces no TPU kernel, because the JAX package's pfb path is XLA
+(vlite_fast_tpu/ops/channelize.polyphase_channelize, its WOLA and then
+matmul_rfft's einsums at dft_precision):
+
+  wola_dft_detect_power  the pfb station's WOLA, DFT and detect of one
+                         stream in one launch: csrc/wola_tc.cu, the
+                         tensor-core DFT of csrc/dft_tc.cuh with its WOLA
+                         loader (frames formed in f32 from their taps,
+                         split into bf16 hi + lo, stage 1 in three passes:
+                         the configuration's bf16x3).
+
 The three chains compute one function, as their TPU kernels do, and are
 one launch of csrc/chain.cu on the current stream: the front, the DFT on
 the tensor cores in the TPU kernels' split-plane bf16 arithmetic (wgmma,
@@ -81,7 +92,8 @@ from vlite_fast_tpu_torch.ops import unpack as unpack_ops
 
 LAUNCHES = {"chain_second_v2": 0, "pallas_pretranspose": 0,
             "chain_second": 0, "chain_second_v4": 0,
-            "dft_detect_power": 0, "chain_second_plain": 0}
+            "dft_detect_power": 0, "chain_second_plain": 0,
+            "wola_dft_detect_power": 0}
 LANE = 128               # the CT-major tile is LANE x LANE
 PRETRANSPOSE = ("xla", "pallas", "pallas_bf16")
 
@@ -441,18 +453,28 @@ def dft_detect_oracle(raw: torch.Tensor, nfft: int, npol: int,
     return out
 
 
-def _split_detect(x: torch.Tensor, nfft: int) -> torch.Tensor:
+def _split_detect(x: torch.Tensor, nfft: int,
+                  x_lo: torch.Tensor | None = None) -> torch.Tensor:
     """The split-plane bf16 DFT and |X|^2 of bf16-exact f32 frames x
     (..., n1, n2), sample n = m1 * n2 + m2 at [m1, m2], emulated in f32 in
     the JAX package's order of terms -> power (..., nfft // 2 + 1),
-    linear channels."""
+    linear channels.  With x_lo (frames that are not exact in bf16, split
+    as x + x_lo by _hi_lo) stage 1 takes the third pass of bf16x3:
+    W1hi x + (W1lo x + W1hi x_lo)."""
     n1, n2 = ch_ops._ct_split(nfft)
     n2o = nfft // 2 // n1 + 1
     sp = split_planes(nfft, x.device)
     batch = x.shape[:-2]
     x = x.reshape(-1, n1, n2)
-    ar = torch.matmul(sp.w1r_hi, x) + torch.matmul(sp.w1r_lo, x)
-    ai = torch.matmul(sp.w1i_hi, x) + torch.matmul(sp.w1i_lo, x)
+    if x_lo is None:
+        ar = torch.matmul(sp.w1r_hi, x) + torch.matmul(sp.w1r_lo, x)
+        ai = torch.matmul(sp.w1i_hi, x) + torch.matmul(sp.w1i_lo, x)
+    else:
+        xl = x_lo.reshape(-1, n1, n2)
+        ar = torch.matmul(sp.w1r_hi, x) + (torch.matmul(sp.w1r_lo, x)
+                                           + torch.matmul(sp.w1r_hi, xl))
+        ai = torch.matmul(sp.w1i_hi, x) + (torch.matmul(sp.w1i_lo, x)
+                                           + torch.matmul(sp.w1i_hi, xl))
     br = ar * sp.twr - ai * sp.twi
     bi = ar * sp.twi + ai * sp.twr
     rh, rl = _hi_lo(br)
@@ -485,7 +507,8 @@ def split_power(cfg: PipelineConfig, v: torch.Tensor, since: int
 class TcGeometry(NamedTuple):
     """The tensor-core DFT's shapes for nfft = n1 * n2 (csrc/dft_tc.cuh's
     Geom) and one loader (ct: 0 the raw second, else the element bytes of
-    the CT-major tiles): consumer warpgroups (64 rows k1 each), the stage-1
+    the CT-major tiles; wola: the WOLA loader, whose lo frame tile takes
+    the ring's place): consumer warpgroups (64 rows k1 each), the stage-1
     depth in 8-wide core blocks, the W1 rows stored in 8-row groups, the
     stage-1 passes of 32 m2 columns, the W2 depth stored in 8-wide core
     blocks (all 32 npass columns that stage 2 walks), the ring's slots
@@ -511,15 +534,16 @@ TC_SLOTS = 3             # raw frames in flight (dft_tc.cuh's kSlots)
 TC_CT_SLOTS = 8          # CT slices in flight, at most (kCtSlots)
 
 
-def tc_geometry(nfft: int, ct: int = 0) -> TcGeometry:
+def tc_geometry(nfft: int, ct: int = 0, wola: bool = False) -> TcGeometry:
     n1, n2 = ch_ops._ct_split(nfft)
     kb1, rg1, npass = 2 * -(-n1 // 16), -(-n1 // 8), -(-n2 // 32)
     kb2, nwg = 4 * npass, -(-n1 // 64)
-    slot = min(32, n2) * 128 * ct if ct else -(-nfft // 16) * 16 + 16
+    slot = 0 if wola else min(32, n2) * 128 * ct if ct else \
+        -(-nfft // 16) * 16 + 16
     for split in (False, True):
         ring = (4 * (8 if split else rg1) * kb1 + 4 * 8 * kb2
-                + 4 * npass * kb1) * 128
-        nslot = TC_SLOTS if not ct else min(
+                + (2 if wola else 1) * 4 * npass * kb1) * 128
+        nslot = 0 if wola else TC_SLOTS if not ct else min(
             TC_CT_SLOTS, (TC_SMEM_MAX - ring - 8 * TC_CT_SLOTS) // slot)
         smem = ring + nslot * slot + 8 * nslot
         if (smem <= TC_SMEM_MAX and (not ct or nslot > npass)) or nwg < 2:
@@ -528,14 +552,15 @@ def tc_geometry(nfft: int, ct: int = 0) -> TcGeometry:
                       nslot, split, smem)
 
 
-def tc_fits(nfft: int) -> bool:
-    """Whether the tensor-core DFT takes nfft's CT split, for every loader
-    (the raw second, u8 and bf16 CT-major tiles): n1 <= 128 (two
-    warpgroups), n2 <= 128, n2_out <= 64 (one m64n64 stage-2 product), its
-    planes, frame tile and ring within a block's shared memory, and for
-    the tiles at least npass + 1 slices in the ring."""
-    for ct in (0, 1, 2):
-        g = tc_geometry(nfft, ct)
+def tc_fits(nfft: int, wola: bool = False) -> bool:
+    """Whether the tensor-core DFT takes nfft's CT split, for every chain
+    loader (the raw second, u8 and bf16 CT-major tiles), or with wola for
+    the WOLA loader: n1 <= 128 (two warpgroups), n2 <= 128, n2_out <= 64
+    (one m64n64 stage-2 product), its planes, frame tiles and ring within
+    a block's shared memory, and for the tiles at least npass + 1 slices
+    in the ring."""
+    for ct in ((0,) if wola else (0, 1, 2)):
+        g = tc_geometry(nfft, ct, wola)
         if not (2 <= g.n1 <= 128 and g.n2 <= 128 and g.n2_out <= 64
                 and g.smem <= TC_SMEM_MAX and (not ct or g.nslot > g.npass)):
             return False
@@ -731,3 +756,188 @@ def chain_second_plain(raw: torch.Tensor, bp: torch.Tensor, nfft: int,
     _build.check(rc, "vf_chain_second_plain", lib)
     LAUNCHES["chain_second_plain"] += 1
     return packed, bp_out
+
+
+# ---------------------------------------------------------------------------
+# The pfb station's WOLA, DFT and detect in one launch (wola_dft_detect_power)
+# ---------------------------------------------------------------------------
+
+WOLA_TAPS = (4,)         # the tap counts csrc/wola_tc.cu is built for
+
+
+def wola_fits(nfft: int, ntap: int) -> bool:
+    """Whether wola_dft_detect_power's kernel takes a WOLA of ntap taps
+    over frames of nfft: a tap count it is built for (WOLA_TAPS) and a CT
+    split whose planes and two frame tiles fit (tc_fits with wola)."""
+    if ntap not in WOLA_TAPS:
+        return False
+    try:
+        ch_ops._ct_split(nfft)
+    except ValueError:
+        return False
+    return tc_fits(nfft, wola=True)
+
+
+def wola_window_tiles(nfft: int, ntap: int, device) -> torch.Tensor:
+    """The WOLA window (ch_ops._window) in the order csrc/dft_tc.cuh's WOLA
+    loader reads it: f32 (npass, kb1, ntap, 2, 32, 4), entry [h, c, t, eh,
+    r, i] = win[t, (8 c + 4 eh + i) n2 + 32 h + r], 0 past n1 and n2, so
+    that an item's 8 window loads are aligned 16-byte loads (built once)."""
+    key = ("wola", nfft, ntap, str(device))
+    if key not in _SPLIT:
+        geo = tc_geometry(nfft, wola=True)
+        n1, n2 = geo.n1, geo.n2
+        win = ch_ops._pfb_window(ntap, nfft).reshape(ntap, n1, n2)
+        pad = np.zeros((ntap, 8 * geo.kb1, 32 * geo.npass), np.float32)
+        pad[:, :n1, :n2] = win
+        # [t, c, eh, i, h, r] -> [h, c, t, eh, r, i]
+        tiles = pad.reshape(ntap, geo.kb1, 2, 4, geo.npass, 32).transpose(
+            4, 1, 0, 2, 5, 3)
+        _SPLIT[key] = torch.from_numpy(np.ascontiguousarray(tiles)).to(
+            device)
+    return _SPLIT[key]
+
+
+def wola_split_frames(v: torch.Tensor, tail: torch.Tensor, nfft: int,
+                      ntap: int) -> tuple:
+    """The kernel's frame tiles: the WOLA frames of [tail, v] (ch_ops.wola
+    with a tail), each sample the window's taps summed in f32 in tap order,
+    every product and sum rounded (no fused multiply-add), then split as
+    _hi_lo.  v (npol, nsamp) u8 raw bytes (converted as
+    unpack.convert_uint8) or f32 voltages; tail f32 (npol, (ntap - 1) *
+    nfft).  Returns (hi, lo), f32 (npol, nsamp // nfft, nfft) of
+    bf16-exact values."""
+    win, _ = ch_ops._window(ntap, nfft, v.device)
+    x = unpack_ops.convert_uint8(v) if v.dtype == torch.uint8 else v
+    npol = x.shape[0]
+    ext = torch.cat([tail.reshape(npol, ntap - 1, nfft),
+                     x.reshape(npol, -1, nfft)], dim=1)
+    n = ext.shape[1] - (ntap - 1)
+    f = ext[:, 0:n] * win[0]
+    for t in range(1, ntap):
+        f = f + ext[:, t:t + n] * win[t]
+    return _hi_lo(f)
+
+
+def wola_masked_frames(w_raw: torch.Tensor, wtail: torch.Tensor,
+                       ntap: int) -> tuple:
+    """The frames of a second whose taps reach a block the RFI front
+    masked in part or whole (raw weight < 1), the carried blocks first:
+    w_raw (npol, nspec) the second's raw block weights, wtail (npol, ntap
+    - 1) the carried ones.  Every other frame of the masked stream has
+    the plain stream's taps exactly (a kept sample is the same voltage),
+    so the same bits.  Returns (list, count) on w_raw's device, int32:
+    the frames' pol-major indices (p nspec + j) in order in list[:count]
+    (list holds npol nspec + 1 entries), without reading the device."""
+    w_ext = torch.cat([wtail, w_raw], dim=1) < 1.0
+    nspec = w_raw.shape[1]
+    hit = w_ext[:, 0:nspec].clone()
+    for t in range(1, ntap):
+        hit |= w_ext[:, t:t + nspec]
+    hit = hit.reshape(-1)
+    n = hit.numel()
+    pos = torch.cumsum(hit, 0) - 1
+    slot = torch.where(hit, pos, torch.full_like(pos, n))
+    frames = torch.zeros((n + 1,), dtype=torch.int32, device=w_raw.device)
+    frames.scatter_(0, slot, torch.arange(n, dtype=torch.int32,
+                                          device=w_raw.device))
+    return frames, hit.sum(dtype=torch.int32).reshape(1)
+
+
+def wola_dft_detect_plain(v: torch.Tensor, tail: torch.Tensor,
+                          cfg: PipelineConfig, frames: tuple | None = None,
+                          out: torch.Tensor | None = None,
+                          chunk: int = 4096) -> torch.Tensor:
+    """wola_dft_detect_power's plain version: wola_split_frames, then the
+    split-plane DFT with stage 1's third pass and |X|^2 (_split_detect),
+    chunk frames at a time.  Same arguments and return."""
+    hi, lo = wola_split_frames(v, tail, cfg.nfft, cfg.pfb_ntap)
+    npol, nspec, _ = hi.shape
+    hi, lo = hi.reshape(npol * nspec, -1), lo.reshape(npol * nspec, -1)
+    n1, n2 = ch_ops._ct_split(cfg.nfft)
+    power = torch.empty((npol * nspec, cfg.nchan), dtype=torch.float32,
+                        device=v.device)
+    for i in range(0, npol * nspec, chunk):
+        power[i:i + chunk] = _split_detect(
+            hi[i:i + chunk].reshape(-1, n1, n2), cfg.nfft,
+            lo[i:i + chunk].reshape(-1, n1, n2))
+    if frames is None:
+        return power.reshape(npol, nspec, cfg.nchan)
+    rows = frames[0][:int(frames[1][0])].long()
+    out.reshape(npol * nspec, cfg.nchan)[rows] = power[rows]
+    return out
+
+
+def _check_wola_args(v: torch.Tensor, tail: torch.Tensor,
+                     cfg: PipelineConfig, frames, out) -> None:
+    if v.device.type != "cuda":
+        raise ValueError(f"wola_dft_detect_power: unsupported device "
+                         f"{v.device}")
+    if cfg.channelizer != "pfb" or not wola_fits(cfg.nfft, cfg.pfb_ntap):
+        raise ValueError("wola_dft_detect_power: the CUDA kernel takes the "
+                         f"pfb channelizer with {WOLA_TAPS} taps and a CT "
+                         "split that fits (wola_fits); got channelizer "
+                         f"{cfg.channelizer!r}, pfb_ntap {cfg.pfb_ntap}, "
+                         f"nfft {cfg.nfft}")
+    if v.dtype not in (torch.uint8, torch.float32) or v.dim() != 2 \
+            or v.shape[1] % cfg.nfft or not v.is_contiguous():
+        raise ValueError(f"wola_dft_detect_power: v must be contiguous uint8 "
+                         f"or float32 (npol, k * {cfg.nfft})")
+    nt = (cfg.pfb_ntap - 1) * cfg.nfft
+    if tail.dtype != torch.float32 or tuple(tail.shape) != (v.shape[0], nt) \
+            or not tail.is_contiguous() or tail.device != v.device:
+        raise ValueError(f"wola_dft_detect_power: tail must be contiguous "
+                         f"float32 ({v.shape[0]}, {nt}) on {v.device}")
+    if frames is None:
+        return
+    shape = (v.shape[0], v.shape[1] // cfg.nfft, cfg.nchan)
+    lst, count = frames
+    if out is None or out.dtype != torch.float32 or tuple(out.shape) != shape \
+            or not out.is_contiguous() or out.device != v.device:
+        raise ValueError(f"wola_dft_detect_power: with frames, out must be "
+                         f"contiguous float32 {shape} on {v.device}")
+    if lst.dtype != torch.int32 or lst.shape != (shape[0] * shape[1] + 1,) \
+            or count.dtype != torch.int32 or count.shape != (1,) \
+            or lst.device != v.device or count.device != v.device:
+        raise ValueError("wola_dft_detect_power: frames must be "
+                         "wola_masked_frames' (list, count) on the device")
+
+
+def wola_dft_detect_power(v: torch.Tensor, tail: torch.Tensor,
+                          cfg: PipelineConfig, frames: tuple | None = None,
+                          out: torch.Tensor | None = None) -> torch.Tensor:
+    """One stream of the pfb channelizer and detect: the WOLA frames of
+    [tail, v] (cfg.pfb_ntap taps, cfg.nfft), their DFT at bf16x3 (the
+    configuration's dft_precision 'high') and |X|^2.
+
+    v (npol, nsamp): the second's u8 raw bytes or f32 voltages (the RFI
+    front's masked ones); tail f32 (npol, (pfb_ntap - 1) * nfft), the
+    stream's carried voltages.  Returns power f32 (npol, nsamp // nfft,
+    nfft // 2 + 1), linear channels.  With frames (wola_masked_frames'
+    list and count) only those rows are computed, into `out`, which is
+    returned: the masked stream's other rows are the plain stream's.  A
+    CPU tensor takes the plain version; a CUDA one launches
+    csrc/wola_tc.cu or raises."""
+    if v.device.type == "cpu":
+        return wola_dft_detect_plain(v, tail, cfg, frames, out)
+    _check_wola_args(v, tail, cfg, frames, out)
+    npol, nsamp = v.shape
+    n1, n2 = ch_ops._ct_split(cfg.nfft)
+    if frames is None:
+        out = torch.empty((npol, nsamp // cfg.nfft, cfg.nchan),
+                          dtype=torch.float32, device=v.device)
+    win = wola_window_tiles(cfg.nfft, cfg.pfb_ntap, v.device)
+    a1, tw, b2 = tc_planes(cfg.nfft, v.device)
+    lib = _build.load("wola_tc")
+    fn = lib.vf_wola_dft_detect_power
+    fn.argtypes = [ctypes.c_void_p] * 11
+    fn.restype = ctypes.c_int
+    ip = (ctypes.c_longlong * 7)(npol, nsamp, cfg.nfft, n1, n2, cfg.pfb_ntap,
+                                 int(v.dtype == torch.uint8))
+    lst, count = frames if frames is not None else (None, None)
+    rc = fn(ctypes.cast(ip, ctypes.c_void_p),
+            *(_ptr(t) for t in (v, tail, win, a1, tw, b2, lst, count, out)),
+            ctypes.c_void_p(torch.cuda.current_stream(v.device).cuda_stream))
+    _build.check(rc, "vf_wola_dft_detect_power", lib)
+    LAUNCHES["wola_dft_detect_power"] += 1
+    return out

@@ -365,8 +365,10 @@ class StationPipeline:
                            device=self.device)
         dsp.seed_bandpass(cfg, zero, dsp.init_state(cfg, self.device))
         if cfg.inject_frb:
+            # armed, as the armed seconds are: on the pfb channelizer an
+            # un-armed second takes another path (wola_kernel_takes)
             dsp.process_second(cfg, zero, dsp.init_state(cfg, self.device),
-                               False)
+                               True)
         out, _ = self._twin(self._cfg_noinject, zero,
                             dsp.init_state(cfg, self.device), False)
         row = (out.packed_kur if cfg.rfi_mode else out.packed).shape[1]

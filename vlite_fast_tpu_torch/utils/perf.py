@@ -38,14 +38,18 @@ def bound(moved: float, ops: float, kind: str = "f32") -> dict:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
-def tc_dft_ops(cfg: "PipelineConfig", frames: int) -> float:
+def tc_dft_ops(cfg: "PipelineConfig", frames: int,
+               planes1: int = 4) -> float:
     """The bf16 products the tensor-core DFT (csrc/dft_tc.cuh) issues for
-    `frames` frames, padding included: stage 1 four W1 planes of (64 nwg)
-    x (32 npass) x (8 kb1), stage 2 twelve of (64 nwg) x 64 x (32 npass)."""
+    `frames` frames, padding included: stage 1 `planes1` W1 planes (four
+    on exact bf16 frames, six on the WOLA loader's hi + lo frames) of
+    (64 nwg) x (32 npass) x (8 kb1), stage 2 twelve of (64 nwg) x 64 x
+    (32 npass)."""
     from vlite_fast_tpu_torch.ops import megakernel as mk
     g = mk.tc_geometry(cfg.nfft)
     rows, cols = 64 * g.nwg, 32 * g.npass
-    return frames * 2 * (4 * rows * cols * 8 * g.kb1 + 12 * rows * 64 * cols)
+    return frames * 2 * (planes1 * rows * cols * 8 * g.kb1
+                         + 12 * rows * 64 * cols)
 
 
 def _frames(cfg: "PipelineConfig") -> int:
