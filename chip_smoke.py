@@ -2625,6 +2625,7 @@ def phase_mesh_step(dev, mesh) -> dict:
     from vlite_fast_tpu_torch.benchmarks import fullgeom_mesh as fg
     from vlite_fast_tpu_torch.models import baseband_dsp as dsp
     from vlite_fast_tpu_torch.parallel import sharded_pipeline as sp
+    from vlite_fast_tpu_torch.utils import spans
     check(mesh.size == 1, "[18a] needs a 1x1 mesh")
     torch.cuda.empty_cache()
     cfg = fg.array_config(8, mesh).pipeline
@@ -2653,15 +2654,15 @@ def phase_mesh_step(dev, mesh) -> dict:
             cold = mesh_jax_start(step_fn, raw, mesh, cfg, info, scfg,
                                   (state[0].clone(), state[1].clone()))
         torch.cuda.reset_peak_memory_stats(dev)
-        marks = []
+        rec = spans.Record("call", k, on_card=True)
         tail_in = state[2]
         kernel_launches.zero()
         (out, state), wall_ms = timed_wall(
-            lambda: step_fn(raw, *state, marks=marks))
+            lambda: step_fn(raw, *state, record=rec))
         got = kernel_launches.counts()
         peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
         _add(launched, got)
-        parts = fg.part_ms(marks)
+        parts = fg.part_ms(rec)
         full = sp.gather_step_output(out, mesh)
         per_beam, coadd, stats = sp.extract_candidates(
             full, info, scfg, call_base=k * info.T)

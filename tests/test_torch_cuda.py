@@ -1369,8 +1369,11 @@ def test_array_step_nccl_matches_cpu(cuda):
     all_gather and all_reduce through NCCL) against the same step on
     gloo and the CPU: packed levels to the chain bar, bandpasses within
     1e-4 relative, the same candidates with S/N within 1e-3; on the card
-    rfi_front and both EMA kernels launch once an antenna-second and the
-    dedispersion's f32 entry once a beam and once for the coadd."""
+    both EMA kernels launch once an antenna-second, rfi_front once an
+    antenna-second and once an antenna more (the call is an observation's
+    first: baseband_dsp.seed_bandpass seeds each antenna's bandpass from
+    the front's weights), and the dedispersion's f32 entry once a beam
+    and once for the coadd."""
     got, st_g, info, counts, (beams_g, co_g, _) = _array_step_run("cuda")
     want, st_w, _, counts_cpu, (beams_w, co_w, _) = _array_step_run("cpu")
     la, lb = got.packed_kur, want.packed_kur
@@ -1385,7 +1388,7 @@ def test_array_step_nccl_matches_cpu(cuda):
         np.testing.assert_allclose([c.snr for c in g], [c.snr for c in w],
                                    rtol=1e-3)
     ant_secs = info.nant * 2
-    assert counts["rfi_front"] == ant_secs
+    assert counts["rfi_front"] == ant_secs + info.nant
     assert counts["normalize_ema_pallas"] == ant_secs
     assert counts["normalize_ema_weighted_pallas"] == ant_secs
     assert counts["dedisperse_pallas"] == info.nant + 1

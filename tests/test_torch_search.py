@@ -160,6 +160,35 @@ def test_topk_banded_decode_identical_hits():
     assert [tuple(c) for c in ct] == [tuple(c) for c in cj]
 
 
+@pytest.mark.parametrize("case", range(6))
+def test_cluster_hits_as_the_jax_loop(case):
+    """The port's friends-of-friends on whole arrays gives the JAX
+    package's sweep-line loop's candidates, field for field and in order:
+    sparse and dense hits, S/N ties, DM links 0-5, time gaps 0-3, a cap
+    on the candidates, a time offset below and above zero."""
+    rng = np.random.default_rng(100 + case)
+    dms = np.linspace(2.0, 1000.0, 256)
+    for trial in range(60):
+        n = int(rng.integers(1, 600))
+        ndm, nt = int(rng.integers(1, 48)), int(rng.integers(4, 400))
+        hits = np.stack([rng.integers(0, 5, n), rng.integers(0, ndm, n),
+                         rng.integers(0, nt, n)], axis=1)
+        vals = (rng.choice([6.5, 7.0, 9.5], n) if trial % 2
+                else rng.uniform(6.0, 30.0, n)).astype(np.float32)
+        kw = dict(widths=(1, 2, 4, 8, 16), t_offset=int(rng.integers(-99,
+                                                                    999)),
+                  max_cands=int(rng.integers(1, 40)) if trial % 3 == 0
+                  else 4096, dm_link=int(rng.integers(0, 6)),
+                  time_gap=int(rng.integers(0, 4)))
+        got = tdd.cluster_hits(hits, vals, dms, TSAMP, **kw)
+        want = jdd.cluster_hits(hits, vals, dms, TSAMP, **kw)
+        assert [tuple(c) for c in got] == [tuple(c) for c in want]
+        assert [tuple(map(type, c)) for c in got] == \
+            [tuple(map(type, c)) for c in want]
+    assert tdd.cluster_hits(np.zeros((0, 3), np.int64),
+                            np.zeros(0, np.float32), dms, TSAMP) == []
+
+
 @pytest.mark.parametrize("nbit", [2, 4, 8])
 def test_filterbank_from_packed_matches(nbit):
     rng = np.random.default_rng(nbit)

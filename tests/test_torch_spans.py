@@ -4,7 +4,9 @@ counters count what the search handled, the pipeline's and the search's
 timing views are read from them, the stage marks in process_second and
 the gulp record nothing outside a bound record and change no output, and
 a profiled observation holds the spans' "vfast/..." ranges beside the
-pipeline's own PROFILE_RANGES."""
+pipeline's own PROFILE_RANGES; and a call of the sharded array step
+(parallel/sharded_pipeline) on a one-rank gloo mesh fills the call
+record it is given, and makes the same bytes without one."""
 
 import json
 
@@ -311,3 +313,98 @@ def test_profile_trace_holds_the_span_ranges(tmp_path):
         inside(f"vfast/gulp.{part}", "vfast.gulp_search")
     inside("vfast/second.wait", "vfast.drain")
     inside("vfast.armed_second", "vfast/second.program")
+
+
+CALL_STAGES = {"front", "dft", "detect", "ema", "pack", "reshard",
+               "dedisperse", "boxcar", "topk", "coadd", "coadd_search"}
+
+
+@pytest.fixture(scope="module")
+def array_calls():
+    """Two calls of the tiny array (portbench/tests/_tiny_array) with a
+    record and two without, at a low threshold (so that noise crosses
+    it), with the rows every cluster_hits call received in the first."""
+    from portbench.tests import _tiny_array as ta
+    from vlite_fast_tpu_torch.parallel import sharded_pipeline as sp
+    cell = ta.tiny_array_cell(snr_thresh=4.0)
+    clustered = []
+    real = sp.dd.cluster_hits
+
+    def counting(hits, *a, **kw):
+        clustered.append(len(hits))
+        return real(hits, *a, **kw)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(sp.dd, "cluster_hits", counting)
+        with_rec = ta.array_calls(cell, 2, seed=5)
+    without = ta.array_calls(cell, 2, seed=5, record=False)
+    return with_rec, without, clustered
+
+
+def test_call_record_spans_nest(array_calls):
+    """A call's host spans, one id each: the root "call" around the
+    step's "dispatch", "gather", "decode" and "cluster", in that order."""
+    for k, c in enumerate(array_calls[0]["calls"]):
+        rec = c["record"]
+        assert rec.layer == "call" and rec.id == k
+        assert [(s.name, s.parent) for s in rec.spans] == [
+            ("dispatch", "call"), ("gather", "call"), ("decode", "call"),
+            ("cluster", "call"), ("call", None)]
+        assert {s.id for s in rec.spans} == {k}
+        root = rec.first("call")
+        for a, b in zip(rec.spans, rec.spans[1:4]):
+            assert a.end <= b.start
+        assert all(root.start <= s.start <= s.end <= root.end
+                   for s in rec.spans)
+
+
+def test_call_record_counters(array_calls):
+    from portbench.tests import _tiny_array as ta
+    ran, _, clustered = array_calls
+    info = ran["info"]
+    assert sum(clustered) > 0
+    n = 0
+    for c in ran["calls"]:
+        cnt = c["record"].counters
+        assert cnt["antenna_seconds"] == info.nant * ta.NSEC
+        assert cnt["beams"] == info.nant
+        assert cnt["crossings"] == c["stats"]["n_crossings"] > 0
+        assert cnt["saturated_bands"] == c["stats"]["saturated_bands"]
+        k = len(c["per_beam"]) + (1 if c["coadd"] else 0)
+        assert cnt["cluster_rows"] == sum(clustered[n:n + k])
+        n += k
+
+
+def test_call_record_stages_sum_to_its_device_span(array_calls):
+    """Every stage of the call is marked, the first call's bandpass seed
+    outside them, and they sum to (nearly all of) the step's span."""
+    for c in array_calls[0]["calls"]:
+        rec = c["record"]
+        assert set(rec.stages) == CALL_STAGES
+        total = sum(rec.stages.values())
+        assert 0.8 * rec.device_s <= total <= rec.device_s + 1e-9
+
+
+def test_call_record_changes_no_output(array_calls):
+    """The step's outputs, state and candidates are the same bytes with a
+    record bound and without."""
+    for a, b in zip(*(r["calls"] for r in array_calls[:2])):
+        for x, y in zip(a["full"], b["full"]):
+            assert np.array_equal(x, y)
+        for x, y in zip(a["state"], b["state"]):
+            assert torch.equal(x, y)
+        assert a["per_beam"] == b["per_beam"] and a["coadd"] == b["coadd"]
+    assert spans.bound_record() is None
+
+
+def test_fullgeom_parts_read_the_call_record(array_calls):
+    """benchmarks/fullgeom_mesh.part_ms gives the step's parts from the
+    call record's stages, every stage in one part."""
+    from vlite_fast_tpu_torch.benchmarks import fullgeom_mesh as fg
+    rec = array_calls[0]["calls"][1]["record"]
+    parts = fg.part_ms(rec)
+    assert list(parts) == ["dsp", "reshard", "beam_search",
+                           "coadd_allreduce", "coadd_search"]
+    assert set(rec.stages) <= {s for v in fg.PARTS.values() for s in v}
+    assert sum(parts.values()) == pytest.approx(
+        1e3 * sum(rec.stages.values()))

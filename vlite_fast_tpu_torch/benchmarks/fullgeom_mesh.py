@@ -21,8 +21,8 @@ collectives still go through NCCL); under torchrun the mesh is
 (call, antenna), so any mesh sees the same voltages; the JAX script draws
 numpy noise on the host instead.  Rank 0 prints one JSON report with the
 JAX script's keys (for the first call) and, under "calls", each call's
-wall, antenna-seconds a second, device ms by part (CUDA events around
-the step's parts) and peak device memory.
+wall, antenna-seconds a second, device ms by part (the device stages of
+the call's utils/spans record, part_ms) and peak device memory.
 """
 
 from __future__ import annotations
@@ -126,10 +126,23 @@ def initial_state(mesh, cfg, info, seed: int) -> tuple:
     return bp, bp_kur, torch.stack(tails)
 
 
-def part_ms(marks: list) -> dict:
-    """Device ms of each part of a step from its marks (synchronized)."""
-    return {part: start.elapsed_time(end) for (_, start), (part, end)
-            in zip(marks, marks[1:])}
+# a step's parts by the device stages of its call record
+# (parallel/sharded_pipeline): the DSP is process_second's stages, the
+# coadd's sum (in the beam loop), all_reduce and scale are
+# "coadd_allreduce"
+PARTS = {"dsp": ("front", "wola", "dft", "detect", "ema", "pack"),
+         "reshard": ("reshard",),
+         "beam_search": ("dedisperse", "boxcar", "topk"),
+         "coadd_allreduce": ("coadd",),
+         "coadd_search": ("coadd_search",)}
+
+
+def part_ms(record) -> dict:
+    """Device ms of each part of a step (PARTS) from its call record,
+    read after a synchronize."""
+    record.resolve(wait=True)
+    return {part: 1e3 * sum(record.stages.get(s, 0.0) for s in stages)
+            for part, stages in PARTS.items()}
 
 
 def judge(per_beam: dict, coadd: list, info, dm_true: float,
@@ -169,6 +182,7 @@ def main(argv=None) -> int:
     from vlite_fast_tpu_torch.parallel.mesh import make_mesh
     from vlite_fast_tpu_torch.parallel.sharded_pipeline import (
         build_array_step, extract_candidates, gather_step_output)
+    from vlite_fast_tpu_torch.utils import spans
 
     ap = argparse.ArgumentParser(
         prog="vlite_fast_tpu_torch.benchmarks.fullgeom_mesh")
@@ -197,9 +211,9 @@ def main(argv=None) -> int:
         fill_noise(raw, mesh, cfg, k, seed=0)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        marks = []
+        rec = spans.Record("call", k, on_card=True)
         t0 = time.perf_counter()
-        out, state = step_fn(raw, *state, marks=marks)
+        out, state = step_fn(raw, *state, record=rec)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         full = gather_step_output(out, mesh)
@@ -207,7 +221,7 @@ def main(argv=None) -> int:
                                                     call_base=k * info.T)
         calls.append({"step_seconds": wall,
                       "ant_sec_per_s": nant * args.nsec / wall,
-                      "device_ms": part_ms(marks),
+                      "device_ms": part_ms(rec),
                       "peak_device_gib":
                           torch.cuda.max_memory_allocated() / 2 ** 30,
                       "topk_stats": stats,

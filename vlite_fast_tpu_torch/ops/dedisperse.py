@@ -7,9 +7,10 @@ form, the plain version of the CUDA kernel in ops/dedisperse_pallas;
 `dedisperse_fourier` the same sums as Fourier phase ramps (torch.fft, as
 the JAX package's is XLA and not a TPU kernel); `dedisperse_reference`
 the JAX package's exact numpy shift-and-sum, which the offline analysis
-(analysis/cutout, analysis/localization.refine_dm) calls.  `Candidate`,
-`find_candidates` and `cluster_hits` are numpy copies of the JAX
-package's (whose module imports jax).
+(analysis/cutout, analysis/localization.refine_dm) calls.  `Candidate`
+and `find_candidates` are numpy copies of the JAX package's (whose module
+imports jax); `cluster_hits` gives its candidates by sweeps over whole
+arrays where the JAX package loops over DM trials in Python.
 """
 
 from __future__ import annotations
@@ -332,25 +333,6 @@ class Candidate(NamedTuple):
                    int(f[4]), float(f[5]), int(f[6]), int(f[7]), int(f[8]))
 
 
-class _UnionFind:
-    def __init__(self, n: int):
-        self.parent = np.arange(n)
-
-    def find(self, i: int) -> int:
-        p = self.parent
-        root = i
-        while p[root] != root:
-            root = p[root]
-        while p[i] != root:
-            p[i], i = root, p[i]
-        return root
-
-    def union(self, a: int, b: int) -> None:
-        ra, rb = self.find(a), self.find(b)
-        if ra != rb:
-            self.parent[rb] = ra
-
-
 def find_candidates(snr: np.ndarray, dms: np.ndarray, tsamp: float,
                     thresh: float = 6.0,
                     widths: Sequence[int] = (1, 2, 4, 8, 16, 32, 64),
@@ -374,6 +356,47 @@ def find_candidates(snr: np.ndarray, dms: np.ndarray, tsamp: float,
                         dm_link=dm_link, time_gap=time_gap)
 
 
+def _components(n: int, u: np.ndarray, v: np.ndarray) -> np.ndarray:
+    """The connected components of the graph on n nodes with edges
+    (u, v): each node's label is the least node of its component (every
+    root hooked under the lesser of an edge's roots, then pointers
+    jumped to their roots, until no edge joins two roots)."""
+    parent = np.arange(n)
+    while len(u):
+        ru, rv = parent[u], parent[v]
+        live = ru != rv
+        if not live.any():
+            break
+        u, v, ru, rv = u[live], v[live], ru[live], rv[live]
+        np.minimum.at(parent, np.maximum(ru, rv), np.minimum(ru, rv))
+        while True:
+            up = parent[parent]
+            if np.array_equal(up, parent):
+                break
+            parent = up
+    return parent
+
+
+def _sweep_edges(key: np.ndarray, lo: np.ndarray, hi: np.ndarray,
+                 node: np.ndarray, time_gap: int) -> tuple:
+    """The friends one sweep line finds in each group of `key`, its items
+    in sweep order (by key, then lo): an item joins the run before it
+    where it starts within time_gap of the run's furthest end.  A run
+    that starts ends past every earlier end of its group (its start lies
+    beyond them, its end beyond its start), so that end is the group's
+    running maximum.  Returns (node, node) edges between neighbours of a
+    run."""
+    first = np.ones(len(key), dtype=bool)
+    first[1:] = key[1:] != key[:-1]
+    group = np.cumsum(first) - 1
+    span = int(hi.max() - lo.min()) + 1
+    reach = np.maximum.accumulate(hi + group * span) - group * span
+    join = ~first
+    join[1:] &= lo[1:] < reach[:-1] + time_gap
+    at = np.flatnonzero(join)
+    return node[at - 1], node[at]
+
+
 def cluster_hits(hits: np.ndarray, vals: np.ndarray, dms: np.ndarray,
                  tsamp: float,
                  widths: Sequence[int] = (1, 2, 4, 8, 16, 32, 64),
@@ -384,49 +407,58 @@ def cluster_hits(hits: np.ndarray, vals: np.ndarray, dms: np.ndarray,
     hits: (n, 3) [width_idx, dm_idx, t_end]; vals: their S/N.  Two
     crossings are friends when their boxcar intervals overlap (with a
     `time_gap` slack) and their DM trials are within `dm_link`; each
-    cluster yields one Candidate at its S/N peak."""
+    cluster yields one Candidate at its S/N peak.
+
+    The JAX package's sweep, on whole arrays: for each DM step delta <=
+    dm_link, the crossings of trials d and d + delta are swept in one
+    group a trial d (by interval start, trial d's first on a tie), and
+    the friends it finds are joined into components.  Clusters, their
+    peaks (the first crossing of the greatest S/N), their order (by S/N,
+    then by their first crossing) and the candidates are the JAX
+    package's."""
     hits = np.asarray(hits)
     vals = np.asarray(vals)
     if hits.size == 0:
         return []
     n = len(vals)
     w_arr = np.asarray(widths)[hits[:, 0]]
-    lo = hits[:, 2] - w_arr + 1                    # interval [lo, hi)
-    hi = hits[:, 2] + 1
-    dmi = hits[:, 1]
-    uf = _UnionFind(n)
-    order = np.argsort(lo, kind="stable")
-    by_trial: dict = {}
-    for idx in order:
-        by_trial.setdefault(int(dmi[idx]), []).append(int(idx))
-    for d, members in by_trial.items():
-        for delta in range(0, dm_link + 1):
-            other = by_trial.get(d + delta)
-            if other is None or (delta == 0 and len(members) < 2):
-                continue
-            merged = members if delta == 0 else sorted(
-                members + other, key=lambda i: lo[i])
-            run_rep, run_hi = merged[0], hi[merged[0]]
-            for i in merged[1:]:
-                if lo[i] < run_hi + time_gap:
-                    uf.union(run_rep, i)
-                    if hi[i] > run_hi:
-                        run_hi = int(hi[i])
-                else:
-                    run_rep, run_hi = i, int(hi[i])
-    clusters: dict = {}
-    for i in range(n):
-        clusters.setdefault(uf.find(i), []).append(i)
-    cands: list[Candidate] = []
-    for members in clusters.values():
-        m = np.asarray(members)
-        k = m[np.argmax(vals[m])]
-        iw, idm, it = hits[k]
-        cands.append(Candidate(
-            snr=float(vals[k]), peak_idx=int(it) + t_offset,
-            peak_time=(int(it) + t_offset) * tsamp,
-            tfilt=int(np.log2(widths[iw])), dmi=int(idm),
-            dm=float(dms[idm]), ngiant=len(members),
-            i0=int(lo[m].min()) + t_offset, i1=int(hi[m].max()) + t_offset))
-    cands.sort(key=lambda c: -c.snr)
-    return cands[:max_cands]
+    lo = (hits[:, 2] - w_arr + 1).astype(np.int64)   # interval [lo, hi)
+    hi = (hits[:, 2] + 1).astype(np.int64)
+    dmi = hits[:, 1].astype(np.int64)
+    idx = np.arange(n)
+    us, vs = [], []
+    for delta in range(dm_link + 1):
+        # the group of trial d holds trial d's crossings, then those of
+        # trial d + delta (for delta 0, trial d's alone)
+        key = dmi if delta == 0 else np.concatenate([dmi, dmi - delta])
+        node = idx if delta == 0 else np.concatenate([idx, idx])
+        side = np.zeros(len(key), dtype=np.int64)
+        side[n:] = 1
+        o = np.lexsort((node, side, lo[node], key))
+        u, v = _sweep_edges(key[o], lo[node[o]], hi[node[o]], node[o],
+                            time_gap)
+        us.append(u)
+        vs.append(v)
+    label = _components(n, np.concatenate(us), np.concatenate(vs))
+    # each cluster's peak: its first crossing of the greatest S/N
+    o = np.lexsort((idx, -vals.astype(np.float64), label))
+    first = np.ones(n, dtype=bool)
+    first[1:] = label[o][1:] != label[o][:-1]
+    peak = o[first]                      # clusters by their first crossing
+    starts = np.flatnonzero(first)
+    size = np.diff(np.append(starts, n))
+    i0 = np.minimum.reduceat(lo[o], starts)
+    i1 = np.maximum.reduceat(hi[o], starts)
+    keep = np.argsort(-vals[peak].astype(np.float64),
+                      kind="stable")[:max_cands]
+    k = peak[keep]
+    tfilt = [int(np.log2(w)) for w in widths]
+    at = (hits[k, 2].astype(np.int64) + t_offset).tolist()
+    return [Candidate(snr=s, peak_idx=t, peak_time=t * tsamp,
+                      tfilt=tfilt[w], dmi=d, dm=float(dms[d]), ngiant=g,
+                      i0=a, i1=b)
+            for s, t, w, d, g, a, b in zip(
+                vals[k].astype(np.float64).tolist(), at,
+                hits[k, 0].tolist(), hits[k, 1].tolist(),
+                size[keep].tolist(), (i0[keep] + t_offset).tolist(),
+                (i1[keep] + t_offset).tolist())]

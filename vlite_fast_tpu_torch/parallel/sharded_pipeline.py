@@ -43,10 +43,23 @@ CUDA kernel on a card, the gather engine on the CPU) or, with
 SearchConfig(engine='fourier'), ops/dedisperse.dedisperse_fourier, as
 the JAX step's engines.  The coadd's all_reduce sums in the backend's
 order, not the JAX psum's: its floats agree to rounding.
+
+A call is a record of utils/spans (layer "call") when the caller passes
+one to step_fn, gather_step_output and extract_candidates: host spans
+"dispatch" (the step's host time), "gather", "decode" and "cluster", the
+caller's root span "call" around them; counters "antenna_seconds",
+"beams", "crossings" (beams and coadd), "saturated_bands" and
+"cluster_rows"; device stages process_second's own ("front", "wola",
+"dft", "detect", "ema", "pack", summed over the call's antenna-seconds),
+"reshard", each beam's "dedisperse" (its rows' unpack with it), "boxcar"
+and "topk" (summed over the beams), "coadd" (the sum, kept in the beam
+loop, the all_reduce and the scale) and "coadd_search".  The record's
+device span runs from the step's start to the end of the coadd search.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Dict, List, NamedTuple, Tuple
 
@@ -61,6 +74,7 @@ from vlite_fast_tpu_torch.ops import dedisperse as dd
 from vlite_fast_tpu_torch.ops import normalize as norm_ops
 from vlite_fast_tpu_torch.ops import quantize as q_ops
 from vlite_fast_tpu_torch.parallel.halo import ppermute
+from vlite_fast_tpu_torch.utils import spans
 
 
 class ArrayStepOutput(NamedTuple):
@@ -97,6 +111,12 @@ class ArraySearchInfo:
     nbands: int = 1   # per-DM-band top-k quota (search.pack_topk_banded)
 
 
+def _span(record, name: str):
+    """The record's span `name`; nothing without a record."""
+    return record.span(name) if record is not None \
+        else contextlib.nullcontext()
+
+
 def dequant_rows(packed: torch.Tensor, cfg) -> torch.Tensor:
     """(..., nbytes) packed rows -> (..., nchanout) f32 filterbank."""
     fb = q_ops.dequantize(packed, cfg.nbit)
@@ -113,19 +133,28 @@ def search_topk(span: torch.Tensor, plan: dd.DedispPlan,
     The first `skip` outputs lie before the stream's first sample: only
     span[skip:] is searched, so each DM's mean and noise come from the
     outputs from sample 0 on, and the skipped ones are S/N 0 (below any
-    threshold; the cube keeps its shape and its time index)."""
+    threshold; the cube keeps its shape and its time index).
+
+    Device stages of the bound record (spans.stage): "dedisperse",
+    "boxcar", "topk"; the last runs on to the caller's next mark."""
     engine = search_mod.resolve_engine(scfg.engine, span.device)
+    spans.stage("dedisperse")
     if not skip:
-        snr = dd.boxcar_snr(search_mod.dedisperse(
-            span, plan, ntime_out, engine=engine), plan.nchan_eff,
-            info.widths)
+        dmt = search_mod.dedisperse(span, plan, ntime_out, engine=engine)
+        spans.stage("boxcar")
+        snr = dd.boxcar_snr(dmt, plan.nchan_eff, info.widths)
+        del dmt
     else:
         snr = torch.zeros((len(info.widths), len(plan.dms), ntime_out),
                           dtype=torch.float32, device=span.device)
         if skip < ntime_out:
-            snr[:, :, skip:] = dd.boxcar_snr(search_mod.dedisperse(
-                span[skip:], plan, ntime_out - skip, engine=engine),
-                plan.nchan_eff, info.widths)
+            dmt = search_mod.dedisperse(span[skip:], plan, ntime_out - skip,
+                                        engine=engine)
+            spans.stage("boxcar")
+            snr[:, :, skip:] = dd.boxcar_snr(dmt, plan.nchan_eff,
+                                             info.widths)
+            del dmt
+    spans.stage("topk")
     return search_mod.pack_topk_banded(snr, k, info.nbands,
                                        float(scfg.snr_thresh))
 
@@ -141,7 +170,7 @@ def build_array_step(acfg: ArrayConfig, mesh, nsec_per_call: int = 1,
     then recover the burst at pipeline.inject_dm in every beam and in the
     coadd.
 
-    step_fn(raw, bp, bp_kur, tail=None, marks=None)
+    step_fn(raw, bp, bp_kur, tail=None, record=None)
         -> (ArrayStepOutput, (bp2, bpk2, tail2)), this rank's shards:
       raw:  (m, npol, nsec_per_call*sample_rate) uint8
       bp(_kur): (m, npol, nchan) float32 EMA carry
@@ -153,11 +182,11 @@ def build_array_step(acfg: ArrayConfig, mesh, nsec_per_call: int = 1,
       from each antenna's first second (baseband_dsp.seed_bandpass)
       (rows [d*m, (d+1)*m) of the JAX step's P(('ant','time')) arrays,
       on the mesh's device).  Collective: every rank of the mesh calls
-      it.  With `marks` (a list, on a card) the step appends ("start",
-      CUDA event), then (part, CUDA event) at the end of each part
-      ("dsp", "reshard": the all_to_all, halos and tails, "beam_search",
-      "coadd_allreduce", "coadd_search"), recorded on the current
-      stream.
+      it.  With `record` (a utils/spans Record of layer "call") the step
+      binds it while it runs: its host time is the span "dispatch", its
+      device stages are marked (the module docstring), and it counts
+      "antenna_seconds" and "beams"; the outputs are the same bytes
+      with a record and without.
 
     Geometry requirements (raised if violated):
       nant % ndev == 0; T % ntblk == 0; halo <= c (a chunk's lookahead
@@ -220,14 +249,15 @@ def build_array_step(acfg: ArrayConfig, mesh, nsec_per_call: int = 1,
         nant=nant, k_beam=k_beam, k_co=k_co, tsamp=cfg.tsamp,
         nbands=nbands)
 
-    def step_fn(raw, bp, bp_kur, tail=None, marks=None):
-        def mark(part):
-            if marks is not None:
-                ev = torch.cuda.Event(enable_timing=True)
-                ev.record()
-                marks.append((part, ev))
+    def step_fn(raw, bp, bp_kur, tail=None, record=None):
+        if record is not None:
+            record.counters.update(antenna_seconds=m * nsec_per_call,
+                                   beams=mg)
+        with _span(record, "dispatch"), spans.bound(record):
+            spans.stage(None)
+            return _step(raw, bp, bp_kur, tail)
 
-        mark("start")
+    def _step(raw, bp, bp_kur, tail):
         # ---- DSP: each local antenna streams its seconds in turn --------
         packed = torch.empty((m, T, nbytes), dtype=torch.uint8, device=dev)
         wmean = torch.empty(m, dtype=torch.float32, device=dev)
@@ -243,8 +273,9 @@ def build_array_step(acfg: ArrayConfig, mesh, nsec_per_call: int = 1,
                 if s == 0 and tail is None:
                     # an observation's first call: its zero bandpass
                     # entries are seeded as a station's (a warm start's
-                    # non-zero ones pass through)
-                    st = dsp.seed_bandpass(cfg, sec, st)
+                    # non-zero ones pass through), outside the stages
+                    with spans.bound(None):
+                        st = dsp.seed_bandpass(cfg, sec, st)
                 o, st = dsp.process_second(cfg, sec, st, s == inject_sec)
                 packed[i, s * rows:(s + 1) * rows] = \
                     o.packed_kur if use_kur else o.packed
@@ -253,8 +284,8 @@ def build_array_step(acfg: ArrayConfig, mesh, nsec_per_call: int = 1,
             bp2[i], bpk2[i] = st.bp, st.bp_kur
         # next call's search tail: the last `halo` packed rows of the
         # stream (halo <= c <= T)
+        spans.stage("reshard")
         tail2 = packed[:, T - halo:].clone()
-        mark("dsp")
 
         # ---- reshard: (m, T, nb) -> group beams x my chunk -------------
         # the JAX all_to_all(split_axis=1, concat_axis=0) orders what it
@@ -283,27 +314,29 @@ def build_array_step(acfg: ArrayConfig, mesh, nsec_per_call: int = 1,
         else:
             prev = torch.zeros_like(prev_in_call)
         span_packed = torch.cat([prev, chunk], dim=1)   # (mg, c+halo, nb)
-        mark("reshard")
 
         # ---- per-beam search (the heimdall-per-antenna role) ------------
         beam_topk, co = [], None
         for j in range(mg):
+            spans.stage("dedisperse")
             fb = dequant_rows(span_packed[j], cfg)      # (c+halo, nchan)
             beam_topk.append(search_topk(fb, plan, info, scfg, c, k_beam,
                                          skip=halo if first else 0))
+            spans.stage("coadd")
             co = fb if co is None else co.add_(fb)
-        mark("beam_search")
 
         # ---- coadd + subsplit search (agdadacoadd + agtriggerhook) ------
         co = co.contiguous()
         dist.all_reduce(co, group=mesh.groups["ant"])
         co.mul_(inv_sqrt_nant)
-        mark("coadd_allreduce")
+        spans.stage("coadd_search")
         start = mesh.index("ant") * ca if coadd_split else 0
-        coadd_topk = search_topk(co[start:start + ca + halo], plan, info,
-                                 scfg, ca, k_co,
-                                 skip=max(0, halo - start) if first else 0)
-        mark("coadd_search")
+        with spans.bound(None):
+            coadd_topk = search_topk(co[start:start + ca + halo], plan,
+                                     info, scfg, ca, k_co,
+                                     skip=max(0, halo - start) if first
+                                     else 0)
+        spans.stage(None)
 
         return (ArrayStepOutput(packed, torch.stack(beam_topk)[None],
                                 coadd_topk[None], wmean),
@@ -340,16 +373,20 @@ def gather_rows(t: torch.Tensor, mesh) -> np.ndarray:
     return torch.cat(parts).cpu().numpy()
 
 
-def gather_step_output(out: ArrayStepOutput, mesh) -> ArrayStepOutput:
+def gather_step_output(out: ArrayStepOutput, mesh,
+                       record=None) -> ArrayStepOutput:
     """The whole mesh's ArrayStepOutput as numpy, on every rank of the
     mesh: packed_kur (nant, T, nbytes), beam_topk (ndev, mg, 2, ...),
     coadd_topk (ndev, 2, ...), weights_mean (nant,), the JAX step's
-    global arrays.  Collective over the mesh."""
-    return ArrayStepOutput(*(gather_rows(t, mesh) for t in out))
+    global arrays.  Collective over the mesh.  It waits for the card:
+    the span "gather" of `record`, if given."""
+    with _span(record, "gather"):
+        return ArrayStepOutput(*(gather_rows(t, mesh) for t in out))
 
 
 def extract_candidates(out: ArrayStepOutput, info: ArraySearchInfo,
-                       scfg: SearchConfig, call_base: int = 0
+                       scfg: SearchConfig, call_base: int = 0,
+                       record=None
                        ) -> Tuple[Dict[int, List[dd.Candidate]],
                                   List[dd.Candidate], Dict[str, int]]:
     """Decode one step's packed crossings (gather_step_output's) into the
@@ -364,62 +401,65 @@ def extract_candidates(out: ArrayStepOutput, info: ArraySearchInfo,
     overlap.  Crossings below scfg.snr_thresh or before sample 0 are
     dropped; clustering is the single-beam cluster_hits.  stats carries
     the crossing counts and the number of saturated top-k DM bands
-    across all shards (search.decode_crossings semantics).
+    across all shards (search.decode_crossings semantics).  With
+    `record`, the decoding and the clustering are its spans "decode" and
+    "cluster", and stats and the rows handed to cluster_hits its
+    counters "crossings", "saturated_bands" and "cluster_rows".
     """
     dms = np.asarray(info.dms)
     nw, ndm = len(info.widths), len(dms)
     stats = {"n_crossings": 0, "saturated_bands": 0}
 
-    btk = np.asarray(out.beam_topk)      # (ndev, mg, 2, nbands*kb+1)
-    per_beam_hits: Dict[int, list] = {}
-    for d in range(btk.shape[0]):
-        a, t = d // info.ntblk, d % info.ntblk
-        base = call_base - info.halo + t * info.c
-        for j in range(info.mg):
-            beam = a * info.mg + j
-            vals, hits, n_cross, sat = search_mod.decode_crossings(
-                btk[d, j], nw, ndm, info.c, info.nbands, scfg.snr_thresh)
-            stats["n_crossings"] += n_cross
-            stats["saturated_bands"] += sat
-            if not len(vals):
-                continue
-            hits = hits.copy()
-            hits[:, 2] += base
-            ok = hits[:, 2] >= 0
-            if ok.any():
-                h, v = per_beam_hits.setdefault(beam, ([], []))
-                h.append(hits[ok])
-                v.append(vals[ok])
-
-    per_beam: Dict[int, List[dd.Candidate]] = {}
-    for beam, (h, v) in per_beam_hits.items():
-        per_beam[beam] = dd.cluster_hits(
-            np.concatenate(h), np.concatenate(v), dms, info.tsamp,
-            widths=info.widths, max_cands=scfg.max_candidates)
-
-    ctk = np.asarray(out.coadd_topk)     # (ndev, 2, nbands*kb_co+1)
-    ch, cv = [], []
-    for d in range(ctk.shape[0]):
-        a, t = d // info.ntblk, d % info.ntblk
-        if not info.coadd_split and a != 0:
-            continue            # unsplit: every ant row searched the same
-        base = call_base - info.halo + t * info.c + a * info.ca \
-            if info.coadd_split else call_base - info.halo + t * info.c
+    def decode(packed, ntime, base, into):
+        """Crossings of one packed top-k at absolute sample `base`, those
+        from sample 0 on appended to into's (hits, vals)."""
         vals, hits, n_cross, sat = search_mod.decode_crossings(
-            ctk[d], nw, ndm, info.ca, info.nbands, scfg.snr_thresh)
+            packed, nw, ndm, ntime, info.nbands, scfg.snr_thresh)
         stats["n_crossings"] += n_cross
         stats["saturated_bands"] += sat
         if not len(vals):
-            continue
+            return
         hits = hits.copy()
         hits[:, 2] += base
         ok = hits[:, 2] >= 0
         if ok.any():
-            ch.append(hits[ok])
-            cv.append(vals[ok])
-    coadd_cands: List[dd.Candidate] = []
-    if ch:
-        coadd_cands = dd.cluster_hits(
-            np.concatenate(ch), np.concatenate(cv), dms, info.tsamp,
-            widths=info.widths, max_cands=scfg.max_candidates)
+            into[0].append(hits[ok])
+            into[1].append(vals[ok])
+
+    rows = 0
+
+    def cluster(into):
+        nonlocal rows
+        hits = np.concatenate(into[0])
+        rows += len(hits)
+        return dd.cluster_hits(hits, np.concatenate(into[1]), dms,
+                               info.tsamp, widths=info.widths,
+                               max_cands=scfg.max_candidates)
+
+    btk = np.asarray(out.beam_topk)      # (ndev, mg, 2, nbands*kb+1)
+    ctk = np.asarray(out.coadd_topk)     # (ndev, 2, nbands*kb_co+1)
+    per_beam_hits: Dict[int, tuple] = {}
+    co_hits = ([], [])
+    with _span(record, "decode"):
+        for d in range(btk.shape[0]):
+            a, t = d // info.ntblk, d % info.ntblk
+            base = call_base - info.halo + t * info.c
+            for j in range(info.mg):
+                decode(btk[d, j], info.c, base,
+                       per_beam_hits.setdefault(a * info.mg + j, ([], [])))
+        for d in range(ctk.shape[0]):
+            a, t = d // info.ntblk, d % info.ntblk
+            if not info.coadd_split and a != 0:
+                continue        # unsplit: every ant row searched the same
+            base = call_base - info.halo + t * info.c + (
+                a * info.ca if info.coadd_split else 0)
+            decode(ctk[d], info.ca, base, co_hits)
+    with _span(record, "cluster"):
+        per_beam = {beam: cluster(h) for beam, h in per_beam_hits.items()
+                    if h[0]}
+        coadd_cands = cluster(co_hits) if co_hits[0] else []
+    if record is not None:
+        record.counters.update(crossings=stats["n_crossings"],
+                               saturated_bands=stats["saturated_bands"],
+                               cluster_rows=rows)
     return per_beam, coadd_cands, stats

@@ -1,9 +1,11 @@
-"""The station's span recorder: where a data-second's and a gulp's time
-goes, inside StationPipeline.
+"""The port's span recorder: where a data-second's and a gulp's time
+goes, inside StationPipeline, and an array step call's, inside
+parallel/sharded_pipeline.
 
 A Record is one data-second (layer "second", id its index in the
-observation) or one gulp (layer "gulp", id its index in the
-observation).  It holds
+observation), one gulp (layer "gulp", id its index in the observation)
+or one call of the sharded array step (layer "call", id the call's index
+in the observation).  It holds
 
   spans     host spans (Span: name, start, end on time.perf_counter, the
             name of the span that encloses it, the record's id), in the
@@ -28,16 +30,24 @@ from the fetch's return to the end of the call, and from the start of
 each later call to the next dispatch of a program or a gulp onto the
 card, leaving out the caller's time between calls.
 
+A call's: "call" (the caller's, around the step, the gather and the
+extraction), and inside it "dispatch" (the step's host time), "gather"
+(the outputs to the host, which waits for the card), "decode" and
+"cluster"; its counters and device stages are listed in
+parallel/sharded_pipeline's docstring.  The caller binds nothing: the
+step binds the record it is given.
+
 While torch.profiler records, each span entered as a context (`span`)
 also enters a record_function range "vfast/<layer>.<name>" with the
 record's id as its args: not "vfast.", the prefix of the pipeline's own
 PROFILE_RANGES, which readers of a trace take to never nest.
 
 Marks are made only where a caller bound a record (StationPipeline binds
-one around each program and each gulp search); from anywhere else
-`stage` does nothing.  A Recorder keeps an observation's records, the
-oldest dropping off past SECOND_RECORDS and GULP_RECORDS, and
-StationPipeline.end_observation publishes it (`last_observation`).
+one around each program and each gulp search, the array step the call's
+record it is given); from anywhere else `stage` does nothing.  A
+Recorder keeps an observation's records, the oldest dropping off past
+SECOND_RECORDS and GULP_RECORDS, and StationPipeline.end_observation
+publishes it (`last_observation`).
 """
 
 from __future__ import annotations
