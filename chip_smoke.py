@@ -26,10 +26,11 @@ Phases, each printing a line:
      0.25 s, baseband_dsp.seed_bandpass, timed; rfi_front once more on
      second 0 for it, and at that shape held against rfi_front_plain,
      the kernel's seed against the plain front's within 1e-6 relative),
-     every twin second through the chain kernel,
-     every armed second through the RFI front and both EMA kernels, and
-     every gulp through the dedispersion kernel's packed entry (launch
-     counts); the first armed second within 2x of the second, the 'auto'
+     every armed second (one the injected track reaches: the arming
+     second) through the RFI front and both EMA kernels, every twin
+     second through the chain kernel, and every gulp through the
+     dedispersion kernel's packed entry (launch counts); the first
+     armed second within 2x of the armed program's device time, the 'auto'
      twin's median span per second (CUDA events) within 1.3x of phase 2's
      device time per data-second with the .fil files written (the drain
      waits only for the previous second's copy), each of the right size
@@ -47,7 +48,8 @@ Phases, each printing a line:
      on a full second's (2, 10240, 6251) power block, time_tile 32, each
      bit-equal;
   7. one armed full-geometry second and the next (PipelineConfig(
-     inject_frb=True), armed at the first) through process_second, the
+     inject_frb=True, twin_chain_impl='xla'), armed at the first, so that
+     neither is handed to a chain kernel) through process_second, the
      three kernels, against process_second_plain on torch ops;
   8. the relayout kernel (ops/megakernel.pallas_pretranspose) against its
      plain version on one full-geometry second: u8 tiles byte-equal, bf16
@@ -99,8 +101,9 @@ Phases, each printing a line:
      other trigger (none from the last gulp, searched over its own
      rows), every
      dump equal to its seconds, each .fil of the right size, nothing
-     dropped, and the launches (the chain kernel once a twin second, the
-     armed kernels once an armed second, the dedispersion's packed entry
+     dropped, and the launches (the chain kernel once a second off the
+     injected track, the armed kernels once a second on it, the
+     dedispersion's packed entry
      once a station gulp and its f32 entry once a coadd gulp); the
      real-time factor, the wall a data-second before and after the wrap,
      the host's ms a station-second by part, peak device memory;
@@ -164,7 +167,8 @@ Phases, each printing a line:
      80 (4 trials) in every beam and in the coadd on both calls, the
      coadd above every beam, antenna 0's rows of
      call 1 equal to process_second second by second, and each call's
-     launches (rfi_front and both EMA kernels once an antenna-second, the
+     launches (rfi_front and both EMA kernels once an antenna's arming
+     second, chain_second_v2 once each of its other seconds, the
      dedispersion's f32 entry once a beam and once for the coadd); the
      f32 entry against its plain version on call 1's beam-0 span and
      coadd window, outside the counted window (allclose as [3]); each
@@ -645,6 +649,17 @@ TWIN_KERNELS = {"auto": ("chain_second_v2",),
                 "megakernel4": ("pallas_pretranspose", "chain_second_v4")}
 
 
+def on_track(cfg, n_sec: int) -> list:
+    """For each second of a station's observation (armed every
+    INJECT_PERIOD_S from its second 0), whether the injected track reaches
+    it (baseband_dsp.second_injects): those seconds alone run the armed
+    program; every other second runs the twin."""
+    from vlite_fast_tpu_torch import constants as C
+    from vlite_fast_tpu_torch.models import baseband_dsp as dsp
+    return [dsp.second_injects(cfg, s % C.INJECT_PERIOD_S * cfg.seg_per_sec)
+            for s in range(n_sec)]
+
+
 def check_fil(path: str, nrows: int, row_bytes: int, digest: str = None,
               what: str = "") -> None:
     """A .fil file holds its header and nrows rows of row_bytes, whose
@@ -794,21 +809,21 @@ def phase_main_path(dev, twin: str = "auto", tag: str = "[4]",
         shutil.rmtree(out_dir, ignore_errors=True)
     armed = pipe.feed_seconds["armed"]
     gulps = int(pipe.metrics.get("vfast_gulps_searched"))
-    window = dsp.inject_window_seconds(cfg)
+    track = on_track(cfg, n_sec)      # armed at second 0: second 0 alone
     check(prod.seconds == n_sec, f"{prod.seconds} seconds processed")
-    check(len(armed) == window, f"{len(armed)} armed seconds")
+    check(len(armed) == sum(track), f"{len(armed)} armed seconds")
     twin_kernels = TWIN_KERNELS[twin]
     for sec, n in enumerate(per_sec):
         # second 0 also seeds the bandpass: one more rfi_front launch
-        want = {k: int(sec < window) + (sec == 0 and k == "rfi_front")
+        want = {k: int(track[sec]) + (sec == 0 and k == "rfi_front")
                 for k in ARMED_KERNELS}
-        if sec < window:        # armed at second 0
+        if track[sec]:
             ok = not any(n[k] for k in CHAIN_KERNELS)
         else:
             ok = all(n[k] == (k in twin_kernels) for k in CHAIN_KERNELS)
         ok = ok and all(n[k] == want[k] for k in ARMED_KERNELS)
         check(ok, f"{tag} second {sec} "
-              f"({'armed' if sec < window else 'twin'}) launched {n}")
+              f"({'armed' if track[sec] else 'twin'}) launched {n}")
     twin_s = pipe.feed_seconds["twin"]
     check(len(twin_s) == n_sec - len(armed) and all(
         launches[k] == (len(twin_s) if k in twin_kernels else 0)
@@ -823,9 +838,14 @@ def phase_main_path(dev, twin: str = "auto", tag: str = "[4]",
           f"dedispersion launches {launches} vs {gulps} gulps (each through "
           f"the packed entry)")
     twin_med = 1e3 * float(np.median(twin_s))
+    # the armed program alone on a warm card (the track ends inside the
+    # arming second: it is the observation's only armed second)
+    armed_ms = cuda_ms(lambda: dsp.process_second(
+        cfg, staged[0], dsp.init_state(cfg, dev), True), 3)
     if twin_device_ms is not None:
-        check(armed[0] <= 2.0 * armed[1], f"{tag} first armed second "
-              f"{1e3 * armed[0]:.1f} ms > 2x the second {1e3 * armed[1]:.1f}")
+        check(1e3 * armed[0] <= 2.0 * armed_ms, f"{tag} first armed second "
+              f"{1e3 * armed[0]:.1f} ms > 2x the armed program's "
+              f"{armed_ms:.1f}")
         check(twin_med <= 1.3 * twin_device_ms,
               f"{tag} twin median span {twin_med:.2f} ms per second > 1.3x "
               f"its device time {twin_device_ms:.2f} ms")
@@ -863,11 +883,12 @@ def phase_main_path(dev, twin: str = "auto", tag: str = "[4]",
         f"DM {bench.START_MAX_DM:g} in the first {bench.START_S:g} s); "
         f"bandpass seed "
         f"(seed_bandpass, {dsp.seed_spectra(cfg)} spectra) {seed_ms:.2f} "
-        f"ms (CUDA events, 3 reps), armed second 0 - second 1 "
-        f"{1e3 * (armed[0] - armed[1]):.2f} ms, {seed_note}; peak "
-        f"device memory {peak:.2f} GiB; launches {launches} (each armed "
-        f"second: rfi_front and both EMA kernels once, second 0 rfi_front "
-        f"once more for the seed; each twin second: "
+        f"ms (CUDA events, 3 reps), armed second 0 - the armed program "
+        f"{1e3 * armed[0] - armed_ms:.2f} ms ({armed_ms:.2f} ms, CUDA "
+        f"events, 3 reps), {seed_note}; peak "
+        f"device memory {peak:.2f} GiB; launches {launches} (each second "
+        f"on the track: rfi_front and both EMA kernels once, second 0 "
+        f"rfi_front once more for the seed; each other second: "
         f"{' and '.join(twin_kernels)} once; each gulp: the dedispersion "
         f"kernel's packed entry once){fil_note}")
     for c in sorted(prod.candidates, key=lambda c: -c.snr)[:5]:
@@ -1077,7 +1098,9 @@ def phase_ema(dev) -> list:
 def phase_armed(dev, raws) -> None:
     from vlite_fast_tpu_torch import PipelineConfig
     from vlite_fast_tpu_torch.models import baseband_dsp as dsp
-    cfg = PipelineConfig(inject_frb=True)
+    # twin 'xla': the second past the track stays on the armed program
+    # (with the chain kernel as the twin, process_second hands it off)
+    cfg = PipelineConfig(inject_frb=True, twin_chain_impl="xla")
     st_k = st_p = dsp.init_state(cfg, dev)
     worst = {"agree": 1.0, "dlev": 0, "bp_rel": 0.0, "dag": 0.0}
     t_kern, t_plain = [], []
@@ -1541,6 +1564,7 @@ def phase_array(dev, n_sec: int = 46) -> dict:
         f32 = launches["dedisperse_pallas"] - \
             launches["dedisperse_pallas_packed"]
         check(twin + armed == nant * n_sec
+              and armed == nant * sum(on_track(cfg, n_sec))
               and launches["chain_second_v2"] == twin
               and all(launches[k] == armed + nant * (k == "rfi_front")
                       for k in ARMED_KERNELS)
@@ -2295,9 +2319,12 @@ def phase_pfb(dev) -> tuple:
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
     # every second through the armed program's kernels, each gulp through
-    # the dedispersion kernel's packed entry, never a chain kernel
+    # the dedispersion kernel's packed entry, never a chain kernel; every
+    # twin second (the track reaches the armed ones) through the fused
+    # WOLA kernel
     check(prod.seconds == PFB_SECONDS and len(armed) + len(twin_s)
-          == PFB_SECONDS, f"[17a] {prod.seconds} seconds")
+          == PFB_SECONDS and len(armed) == sum(on_track(cfg, PFB_SECONDS)),
+          f"[17a] {prod.seconds} seconds, {len(armed)} armed")
     check(all(launches[k] == PFB_SECONDS + (k == "rfi_front")
               for k in ARMED_KERNELS)
           and not any(launches[k] for k in CHAIN_KERNELS)
@@ -2674,8 +2701,14 @@ def phase_mesh_step(dev, mesh) -> dict:
               f"[18a] call {k}: coadd lost the FRB ({verdict['coadd']})")
         check(verdict["pass"], f"[18a] call {k}: coadd S/N "
               f"{verdict['coadd']['snr']} not above every beam's")
-        want = {"rfi_front": ant_secs, "normalize_ema_pallas": ant_secs,
-                "normalize_ema_weighted_pallas": ant_secs,
+        # the seconds the track reaches run the armed program; the others
+        # are handed to the twin's chain kernel
+        track = nant * sum(dsp.second_injects(
+            cfg, (s - fg.INJECT_SEC) * cfg.seg_per_sec)
+            for s in range(fg.INJECT_SEC, MESH_SECONDS))
+        want = {"rfi_front": track, "normalize_ema_pallas": track,
+                "normalize_ema_weighted_pallas": track,
+                "chain_second_v2": ant_secs - track,
                 "dedisperse_pallas": info.nant + 1,
                 "dedisperse_pallas_packed": 0}
         for name, n in want.items():

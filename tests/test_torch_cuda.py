@@ -685,9 +685,12 @@ def test_ema_weighted_kernel_matches_plain(cuda, time_tile):
 @pytest.mark.parametrize("rfi_mode", [0, 1, 2])
 def test_armed_second_kernels_match_plain(cuda, rfi_mode, arm):
     """process_second (the three kernels) against process_second_plain
-    (torch ops, segment by segment) on the card, over two seconds."""
+    (torch ops, segment by segment) on the card, over two seconds.  The
+    twin is 'xla' (process_second itself), so that no second, armed or
+    not, is handed to a chain kernel."""
     cfg = PipelineConfig.tiny(rfi_mode=rfi_mode, nbit=2, inject_frb=True,
-                              inject_dm=30.0, inject_amp=1.5)
+                              inject_dm=30.0, inject_amp=1.5,
+                              twin_chain_impl="xla")
     st_k = st_p = tdsp.init_state(cfg, cuda)
     before = (trfi.LAUNCHES, dict(tpk.LAUNCHES))
     for sec, seed in enumerate((1, 2)):
@@ -747,9 +750,10 @@ def test_pipeline_off_megakernel_config_matches_cpu(cuda, tmp_path):
 
 
 def test_pipeline_megakernel4_matches_cpu(cuda, tmp_path):
-    """twin_chain_impl='megakernel4' on the card: every twin second
-    launches the pretranspose and the v4 chain kernel once (never the v2
-    kernel), and the candidates are the CPU run's."""
+    """twin_chain_impl='megakernel4' on the card: every twin second (each
+    second the injected track does not reach) launches the pretranspose
+    and the v4 chain kernel once (never the v2 kernel), and the
+    candidates are the CPU run's."""
     cfg = PipelineConfig.tiny(nbit=2, inject_frb=True, inject_dm=30.0,
                               inject_amp=2.0, inject_width_s=8e-3,
                               twin_chain_impl="megakernel4")
@@ -757,8 +761,10 @@ def test_pipeline_megakernel4_matches_cpu(cuda, tmp_path):
     rng = np.random.default_rng(17)
     secs = [np.clip(rng.standard_normal((2, cfg.sample_rate)) / 0.05914
                     + 128.5, 0, 255).astype(np.uint8) for _ in range(4)]
-    ntwin = len(secs) - tdsp.inject_window_seconds(cfg)
-    assert ntwin >= 1
+    # armed at second 0: the track ends inside it
+    nchain = len(secs) - sum(tdsp.second_injects(cfg, s * cfg.seg_per_sec)
+                             for s in range(len(secs)))
+    assert nchain == len(secs) - 1
     results = []
     for dev in ("cpu", cuda):
         pipe = StationPipeline(1, cfg, scfg, out_dir=str(tmp_path),
@@ -772,8 +778,8 @@ def test_pipeline_megakernel4_matches_cpu(cuda, tmp_path):
             ObservationDocument(name="CUDA", start_time=1.6e9),
             write_fil=False))
     assert tmk.LAUNCHES == dict(
-        before, chain_second_v4=before["chain_second_v4"] + ntwin,
-        pallas_pretranspose=before["pallas_pretranspose"] + ntwin)
+        before, chain_second_v4=before["chain_second_v4"] + nchain,
+        pallas_pretranspose=before["pallas_pretranspose"] + nchain)
     clear = scfg.snr_thresh + 0.5
     cands = [sorted((c for c in r.candidates if c.snr > clear),
                     key=lambda c: (c.peak_idx, c.dmi)) for r in results]
@@ -802,14 +808,14 @@ def test_pipeline_fil_drain_on_card(cuda, tmp_path):
         ((1.6e9 + s, b) for s, b in enumerate(secs)),
         ObservationDocument(name="FIL", start_time=1.6e9))
     pipe.close()
-    window = tdsp.inject_window_seconds(cfg)
     st = tdsp.init_state(cfg, cuda)
     twin, twin_cfg = tdsp.twin_program(cfg), tdsp.twin_config(cfg)
     kur, plain = [], []
     for s, buf in enumerate(secs):
         arm = s % C.INJECT_PERIOD_S == 0
         raw = torch.from_numpy(buf).to(cuda)
-        out, st = (tdsp.process_second(cfg, raw, st, arm) if s < window
+        out, st = (tdsp.process_second(cfg, raw, st, arm)
+                   if tdsp.second_injects(cfg, s * cfg.seg_per_sec)
                    else twin(twin_cfg, raw, st, arm))
         kur.append(out.packed_kur.cpu().numpy())
         plain.append(out.packed.cpu().numpy())
@@ -1061,6 +1067,46 @@ def test_pfb_seconds_through_the_wola_kernel_match_f32(cuda):
     assert tmk.LAUNCHES["wola_dft_detect_power"] == before
 
 
+@pytest.mark.parametrize("channelizer", ["matmul", "pfb"])
+def test_second_past_the_track_is_the_fused_launch(cuda, channelizer):
+    """An armed second the injected track does not reach, through
+    process_second on the card, is bit for bit the launch an un-armed
+    second gets: on the fft channelizer twin_second (chain_second_v2,
+    once; no rfi_front or EMA launch), on pfb process_second un-armed
+    (the fused WOLA kernel, both streams).  Packed bytes, weights,
+    dag_frac, bandpasses and the carried tails equal; segs_since_inject
+    advances by a second as the armed program's does."""
+    from vlite_fast_tpu_torch import launches
+    cfg = PipelineConfig.tiny(nbit=2, inject_frb=True, inject_dm=30.0,
+                              inject_amp=1.5, channelizer=channelizer)
+    since = cfg.seg_per_sec                     # the second after the arm
+    assert tdsp.second_injects(cfg, 0)
+    assert not tdsp.second_injects(cfg, since)
+    raw = torch.from_numpy(_noise(cfg.sample_rate, seed=21,
+                                  burst_at=40000)).to(cuda)
+    st = tdsp.seed_bandpass(cfg, raw, tdsp.init_state(cfg, cuda))
+    before = launches.counts()
+    got, st_g = tdsp.process_second(
+        cfg, raw, st._replace(segs_since_inject=since))
+    n = launches.since(before)
+    if channelizer == "matmul":
+        want, st_w = tdsp.twin_second(tdsp.twin_config(cfg), raw, st)
+        assert n["chain_second_v2"] == 1 and n["rfi_front"] == 0
+        assert n["normalize_ema_pallas"] == 0
+        assert n["normalize_ema_weighted_pallas"] == 0
+    else:
+        want, st_w = tdsp.process_second(cfg, raw, st)
+        assert n["wola_dft_detect_power"] == 2
+        assert n["chain_second_v2"] == 0
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    for a, b in zip(st_g[:2] + st_g[3:], st_w[:2] + st_w[3:]):
+        assert torch.equal(a, b)
+    assert st_g.segs_since_inject == 2 * since
+    assert st_w.segs_since_inject == -1
+
+
 # (grid mode, nsub, sub_chunk, ndm, nbatch, ntime_out, the last batch's
 # in-subband delays raised by): 256 channels, 2 ms samples, DM 0-100
 ROLLSEL_CASES = [
@@ -1299,6 +1345,7 @@ def test_tile_bench_kernel_matches_plain(cuda, impl):
 FIRST_ARMED = r"""
 import json, numpy as np, torch
 from vlite_fast_tpu_torch import PipelineConfig, SearchConfig
+from vlite_fast_tpu_torch.models import baseband_dsp as dsp
 from vlite_fast_tpu_torch.runtime.pipeline import (ObservationDocument,
                                                    StationPipeline)
 dev = torch.device("cuda")
@@ -1311,14 +1358,24 @@ pipe = StationPipeline(1, cfg, SearchConfig(), keep_ring=False,
                        write_cands=False, device=dev)
 pipe.run_observation(((1.7e9 + s, b) for s, b in enumerate(secs)),
                      ObservationDocument(name="COLD"), write_fil=False)
-print(json.dumps(pipe.feed_seconds))
+# the armed program on a warm card, by the same CUDA events
+start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+warm = []
+for _ in range(3):
+    start.record()
+    dsp.process_second(cfg, secs[0], dsp.init_state(cfg, dev), True)
+    end.record()
+    torch.cuda.synchronize()
+    warm.append(start.elapsed_time(end) / 1e3)
+print(json.dumps(dict(pipe.feed_seconds, armed_warm=min(warm))))
 """
 
 
 def test_first_armed_second_is_not_cold(cuda):
     """In a fresh process at the production geometry, the first armed
-    second (second 0) takes at most twice the second armed one: the
-    pipeline's prewarm paid every first-use cost before it."""
+    second (second 0, the only one: the track ends inside it) takes at
+    most twice the armed program on a warm card: the pipeline's prewarm
+    paid every first-use cost before it."""
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env = dict(os.environ)
     env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
@@ -1328,15 +1385,15 @@ def test_first_armed_second_is_not_cold(cuda):
     assert res.returncode == 0, res.stderr[-3000:]
     times = json.loads(res.stdout.strip().splitlines()[-1])
     armed = times["armed"]
-    assert len(armed) == tdsp.inject_window_seconds(
-        PipelineConfig(inject_frb=True)) and len(armed) >= 2
-    assert armed[0] <= 2.0 * armed[1], armed
+    assert len(armed) == 1 and len(times["twin"]) == 2
+    assert armed[0] <= 2.0 * times["armed_warm"], (armed,
+                                                   times["armed_warm"])
 
 
-def _array_step_run(device):
-    """One call of the tiny armed array step on a one-rank process group
-    (NCCL on the card, gloo on the CPU): the gathered output, the state,
-    the geometry and the launches the call made."""
+def _array_step_run(device, nbit=8):
+    """One call of the tiny armed array step at `nbit` on a one-rank
+    process group (NCCL on the card, gloo on the CPU): the gathered
+    output, the state, the geometry and the launches the call made."""
     import torch.distributed as dist
 
     from vlite_fast_tpu_torch import launches
@@ -1347,7 +1404,7 @@ def _array_step_run(device):
 
     acfg = dataclasses.replace(ArrayConfig.tiny(nant=4), pipeline=(
         PipelineConfig.tiny(sample_rate=100_000, inject_frb=True,
-                            inject_dm=50.0, inject_amp=3.0)))
+                            inject_dm=50.0, inject_amp=3.0, nbit=nbit)))
     init_distributed(device=device)
     try:
         mesh = make_mesh()
@@ -1364,18 +1421,24 @@ def _array_step_run(device):
         dist.destroy_process_group()
 
 
-def test_array_step_nccl_matches_cpu(cuda):
+@pytest.mark.parametrize("nbit", [8, 2])
+def test_array_step_nccl_matches_cpu(cuda, nbit):
     """The sharded array step on a one-rank NCCL group (its all_to_all,
     all_gather and all_reduce through NCCL) against the same step on
     gloo and the CPU: packed levels to the chain bar, bandpasses within
-    1e-4 relative, the same candidates with S/N within 1e-3; on the card
-    both EMA kernels launch once an antenna-second, rfi_front once an
-    antenna-second and once an antenna more (the call is an observation's
-    first: baseband_dsp.seed_bandpass seeds each antenna's bandpass from
-    the front's weights), and the dedispersion's f32 entry once a beam
-    and once for the coadd."""
-    got, st_g, info, counts, (beams_g, co_g, _) = _array_step_run("cuda")
-    want, st_w, _, counts_cpu, (beams_w, co_w, _) = _array_step_run("cpu")
+    1e-4 relative, the same candidates with S/N within 1e-3.  On the card
+    the armed program (rfi_front and both EMA kernels once each) runs
+    every antenna-second the step does not hand to the twin's chain
+    kernel: at 8 bits (no chain kernel) all of them, at 2 bits the
+    arming second alone (the track ends inside it), the other second
+    launching chain_second_v2 once; rfi_front once an antenna more (the
+    call is an observation's first: baseband_dsp.seed_bandpass seeds each
+    antenna's bandpass from the front's weights), and the dedispersion's
+    f32 entry once a beam and once for the coadd."""
+    got, st_g, info, counts, (beams_g, co_g, _) = _array_step_run("cuda",
+                                                                  nbit)
+    want, st_w, _, counts_cpu, (beams_w, co_w, _) = _array_step_run("cpu",
+                                                                    nbit)
     la, lb = got.packed_kur, want.packed_kur
     d = np.abs(la.astype(np.int16) - lb.astype(np.int16))
     assert d.max() <= 1 and (d == 0).mean() >= 0.9999, (d == 0).mean()
@@ -1388,9 +1451,11 @@ def test_array_step_nccl_matches_cpu(cuda):
         np.testing.assert_allclose([c.snr for c in g], [c.snr for c in w],
                                    rtol=1e-3)
     ant_secs = info.nant * 2
-    assert counts["rfi_front"] == ant_secs + info.nant
-    assert counts["normalize_ema_pallas"] == ant_secs
-    assert counts["normalize_ema_weighted_pallas"] == ant_secs
+    fused = info.nant if nbit == 2 else 0
+    assert counts["chain_second_v2"] == fused
+    assert counts["rfi_front"] == ant_secs - fused + info.nant
+    assert counts["normalize_ema_pallas"] == ant_secs - fused
+    assert counts["normalize_ema_weighted_pallas"] == ant_secs - fused
     assert counts["dedisperse_pallas"] == info.nant + 1
     assert counts["dedisperse_pallas_packed"] == 0
     assert not any(counts_cpu.values())
@@ -1432,7 +1497,10 @@ def test_stage_events_sum_to_the_spans(cuda):
         armed = r.counters["armed"]
         span = spans_by_kind["armed" if armed else "twin"].pop(0)
         assert r.device_s == span
-        # an un-armed second's WOLA, DFT and detect are one launch ("dft")
+        # the armed second is the one the track reaches, the arming
+        # second 0; every other second injects nothing and has its WOLA,
+        # DFT and detect in one launch ("dft")
+        assert armed == (r.id == 0)
         assert set(r.stages) == ({"front", "wola", "dft", "detect", "ema",
                                   "pack"} if armed else
                                  {"front", "dft", "ema", "pack"})

@@ -1,6 +1,6 @@
 """The port's StationPipeline against the JAX package's, end to end on the
 CPU: the same tiny seconds (an injected FRB armed at second 0, the
-armed window then the injection-free twin) through both, live gulp
+armed program then the injection-free twin) through both, live gulp
 search, keep_ring=False.
 
 The port seeds an observation's first bandpasses from the EMA's own
@@ -86,10 +86,14 @@ def test_pipeline_candidates_match_jax(tmp_path, monkeypatch):
                for pipe_cls, doc in ((JPipe, JDoc), (TPipe, TDoc))]
     prod_j, prod_t = results
     assert prod_t.seconds == prod_j.seconds == len(secs)
-    assert 1 < tdsp.inject_window_seconds(_t(cfg)) < len(secs)
-    # host gating: every second after the armed window went through the
-    # chain kernel's entry point (its plain version here, on the CPU)
-    assert len(twin_calls) == len(secs) - tdsp.inject_window_seconds(_t(cfg))
+    window = tdsp.inject_window_seconds(_t(cfg))
+    ntrack = sum(tdsp.second_injects(_t(cfg), s * cfg.seg_per_sec)
+                 for s in range(len(secs)))
+    assert 1 <= ntrack < window < len(secs)
+    # host gating: every second the track does not reach, inside the JAX
+    # pipeline's armed window or after it, went through the chain
+    # kernel's entry point (its plain version here, on the CPU)
+    assert len(twin_calls) == len(secs) - ntrack
     clear = scfg.snr_thresh + 0.5
     cj = sorted((c for c in prod_j.candidates if c.snr > clear),
                 key=lambda c: (c.peak_idx, c.dmi))
@@ -180,10 +184,11 @@ def test_feed_seconds_one_entry_per_second_per_program(tmp_path):
     prod = pipe.run_observation(
         ((1.6e9 + s, buf) for s, buf in enumerate(secs)),
         TDoc(name="TIMES", start_time=1.6e9), write_fil=False)
-    window = tdsp.inject_window_seconds(cfg)
-    assert prod.seconds == 4 and 1 <= window < 4
-    assert len(pipe.feed_seconds["armed"]) == window
-    assert len(pipe.feed_seconds["twin"]) == 4 - window
+    # the armed program ran on the seconds the track reaches alone
+    track = [tdsp.second_injects(cfg, s * cfg.seg_per_sec) for s in range(4)]
+    assert prod.seconds == 4 and 1 <= sum(track) < 4
+    assert len(pipe.feed_seconds["armed"]) == sum(track)
+    assert len(pipe.feed_seconds["twin"]) == 4 - sum(track)
     assert all(t > 0 for ts in pipe.feed_seconds.values() for t in ts)
 
 
@@ -207,10 +212,11 @@ def test_fil_rows_equal_the_programs_outputs(tmp_path):
         ((1.6e9 + s, buf) for s, buf in enumerate(secs)),
         TDoc(name="FIL", start_time=1.6e9))
     pipe.close()
-    window = tdsp.inject_window_seconds(cfg)
-    assert prod.seconds == 4 and 1 <= window < 4
-    assert len(pipe.feed_seconds["armed"]) == window
-    assert len(pipe.feed_seconds["twin"]) == 4 - window
+    # the armed program ran on the seconds the track reaches alone
+    track = [tdsp.second_injects(cfg, s * cfg.seg_per_sec) for s in range(4)]
+    assert prod.seconds == 4 and 1 <= sum(track) < 4
+    assert len(pipe.feed_seconds["armed"]) == sum(track)
+    assert len(pipe.feed_seconds["twin"]) == 4 - sum(track)
     assert all(len(pipe.host_seconds[k]) == 4 for k in HOST_PARTS)
     st = tdsp.seed_bandpass(cfg, torch.from_numpy(secs[0]),
                             tdsp.init_state(cfg, "cpu"))
@@ -219,7 +225,7 @@ def test_fil_rows_equal_the_programs_outputs(tmp_path):
     for s, buf in enumerate(secs):
         arm = s % tC.INJECT_PERIOD_S == 0
         raw = torch.from_numpy(buf)
-        out, st = (tdsp.process_second(cfg, raw, st, arm) if s < window
+        out, st = (tdsp.process_second(cfg, raw, st, arm) if track[s]
                    else twin(twin_cfg, raw, st, arm))
         kur.append(out.packed_kur.numpy())
         plain.append(out.packed.numpy())

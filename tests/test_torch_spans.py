@@ -167,8 +167,10 @@ def test_views_are_read_from_the_records(observed):
     for kind, flag in (("armed", 1), ("twin", 0)):
         assert pipe.feed_seconds[kind] == [
             r.device_s for r in secs if r.counters["armed"] == flag]
-    assert len(pipe.feed_seconds["armed"]) == dsp.inject_window_seconds(
-        pipe.cfg)
+    cfg = pipe.cfg
+    assert len(pipe.feed_seconds["armed"]) == sum(
+        dsp.second_injects(cfg, s * cfg.seg_per_sec)
+        for s in range(prod.seconds))
     assert tuple(pipe.search.host_seconds) == search_mod.GULP_HOST_PARTS
     for part, name in zip(search_mod.GULP_HOST_PARTS,
                           ("dispatch", "wait", "decode", "cluster")):

@@ -1,6 +1,6 @@
-"""Which program serves the seconds outside the armed window: the port's
-resolution of chain_impl / twin_chain_impl against the JAX package's, on
-the CPU.
+"""Which program serves the seconds the injected track does not reach:
+the port's resolution of chain_impl / twin_chain_impl against the JAX
+package's, on the CPU.
 
 - twin_chain_impl='same' (and an explicit 'xla') gives every non-armed
   second process_second with injection off, the armed program, as the
@@ -68,8 +68,9 @@ def test_same_twin_runs_the_armed_program(tmp_path, monkeypatch, twin):
     cfg = _t(PipelineConfig.tiny(nbit=2, inject_frb=True,
                                  twin_chain_impl=twin))
     secs = _seconds(cfg, 4)
-    window = tdsp.inject_window_seconds(cfg)
-    assert 1 <= window < len(secs)
+    ntrack = sum(tdsp.second_injects(cfg, s * cfg.seg_per_sec)
+                 for s in range(len(secs)))
+    assert 1 <= ntrack < len(secs)
     programs, v2 = [], []
     real, chain = tdsp.process_second, tmk.chain_second_v2
     monkeypatch.setattr(tdsp, "process_second",
@@ -80,7 +81,7 @@ def test_same_twin_runs_the_armed_program(tmp_path, monkeypatch, twin):
     pipe = TPipe(1, cfg, _t(SearchConfig.tiny()), out_dir=str(tmp_path),
                  write_cands=False, device="cpu")
     _feed(pipe, secs)
-    assert programs == [True] * window + [False] * (len(secs) - window)
+    assert programs == [True] * ntrack + [False] * (len(secs) - ntrack)
     assert v2 == []
 
 
@@ -181,8 +182,9 @@ def test_pipeline_megakernel3_matches_jax(tmp_path, monkeypatch):
             pipe.close()
     prod_j, prod_t = results
     assert prod_t.seconds == prod_j.seconds == len(secs)
-    window = tdsp.inject_window_seconds(_t(cfg))
-    assert modes == ["pallas"] * (len(secs) - window) and v2 == []
+    ntrack = sum(tdsp.second_injects(_t(cfg), s * cfg.seg_per_sec)
+                 for s in range(len(secs)))
+    assert modes == ["pallas"] * (len(secs) - ntrack) and v2 == []
     clear = scfg.snr_thresh + 0.5
     cj = sorted((c for c in prod_j.candidates if c.snr > clear),
                 key=lambda c: (c.peak_idx, c.dmi))

@@ -12,8 +12,9 @@ repeats, and the rule that routes process_second to it.
 - Its frame tiles (hi, lo) equal numpy's tap-ordered f32 sum and its
   round-to-nearest-even bf16 split bit for bit.
 - process_second takes the kernel only for the pfb channelizer's
-  un-armed seconds on a card at a geometry the kernel takes; on the CPU
-  it keeps the f32 path and launches nothing.
+  seconds that inject nothing (un-armed, or armed past the track's last
+  spectrum) on a card at a geometry the kernel takes; on the CPU it
+  keeps the f32 path and launches nothing.
 - The masked stream computed only in the frames whose taps reach a block
   the RFI front masked (wola_masked_frames), over the plain stream's
   rows, equals it computed whole, bit for bit.
@@ -129,7 +130,9 @@ def test_process_second_routes_by_what_it_sees():
     assert takes(cfg, _Cuda(), -1)                   # a twin second
     assert takes(dataclasses.replace(cfg, inject_frb=False), _Cuda(), 5)
     assert not takes(cfg, _Cuda(), 0)                # the arming second
-    assert not takes(cfg, _Cuda(), 640)              # an armed one
+    assert not takes(cfg, _Cuda(), 317)              # the track reaches it
+    assert takes(cfg, _Cuda(), 320)                  # armed, past the track
+    assert takes(cfg, _Cuda(), 640)
     assert not takes(cfg, torch.zeros(2, 4), -1)     # the CPU
     assert not takes(dataclasses.replace(cfg, channelizer="matmul"),
                      _Cuda(), -1)

@@ -251,7 +251,10 @@ def run(device="cuda", cfg: PipelineConfig = None,
         + 128.5, 0, 255).astype(np.uint8)).to(dev) for _ in range(3)]
 
     # --- the DSP programs alone: armed (not armed) and the twin ---------
-    dsp_rt, out_a = _dsp_loop(cfg, dsp.process_second, staged, dev)
+    # (twin 'xla': process_second's own program, which on a card hands an
+    # un-armed second to the twin's chain kernel where that is the twin)
+    dsp_rt, out_a = _dsp_loop(dataclasses.replace(cfg, twin_chain_impl="xla"),
+                              dsp.process_second, staged, dev)
     twin_impl = dsp.resolve_twin_impl(cfg)
     dsp_rt_gated, out_t = _dsp_loop(dsp.twin_config(cfg),
                                     dsp.twin_program(cfg), staged, dev)
@@ -269,7 +272,9 @@ def run(device="cuda", cfg: PipelineConfig = None,
             f"{twin_agreement:.6f} of {cfg.nbit}-bit levels (bar {bar}): "
             "the host gating of StationPipeline.feed_second is unsound")
     del out_a, out_t, lev_a, lev_t
-    f_armed = dsp.inject_window_seconds(cfg) / C.INJECT_PERIOD_S
+    # the station runs the armed program on the seconds the track reaches
+    f_armed = sum(dsp.second_injects(cfg, s * cfg.seg_per_sec)
+                  for s in range(C.INJECT_PERIOD_S)) / C.INJECT_PERIOD_S
     dsp_rt_blended = 1.0 / (f_armed / dsp_rt + (1.0 - f_armed) / dsp_rt_gated)
     _log(f"DSP: armed {dsp_rt:.3f}x, twin ({twin_impl}) {dsp_rt_gated:.3f}x, "
          f"blended {dsp_rt_blended:.3f}x; twin agreement "

@@ -168,8 +168,8 @@ class PipelineConfig:
                                    # intermediate VMEM-resident, HBM
                                    # touched once per segment).  Applies
                                    # to the injection-free program only
-                                   # (the host-gated armed window always
-                                   # runs the XLA chain); parity bar is
+                                   # (the host-gated armed seconds always
+                                   # run the XLA chain); parity bar is
                                    # >= 99.99% 2-bit agreement (EMA is
                                    # sequential-exact, DFT rounding
                                    # matches 'high'+exact-input).

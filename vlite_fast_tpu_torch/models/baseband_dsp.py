@@ -22,8 +22,9 @@ ema_impl='pallas', rfi_impl='pallas' program: the front half (convert, the
 RFI front kernel ops/rfi_pallas.rfi_front, channelize, inject, detect)
 over the whole second, then one launch per stream of the one-pass EMA
 kernels (ops/pallas_kernels) with one tile per segment, then the
-scrunches and the pack.  It serves the injection window after each
-minute's arm.  Every other second runs the injection-free twin, resolved
+scrunches and the pack.  It serves the seconds the injected track
+reaches after each minute's arm (`second_injects`: the arming second at
+production).  Every other second runs the injection-free twin, resolved
 once per configuration from chain_impl and twin_chain_impl as the JAX
 package resolves them (`resolve_twin_impl`, `twin_config`,
 `twin_program`): 'xla' is `process_second` with injection off, and the
@@ -33,10 +34,19 @@ ops/megakernel ('megakernel2' chain_second_v2; 'megakernel',
 'pallas', 'pallas_bf16'; 'megakernel4' chain_second_v4).
 `process_second_plain` is the same function segment by segment on torch
 ops only, the oracle of all of them; `reference_chain_numpy` is the JAX
-package's numpy oracle of the unweighted chain, copied.  With
-channelizer='pfb', a second on a card that injects nothing takes each
-stream's WOLA, DFT and detect in one launch
-(ops/megakernel.wola_dft_detect_power; `wola_kernel_takes`).
+package's numpy oracle of the unweighted chain, copied.
+
+On a card, process_second runs its torch program only on a second the
+injected track reaches (`second_injects`: the arming second at
+production; an armed second past the track's last spectrum multiplies
+by 1 throughout).  Any other second goes to the configuration's fused
+launch: the twin's chain kernel where the twin resolves to one
+(`twin_kernel_takes`: twin_second on twin_config, the station twin's
+launch and bits), and with channelizer='pfb' each stream's WOLA, DFT and
+detect in one launch (ops/megakernel.wola_dft_detect_power;
+`wola_kernel_takes`).  So the sharded array step, which runs every
+antenna-second through process_second, runs the armed program on the
+arming second of each call alone.  CPU tensors keep the torch program.
 
 An observation starts from `seed_bandpass`, which has no JAX
 counterpart: the zero bandpasses of a fresh state are seeded from the
@@ -63,6 +73,7 @@ the chain bar.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -236,6 +247,33 @@ def inject_window_seconds(cfg: PipelineConfig) -> int:
                        / cfg.seg_per_sec)) + 1
 
 
+@functools.lru_cache(maxsize=64)
+def _track_spectra(cfg: PipelineConfig) -> tuple[np.ndarray, np.ndarray]:
+    """Per channel, the first and last spectrum after the arm that the
+    injection multiplies (ops/injection.track_bounds, as inject_frb
+    computes them)."""
+    width = cfg.inject_width_s * cfg.seg_per_sec * cfg.ffts_per_seg
+    lo, hi = inj_ops.track_bounds(torch.from_numpy(_frb_delays_np(cfg)),
+                                  width)
+    return lo.numpy(), hi.numpy()
+
+
+def second_injects(cfg: PipelineConfig, since: int) -> bool:
+    """Whether the second whose first segment lies `since` segments after
+    the arm (< 0: not armed) has a spectrum the injection multiplies by
+    something other than 1: some channel's track meets the second's
+    spectra [since, since + seg_per_sec) * ffts_per_seg.  Every gate
+    reads it: StationPipeline's armed seconds and process_second's fused
+    launches (twin_kernel_takes, wola_kernel_takes); a second where it is
+    False is an injection-free second."""
+    if not (cfg.inject_frb and since >= 0) or cfg.inject_amp == 1.0:
+        return False
+    lo, hi = _track_spectra(cfg)
+    first = since * cfg.ffts_per_seg
+    end = first + cfg.seg_per_sec * cfg.ffts_per_seg
+    return bool(((lo < end) & (hi >= first)).any())
+
+
 MEGAKERNELS = ("megakernel", "megakernel2", "megakernel3", "megakernel3f",
                "megakernel4")
 # chain_second's pretranspose for each CT-major-layout chain_impl
@@ -293,8 +331,8 @@ def megakernel_supported(cfg: PipelineConfig) -> bool:
 
 
 def resolve_twin_impl(cfg: PipelineConfig) -> str:
-    """chain_impl of the program that serves every second outside the
-    armed window (the JAX pipeline's `_cfg_noinject`).
+    """chain_impl of the program that serves every second the injected
+    track does not reach (the JAX pipeline's `_cfg_noinject`).
 
     With injection, the JAX package's resolve_twin_impl: 'same' mirrors
     chain_impl, an explicit value is taken as it is, and 'auto' gives
@@ -337,12 +375,36 @@ def twin_config(cfg: PipelineConfig) -> PipelineConfig:
 
 
 def twin_program(cfg: PipelineConfig):
-    """The program of the seconds outside the armed window, to be called
-    with twin_config(cfg): `twin_second` for a megakernel chain_impl,
-    else `process_second`."""
+    """The program of the seconds the injected track does not reach, to be
+    called with twin_config(cfg): `twin_second` for a megakernel
+    chain_impl, else `process_second`."""
     if resolve_twin_impl(cfg) in MEGAKERNELS:
         return twin_second
     return process_second
+
+
+@functools.lru_cache(maxsize=64)
+def _fused_twin(cfg: PipelineConfig) -> PipelineConfig | None:
+    """twin_config(cfg) where the twin is a fused chain kernel (a
+    megakernel chain_impl); None where it is process_second ('xla') or
+    resolve_twin_impl refuses the configuration."""
+    try:
+        twin = twin_config(cfg)
+    except ValueError:
+        return None
+    return twin if twin.chain_impl in MEGAKERNELS else None
+
+
+def twin_kernel_takes(cfg: PipelineConfig, v: torch.Tensor,
+                      since: int) -> bool:
+    """Whether process_second hands the whole second to the fused chain
+    kernel of the configuration's twin (twin_second on twin_config(cfg),
+    the launch the station's twin gives an un-armed second): voltages on a
+    CUDA device, a second that injects nothing (second_injects) and a twin
+    that resolves to a megakernel chain_impl.  Where resolve_twin_impl
+    gives 'xla' or raises, process_second keeps its own path."""
+    return (v.device.type == "cuda" and not second_injects(cfg, since)
+            and _fused_twin(cfg) is not None)
 
 
 def _rfi_stage(cfg: PipelineConfig, x: torch.Tensor):
@@ -392,13 +454,13 @@ def wola_kernel_takes(cfg: PipelineConfig, v: torch.Tensor,
     """Whether process_second takes a stream's power from the fused WOLA
     kernel (ops/megakernel.wola_dft_detect_power) rather than `_power`:
     the pfb channelizer at dft_precision 'high' (the kernel's bf16x3;
-    'highest' keeps the f32 DFT), voltages on a CUDA device, a call that
-    injects nothing (the injection sits between the DFT and detect) and
-    a geometry the kernel takes (megakernel.wola_fits)."""
+    'highest' keeps the f32 DFT), voltages on a CUDA device, a second
+    that injects nothing (second_injects; the injection sits between the
+    DFT and detect) and a geometry the kernel takes
+    (megakernel.wola_fits)."""
     from vlite_fast_tpu_torch.ops import megakernel as mk
     return (cfg.channelizer == "pfb" and cfg.dft_precision == "high"
-            and v.device.type == "cuda"
-            and not (cfg.inject_frb and since >= 0)
+            and v.device.type == "cuda" and not second_injects(cfg, since)
             and mk.wola_fits(cfg.nfft, cfg.pfb_ntap))
 
 
@@ -505,17 +567,30 @@ def process_second(cfg: PipelineConfig, raw_second: torch.Tensor,
     of the fused kernel (stream 0 reading the raw bytes), at bf16x3; with
     both streams, stream 1's computes only the frames whose taps reach a
     block the front masked (megakernel.wola_masked_frames) and keeps
-    stream 0's rows elsewhere, which are the same bits.
+    stream 0's rows elsewhere, which are the same bits.  Where
+    twin_kernel_takes, the whole second is the twin's chain kernel
+    (twin_second on twin_config(cfg)), the state advancing alike.
 
     Device stages of a bound span record (utils/spans; none without
     one): "front" (convert, the RFI front, the WOLA carry), then for each
     stream "wola" (pfb), "dft", "detect", "ema", "pack" (the scrunches
-    and sel_and_dig); the fused kernel's launch is "dft" alone."""
+    and sel_and_dig); the fused WOLA kernel's launch is "dft" alone, and
+    the twin's chain kernel is "dft" alone for the whole second.  A
+    second handed to either fused launch adds 1 to the record's counter
+    "fused_seconds"."""
     from vlite_fast_tpu_torch.ops import megakernel as mk
     torch.backends.cuda.matmul.allow_tf32 = False   # the DFT stays f32
     dev = raw_second.device
     since = 0 if arm_inject else state.segs_since_inject
+    if twin_kernel_takes(cfg, raw_second, since):
+        spans.stage("dft")
+        out = twin_second(_fused_twin(cfg), raw_second, state, arm_inject)
+        spans.stage(None)
+        spans.count("fused_seconds")
+        return out
     fused = wola_kernel_takes(cfg, raw_second, since)
+    if fused:
+        spans.count("fused_seconds")
 
     def power_of(v: torch.Tensor, s: int, over=None) -> torch.Tensor:
         if fused:

@@ -24,6 +24,15 @@ def frb_delays(nchan: int, dm: float, spectra_per_sec: float,
         np.float32)
 
 
+def track_bounds(delays: torch.Tensor, frb_width_spectra: float
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per channel, the first and last spectrum of the track counted from
+    the burst's top-of-band arrival, inclusive: floor(d + 0.5) and
+    floor(d + width + 0.5), int32, in f32 arithmetic."""
+    return (torch.floor(delays + 0.5).to(torch.int32),
+            torch.floor(delays + frb_width_spectra + 0.5).to(torch.int32))
+
+
 def inject_frb(spec: torch.Tensor, delays: torch.Tensor, nfft_since_frb: int,
                frb_width_spectra: float, frb_amp: float) -> torch.Tensor:
     """Multiply the dispersed track by frb_amp.
@@ -33,9 +42,8 @@ def inject_frb(spec: torch.Tensor, delays: torch.Tensor, nfft_since_frb: int,
     Per channel the track spans spectra [floor(d+0.5), floor(d+width+0.5)]
     - nfft_since_frb, inclusive."""
     npol, nspec, nchan = spec.shape
-    lo = torch.floor(delays + 0.5).to(torch.int32) - nfft_since_frb
-    hi = torch.floor(delays + frb_width_spectra + 0.5).to(torch.int32) \
-        - nfft_since_frb
+    lo, hi = track_bounds(delays, frb_width_spectra)
+    lo, hi = lo - nfft_since_frb, hi - nfft_since_frb
     t = torch.arange(nspec, dtype=torch.int32, device=spec.device)[:, None]
     mask = (t >= lo[None, :]) & (t <= hi[None, :])
     amp = torch.where(mask, torch.tensor(frb_amp, dtype=torch.float32,

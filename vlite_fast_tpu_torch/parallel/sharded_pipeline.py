@@ -10,14 +10,18 @@ section 1, scripts/start_heimdall_single_antenna:21,
 scripts/start_process:21) with collectives:
 
   * DSP — antennas shard over all ranks (the mesh flattened): each
-    antenna's seconds stream one after another through the armed program
-    (models/baseband_dsp.process_second: rfi_front and the two EMA
-    kernels on a card), so the EMA bandpass carry is the sequential one
-    by construction (ref pb_kernels.cu:406-411).  An observation's first
-    call seeds each antenna's zero bandpass entries from its first
-    second (models/baseband_dsp.seed_bandpass), as a station does.  The
-    carried (bp, bp_kur) state enters and leaves the step, so
-    consecutive calls continue one unbroken observation.
+    antenna's seconds stream one after another through
+    models/baseband_dsp.process_second, so the EMA bandpass carry is the
+    sequential one by construction (ref pb_kernels.cu:406-411).  On a
+    card the seconds the injected track reaches (the arming second at
+    production) run the armed program (rfi_front, the f32 channelizer,
+    the two EMA kernels); every other second is handed to the fused
+    launch of the configuration's twin (the v2 chain kernel at
+    production; baseband_dsp.second_injects, twin_kernel_takes).  An
+    observation's first call seeds each antenna's zero bandpass entries
+    from its first second (models/baseband_dsp.seed_bandpass), as a
+    station does.  The carried (bp, bp_kur) state enters and leaves the
+    step, so consecutive calls continue one unbroken observation.
   * Reshard — one all_to_all_single over 'time' moves each antenna
     group's packed filterbank (2-bit bytes, not floats) from "whole
     stream on one rank" to "time chunk per rank": rank (a, t) then holds
@@ -48,12 +52,15 @@ A call is a record of utils/spans (layer "call") when the caller passes
 one to step_fn, gather_step_output and extract_candidates: host spans
 "dispatch" (the step's host time), "gather", "decode" and "cluster", the
 caller's root span "call" around them; counters "antenna_seconds",
-"beams", "crossings" (beams and coadd), "saturated_bands" and
-"cluster_rows"; device stages process_second's own ("front", "wola",
-"dft", "detect", "ema", "pack", summed over the call's antenna-seconds),
-"reshard", each beam's "dedisperse" (its rows' unpack with it), "boxcar"
-and "topk" (summed over the beams), "coadd" (the sum, kept in the beam
-loop, the all_reduce and the scale) and "coadd_search".  The record's
+"beams", "fused_seconds" (the antenna-seconds process_second handed to
+a fused launch; absent where it handed none), "crossings" (beams and
+coadd), "saturated_bands" and "cluster_rows"; device stages
+process_second's own ("front", "wola", "dft", "detect", "ema", "pack",
+summed over the call's antenna-seconds; a second handed to a fused
+launch is "dft" alone), "reshard", each beam's "dedisperse" (its rows'
+unpack with it), "boxcar" and "topk" (summed over the beams), "coadd"
+(the sum, kept in the beam loop, the all_reduce and the scale) and
+"coadd_search".  The record's
 device span runs from the step's start to the end of the coadd search.
 """
 

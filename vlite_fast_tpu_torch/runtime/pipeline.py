@@ -16,13 +16,16 @@ its bandpasses are seeded from the EMA's own length of spectra (0.25 s at
 production) before the first program runs, where the JAX pipeline seeds
 each from the first segment's tile.
 
-Host gating of the FRB injection is the JAX pipeline's: for the
-inject_window_seconds after each minute's arm the armed program
-(baseband_dsp.process_second with injection) runs; every other second
-runs the injection-free twin, resolved once at construction from
-chain_impl and twin_chain_impl as the JAX pipeline resolves them
+Host gating of the FRB injection: a second the injected track reaches
+(baseband_dsp.second_injects, from the state's segments since the
+minute's arm: the arming second at production) runs the armed program
+(baseband_dsp.process_second with injection); every other second runs
+the injection-free twin, resolved once at construction from chain_impl
+and twin_chain_impl as the JAX pipeline resolves them
 (baseband_dsp.twin_config / twin_program: a fused chain kernel through
-twin_second, or process_second with injection off).  A configuration the
+twin_second, or process_second with injection off).  The JAX pipeline
+gates by the wider inject_window_seconds, whose seconds past the track
+its armed program multiplies by all-ones.  A configuration the
 resolution refuses raises ValueError here, not at its first second.
 
 Nothing in the per-second loop waits for the device except the drain of
@@ -246,10 +249,9 @@ class StationPipeline:
         self._histo_accum: Optional[torch.Tensor] = None
         self.profile_path: Optional[str] = None   # the last trace written
         self.state = dsp.init_state(cfg, self.device)
-        # the injection-free twin runs outside the window after each arm
+        # the injection-free twin runs every second the track misses
         self._cfg_noinject = dsp.twin_config(cfg)
         self._twin = dsp.twin_program(cfg)
-        self._inject_until = -1
         self._fb = GulpStream()
         self._fb_dev = DeviceGulpStream()
         self._searched_to = 0
@@ -339,7 +341,6 @@ class StationPipeline:
         self._cands: List[dd.Candidate] = []
         self._nsec = 0
         self._t0_unix = None
-        self._inject_until = -1
         self.feed_seconds = {"armed": [], "twin": []}
         self.host_seconds = {k: [] for k in HOST_PARTS}
         self.prewarm()
@@ -507,12 +508,11 @@ class StationPipeline:
         with rec.span("staging"):
             raw = self._to_device(buf)
         arm = bool(cfg.inject_frb and self._nsec % C.INJECT_PERIOD_S == 0)
-        if arm:
-            self._inject_until = self._nsec + dsp.inject_window_seconds(cfg)
-        # host-side injection gating: outside the window after arming the
-        # track cannot intersect this second, so the injection-free twin
-        # runs (byte-exact: the skipped path multiplies by all-ones)
-        armed = cfg.inject_frb and self._nsec < self._inject_until
+        # host-side injection gating: where the track does not reach this
+        # second the injection would multiply it by all-ones, so the
+        # injection-free twin runs
+        armed = dsp.second_injects(
+            cfg, 0 if arm else self.state.segs_since_inject)
         kind = "armed" if armed else "twin"
         rec.counters["armed"] = int(armed)
         self._stall_to(time.perf_counter(), dispatch=True)

@@ -42,12 +42,12 @@ also enters a record_function range "vfast/<layer>.<name>" with the
 record's id as its args: not "vfast.", the prefix of the pipeline's own
 PROFILE_RANGES, which readers of a trace take to never nest.
 
-Marks are made only where a caller bound a record (StationPipeline binds
-one around each program and each gulp search, the array step the call's
-record it is given); from anywhere else `stage` does nothing.  A
-Recorder keeps an observation's records, the oldest dropping off past
-SECOND_RECORDS and GULP_RECORDS, and StationPipeline.end_observation
-publishes it (`last_observation`).
+Marks and counts (`count`) are made only where a caller bound a record
+(StationPipeline binds one around each program and each gulp search, the
+array step the call's record it is given); from anywhere else `stage`
+and `count` do nothing.  A Recorder keeps an observation's records, the
+oldest dropping off past SECOND_RECORDS and GULP_RECORDS, and
+StationPipeline.end_observation publishes it (`last_observation`).
 """
 
 from __future__ import annotations
@@ -203,6 +203,14 @@ def stage(name: Optional[str]) -> None:
     rec = _BOUND.get()
     if rec is not None:
         rec.mark(name)
+
+
+def count(name: str) -> None:
+    """Add 1 to the bound record's counter `name` (from 0); nothing
+    without a record."""
+    rec = _BOUND.get()
+    if rec is not None:
+        rec.counters[name] = rec.counters.get(name, 0) + 1
 
 
 class Recorder:
