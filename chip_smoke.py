@@ -651,13 +651,13 @@ TWIN_KERNELS = {"auto": ("chain_second_v2",),
 
 def on_track(cfg, n_sec: int) -> list:
     """For each second of a station's observation (armed every
-    INJECT_PERIOD_S from its second 0), whether the injected track reaches
-    it (baseband_dsp.second_injects): those seconds alone run the armed
-    program; every other second runs the twin."""
+    INJECT_PERIOD_S from its second 0), whether it runs the armed program
+    (baseband_dsp.second_program); every other second runs the twin."""
     from vlite_fast_tpu_torch import constants as C
     from vlite_fast_tpu_torch.models import baseband_dsp as dsp
-    return [dsp.second_injects(cfg, s % C.INJECT_PERIOD_S * cfg.seg_per_sec)
-            for s in range(n_sec)]
+    return [dsp.second_program(
+        cfg, s % C.INJECT_PERIOD_S * cfg.seg_per_sec)[0] == "armed"
+        for s in range(n_sec)]
 
 
 def check_fil(path: str, nrows: int, row_bytes: int, digest: str = None,
@@ -940,19 +940,24 @@ def phase_gulp_passes(dev) -> None:
 
 
 def phase_twin_agreement(dev, nseeds: int = 10) -> None:
-    """bench.py's A/B of the host gating: the armed program (never armed)
-    against the twin on the same seconds, one second of the smoke's noise
-    (made on the card) per seed, each program carrying its own bandpass;
-    the 2-bit agreement of both streams per second."""
+    """The A/B of the routing over more seconds than bench.py's: the armed
+    program (never armed; twin 'xla', so that process_second keeps its own
+    torch program on the card) against the twin second_program gives an
+    un-armed second, one second of the smoke's noise (made on the card)
+    per seed, each program carrying its own bandpass; the 2-bit agreement
+    of both streams per second."""
     from vlite_fast_tpu_torch import PipelineConfig
     from vlite_fast_tpu_torch.models import baseband_dsp as dsp
     cfg = PipelineConfig(inject_frb=True)
-    twin, twin_cfg = dsp.twin_program(cfg), dsp.twin_config(cfg)
+    cfg_a = dataclasses.replace(cfg, twin_chain_impl="xla")
+    _, twin, twin_cfg = dsp.second_program(cfg, -1)
+    check(twin is dsp.twin_second, f"[4] the production twin is "
+          f"{twin.__name__}, not the chain kernel")
     st_a = st_t = dsp.init_state(cfg, dev)
     agree, dlev = [], 0
     for seed in range(nseeds):
         raw = noise_on_card(dev, cfg.npol_in, cfg.sample_rate, seed)
-        out_a, st_a = dsp.process_second(cfg, raw, st_a, False)
+        out_a, st_a = dsp.process_second(cfg_a, raw, st_a, False)
         out_t, st_t = twin(twin_cfg, raw, st_t, False)
         res = [agreement(getattr(out_a, f), getattr(out_t, f))
                for f in ("packed", "packed_kur")]
@@ -2270,10 +2275,10 @@ def phase_pfb(dev) -> tuple:
         pipe = StationPipeline(1, cfg, scfg, out_dir=out_dir,
                                keep_ring=False, write_cands=False,
                                device=dev)
-        check(pipe._twin is dsp.process_second and
-              pipe._cfg_noinject.chain_impl == "xla",
-              f"[17a] the pfb twin resolved to {pipe._twin.__name__} "
-              f"{pipe._cfg_noinject.chain_impl}")
+        _, twin, twin_cfg = dsp.second_program(cfg, -1)
+        check(twin is dsp.process_second and twin_cfg.chain_impl == "xla",
+              f"[17a] the pfb twin resolved to {twin.__name__} "
+              f"{twin_cfg.chain_impl}")
         pipe.block_taps.append(lambda sid, off, blk: blocks.append(blk.copy()))
         t_pre = time.perf_counter()
         pipe.prewarm()
@@ -2589,8 +2594,7 @@ def phase_matrix(dev, raw) -> dict:
     for name, kw in CONFIG_MATRIX:
         cfg = PipelineConfig(**kw)
         arm = cfg.inject_frb
-        prog, pcfg = (dsp.process_second, cfg) if arm else \
-            (dsp.twin_program(cfg), dsp.twin_config(cfg))
+        _, prog, pcfg = dsp.second_program(cfg, 0 if arm else -1)
         fresh = lambda: dsp.init_state(cfg, dev)
         prog(pcfg, raw, fresh(), arm)                # first use, not timed
         before = kernel_launches.counts()
@@ -2703,8 +2707,8 @@ def phase_mesh_step(dev, mesh) -> dict:
               f"{verdict['coadd']['snr']} not above every beam's")
         # the seconds the track reaches run the armed program; the others
         # are handed to the twin's chain kernel
-        track = nant * sum(dsp.second_injects(
-            cfg, (s - fg.INJECT_SEC) * cfg.seg_per_sec)
+        track = nant * sum(dsp.second_program(
+            cfg, (s - fg.INJECT_SEC) * cfg.seg_per_sec)[0] == "armed"
             for s in range(fg.INJECT_SEC, MESH_SECONDS))
         want = {"rfi_front": track, "normalize_ema_pallas": track,
                 "normalize_ema_weighted_pallas": track,

@@ -136,18 +136,18 @@ def test_twin_program_dispatch(tmp_path):
     takes the configuration (the JAX package's resolve_twin_impl)."""
     from vlite_fast_tpu_torch.config import PipelineConfig, SearchConfig
     from vlite_fast_tpu_torch.runtime.pipeline import StationPipeline
-    assert tdsp.twin_program(PipelineConfig()) is tdsp.twin_second
-    assert tdsp.twin_program(PipelineConfig(inject_frb=True)) is \
-        tdsp.twin_second
-    assert tdsp.twin_program(PipelineConfig.tiny()) is tdsp.process_second
+    twin = lambda cfg: tdsp.second_program(cfg, -1)[1]
+    assert twin(PipelineConfig()) is tdsp.twin_second
+    assert twin(PipelineConfig(inject_frb=True)) is tdsp.twin_second
+    assert twin(PipelineConfig.tiny()) is tdsp.process_second
     pipe = StationPipeline(1, PipelineConfig.tiny(inject_frb=True),
                            SearchConfig.tiny(), out_dir=str(tmp_path),
                            device="cpu")
-    assert pipe._twin is tdsp.process_second
+    assert twin(pipe.cfg) is tdsp.process_second
     pipe = StationPipeline(1, PipelineConfig.tiny(nbit=2),
                            SearchConfig.tiny(), out_dir=str(tmp_path),
                            device="cpu")
-    assert pipe._twin is tdsp.twin_second
+    assert twin(pipe.cfg) is tdsp.twin_second
 
 
 # tests/test_megakernel.py geometry: nfft 2048 (CT 32x64), 16 FFTs per

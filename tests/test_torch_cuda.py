@@ -728,15 +728,16 @@ def test_pipeline_off_megakernel_config_matches_cpu(cuda, tmp_path):
     for dev in ("cpu", cuda):
         pipe = StationPipeline(1, cfg, scfg, out_dir=str(tmp_path),
                                write_cands=False, device=dev)
-        assert pipe._twin is tdsp.process_second
+        assert tdsp.second_program(cfg, -1)[1] is tdsp.process_second
         pipe.prewarm()                      # its launches are set-up
         before = (trfi.LAUNCHES, dict(tpk.LAUNCHES))
         results.append(pipe.run_observation(
             ((1.6e9 + s, b) for s, b in enumerate(secs)),
             ObservationDocument(name="CUDA", start_time=1.6e9),
             write_fil=False))
-    # on the card every second (armed and twin) went through the kernels
-    assert trfi.LAUNCHES - before[0] == len(secs)
+    # on the card every second (armed and twin) went through the kernels,
+    # and the first second's seed_bandpass through the RFI front once more
+    assert trfi.LAUNCHES - before[0] == len(secs) + 1
     assert all(v - before[1][k] == len(secs)
                for k, v in tpk.LAUNCHES.items())
     clear = scfg.snr_thresh + 0.5
@@ -769,8 +770,9 @@ def test_pipeline_megakernel4_matches_cpu(cuda, tmp_path):
     for dev in ("cpu", cuda):
         pipe = StationPipeline(1, cfg, scfg, out_dir=str(tmp_path),
                                write_cands=False, device=dev)
-        assert pipe._twin is tdsp.twin_second
-        assert pipe._cfg_noinject.chain_impl == "megakernel4"
+        _, twin, twin_cfg = tdsp.second_program(cfg, -1)
+        assert twin is tdsp.twin_second
+        assert twin_cfg.chain_impl == "megakernel4"
         pipe.prewarm()                      # its launches are set-up
         before = dict(tmk.LAUNCHES)
         results.append(pipe.run_observation(
@@ -808,15 +810,14 @@ def test_pipeline_fil_drain_on_card(cuda, tmp_path):
         ((1.6e9 + s, b) for s, b in enumerate(secs)),
         ObservationDocument(name="FIL", start_time=1.6e9))
     pipe.close()
-    st = tdsp.init_state(cfg, cuda)
-    twin, twin_cfg = tdsp.twin_program(cfg), tdsp.twin_config(cfg)
+    st = tdsp.seed_bandpass(cfg, torch.from_numpy(secs[0]).to(cuda),
+                            tdsp.init_state(cfg, cuda))
     kur, plain = [], []
     for s, buf in enumerate(secs):
         arm = s % C.INJECT_PERIOD_S == 0
-        raw = torch.from_numpy(buf).to(cuda)
-        out, st = (tdsp.process_second(cfg, raw, st, arm)
-                   if tdsp.second_injects(cfg, s * cfg.seg_per_sec)
-                   else twin(twin_cfg, raw, st, arm))
+        _, prog, pcfg = tdsp.second_program(
+            cfg, 0 if arm else st.segs_since_inject)
+        out, st = prog(pcfg, torch.from_numpy(buf).to(cuda), st, arm)
         kur.append(out.packed_kur.cpu().numpy())
         plain.append(out.packed.cpu().numpy())
     assert len(kept) == len(secs)

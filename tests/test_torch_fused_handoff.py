@@ -7,13 +7,16 @@ reach, on the CPU.
   configuration) at every second boundary and around the track's end,
   and at a tiny geometry for every segment offset from -1 past the
   window.
-- The two gates, the twin's chain kernel (`twin_kernel_takes`) and the
-  pfb WOLA kernel (`wola_kernel_takes`), over the device, the arm state,
-  the channelizer, dft_precision and the twin's resolution; never both.
+- `second_program`'s (kind, program) and the pfb WOLA kernel's gate
+  (`wola_kernel_takes`) over the device, the arm state, the channelizer,
+  dft_precision and the twin's resolution; never both fused launches.
 - process_second routed as on a card (the device check monkeypatched)
   returns twin_second's outputs and state bit for bit (through one call
   of twin_second), marks the device stage "dft" alone and counts the
   second in "fused_seconds".
+- A tiny injected station runs each second through the program
+  `second_program` names, and through that one program's module name
+  alone (as the benchmark's station harness wraps them).
 """
 
 import dataclasses
@@ -113,51 +116,85 @@ CPU = torch.zeros(2, 4)
 FFT = PipelineConfig(inject_frb=True)        # the production station
 PFB = dataclasses.replace(FFT, channelizer="pfb")
 
-# (config, voltages, since) -> (twin_kernel_takes, wola_kernel_takes)
+PS, TS = "process_second", "twin_second"
+
+# (config, voltages, since) -> second_program's (kind, program), whether
+# process_second hands the second to the twin's chain kernel on these
+# voltages, and wola_kernel_takes
 GATES = [
-    ("fft unarmed", FFT, _Cuda(), -1, True, False),
-    ("fft arming second", FFT, _Cuda(), 0, False, False),
-    ("fft armed, on the track", FFT, _Cuda(), 317, False, False),
-    ("fft armed, past the track", FFT, _Cuda(), 320, True, False),
-    ("fft on the cpu", FFT, CPU, -1, False, False),
-    ("fft past the track on the cpu", FFT, CPU, 320, False, False),
+    ("fft unarmed", FFT, _Cuda(), -1, "twin", TS, True, False),
+    ("fft arming second", FFT, _Cuda(), 0, "armed", PS, False, False),
+    ("fft armed, on the track", FFT, _Cuda(), 317, "armed", PS, False,
+     False),
+    ("fft armed, past the track", FFT, _Cuda(), 320, "twin", TS, True,
+     False),
+    ("fft on the cpu", FFT, CPU, -1, "twin", TS, False, False),
+    ("fft past the track on the cpu", FFT, CPU, 320, "twin", TS, False,
+     False),
     ("fft highest", dataclasses.replace(FFT, dft_precision="highest"),
-     _Cuda(), 320, True, False),
+     _Cuda(), 320, "twin", TS, True, False),
     ("fft twin xla", dataclasses.replace(FFT, twin_chain_impl="xla"),
-     _Cuda(), -1, False, False),
+     _Cuda(), -1, "twin", PS, False, False),
     ("fft twin same", dataclasses.replace(FFT, twin_chain_impl="same"),
-     _Cuda(), -1, False, False),
+     _Cuda(), -1, "twin", PS, False, False),
     ("fft twin megakernel4",
      dataclasses.replace(FFT, twin_chain_impl="megakernel4"), _Cuda(), 320,
-     True, False),
+     "twin", TS, True, False),
     ("fft twin refused", dataclasses.replace(FFT, chain_impl="megakernel2"),
-     _Cuda(), -1, False, False),
+     _Cuda(), -1, "twin", PS, False, False),
+    ("fft twin refused, arming second",
+     dataclasses.replace(FFT, chain_impl="megakernel2"), _Cuda(), 0,
+     "armed", PS, False, False),
     ("fft 8-bit: no chain kernel", dataclasses.replace(FFT, nbit=8),
-     _Cuda(), -1, False, False),
+     _Cuda(), -1, "twin", PS, False, False),
     ("fft no injection", dataclasses.replace(FFT, inject_frb=False),
-     _Cuda(), 0, True, False),
-    ("pfb unarmed", PFB, _Cuda(), -1, False, True),
-    ("pfb arming second", PFB, _Cuda(), 0, False, False),
-    ("pfb armed, past the track", PFB, _Cuda(), 320, False, True),
-    ("pfb armed later", PFB, _Cuda(), 640, False, True),
-    ("pfb on the cpu", PFB, CPU, 320, False, False),
+     _Cuda(), 0, "twin", TS, True, False),
+    ("pfb unarmed", PFB, _Cuda(), -1, "twin", PS, False, True),
+    ("pfb arming second", PFB, _Cuda(), 0, "armed", PS, False, True),
+    ("pfb armed, past the track", PFB, _Cuda(), 320, "twin", PS, False,
+     True),
+    ("pfb armed later", PFB, _Cuda(), 640, "twin", PS, False, True),
+    ("pfb on the cpu", PFB, CPU, 320, "twin", PS, False, False),
     ("pfb highest", dataclasses.replace(PFB, dft_precision="highest"),
-     _Cuda(), 320, False, False),
+     _Cuda(), 320, "twin", PS, False, False),
+    ("pfb twin refused",
+     dataclasses.replace(PFB, twin_chain_impl="megakernel2"), _Cuda(), -1,
+     "twin", PS, False, True),
 ]
 
 
-@pytest.mark.parametrize("cfg,v,since,chain,wola",
+@pytest.mark.parametrize("cfg,v,since,kind,program,chain,wola",
                          [g[1:] for g in GATES], ids=[g[0] for g in GATES])
-def test_gates(cfg, v, since, chain, wola):
-    assert tdsp.twin_kernel_takes(cfg, v, since) == chain
-    assert tdsp.wola_kernel_takes(cfg, v, since) == wola
+def test_gates(cfg, v, since, kind, program, chain, wola):
+    got_kind, got_program, _ = tdsp.second_program(cfg, since)
+    assert (got_kind, got_program.__name__) == (kind, program)
+    assert (got_program is tdsp.twin_second and tdsp._on_card(v)) == chain
+    assert tdsp.wola_kernel_takes(cfg, v) == wola
+    # a second takes one fused launch at most: the WOLA kernel in a twin
+    # second process_second keeps
+    assert not (chain and wola)
+
+
+@pytest.mark.parametrize("cfg,since,chain_impl", [
+    (FFT, -1, "megakernel2"), (FFT, 0, "xla"), (PFB, -1, "xla"),
+    (dataclasses.replace(FFT, twin_chain_impl="megakernel4"), -1,
+     "megakernel4")], ids=["fft twin", "fft armed", "pfb twin", "fft v4"])
+def test_second_program_config(cfg, since, chain_impl):
+    kind, _, pcfg = tdsp.second_program(cfg, since)
+    if kind == "armed":
+        assert pcfg is cfg
+    else:
+        assert pcfg == tdsp.twin_config(cfg) and not pcfg.inject_frb
+    assert pcfg.chain_impl == chain_impl
 
 
 def test_refused_twin_keeps_process_second():
     cfg = dataclasses.replace(FFT, chain_impl="megakernel2")
     with pytest.raises(ValueError):
         tdsp.twin_config(cfg)
-    assert tdsp._fused_twin(cfg) is None
+    for since in (-1, 320):
+        kind, program, pcfg = tdsp.second_program(cfg, since)
+        assert (kind, program, pcfg) == ("twin", tdsp.process_second, cfg)
 
 
 def _raw(cfg, seed):
@@ -175,9 +212,7 @@ def test_process_second_hands_the_second_to_the_twin(monkeypatch, since,
     cfg = _tiny()
     if arm:
         cfg = dataclasses.replace(cfg, inject_frb=False)
-    real = tdsp.twin_kernel_takes
-    monkeypatch.setattr(tdsp, "twin_kernel_takes",
-                        lambda c, v, s: real(c, _Cuda(), s))
+    monkeypatch.setattr(tdsp, "_on_card", lambda v: True)
     twin, handed = tdsp.twin_second, []
     monkeypatch.setattr(tdsp, "twin_second",
                         lambda *a: handed.append(1) or twin(*a))
@@ -203,9 +238,7 @@ def test_process_second_hands_the_second_to_the_twin(monkeypatch, since,
 
 def test_process_second_keeps_the_arming_second(monkeypatch):
     cfg = _tiny()
-    real = tdsp.twin_kernel_takes
-    monkeypatch.setattr(tdsp, "twin_kernel_takes",
-                        lambda c, v, s: real(c, _Cuda(), s))
+    monkeypatch.setattr(tdsp, "_on_card", lambda v: True)
     raw = _raw(cfg, 4)
     st = tdsp.init_state(cfg, "cpu")
     rec = spans.Record("call", 0)
@@ -218,3 +251,36 @@ def test_process_second_keeps_the_arming_second(monkeypatch):
     assert torch.equal(got.weights, want.weights)
     assert st_g.segs_since_inject == st_w.segs_since_inject == \
         cfg.seg_per_sec
+
+
+@pytest.mark.parametrize("twin", ["auto", "xla"])
+def test_station_runs_the_program_second_program_names(monkeypatch,
+                                                       tmp_path, twin):
+    """Each fed second's kind (its feed_seconds key and span counter) is
+    second_program's for that second, and the second reaches that
+    program's module name alone: the station never sends a second to both
+    names, even routed as on a card (the device check monkeypatched)."""
+    from vlite_fast_tpu_torch.config import SearchConfig
+    from vlite_fast_tpu_torch.runtime.pipeline import (ObservationDocument,
+                                                       StationPipeline)
+    cfg = dataclasses.replace(_tiny(), twin_chain_impl=twin)
+    n = 4
+    want = [tdsp.second_program(cfg, s * cfg.seg_per_sec) for s in range(n)]
+    monkeypatch.setattr(tdsp, "_on_card", lambda v: True)
+    reached = []
+    for name in ("process_second", "twin_second"):
+        monkeypatch.setattr(tdsp, name, lambda *a, _n=name,
+                            _f=getattr(tdsp, name): reached.append(_n)
+                            or _f(*a))
+    pipe = StationPipeline(1, cfg, SearchConfig.tiny(), out_dir=str(tmp_path),
+                           keep_ring=False, write_cands=False, device="cpu")
+    pipe.run_observation(((1.6e9 + s, _raw(cfg, 30 + s).numpy())
+                          for s in range(n)),
+                         ObservationDocument(name="ROUTE", start_time=1.6e9),
+                         write_fil=False)
+    kinds = ["armed" if rec.counters["armed"] else "twin"
+             for rec in pipe.records.seconds]
+    assert kinds == [k for k, _, _ in want] == ["armed"] + ["twin"] * (n - 1)
+    assert reached == [p.__name__ for _, p, _ in want]
+    assert len(pipe.feed_seconds["armed"]) == 1
+    assert len(pipe.feed_seconds["twin"]) == n - 1

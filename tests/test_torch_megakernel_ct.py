@@ -223,7 +223,7 @@ def test_state_carry_from_jax_megakernel_second(chain_impl):
         np.asarray(st1.bp), np.asarray(st1.bp_kur),
         np.asarray(st1.segs_since_inject), np.asarray(st1.tail),
         np.asarray(st1.wtail), device="cpu")
-    assert tdsp.twin_program(_t(cfg)) is tdsp.twin_second
+    assert tdsp.second_program(_t(cfg), -1)[1] is tdsp.twin_second
     ot, stt = tdsp.twin_second(_t(cfg), torch.from_numpy(raws[1]), st_t)
     for field in ("packed", "packed_kur"):
         _assert_levels(getattr(ot, field), getattr(oj, field))

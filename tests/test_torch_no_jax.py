@@ -53,7 +53,8 @@ assert torch.equal(got[1], out.packed_kur)
 import dataclasses
 for twin in ("auto", "same") + dsp.MEGAKERNELS:
     c = dataclasses.replace(cfg, inject_frb=True, twin_chain_impl=twin)
-    dsp.twin_program(c)(dsp.twin_config(c), t, dsp.init_state(c, 'cpu'))
+    _, prog, pc = dsp.second_program(c, -1)
+    prog(pc, t, dsp.init_state(c, 'cpu'))
 eng = search.SinglePulseSearch(SearchConfig.tiny(), cfg.tsamp,
                                cfg.freqs_mhz(), nsub=64, nbatch=64,
                                device="cpu")

@@ -77,7 +77,7 @@ def test_every_program_returns_the_histogram(chain_impl, twin_impl):
         cfg = _t(PipelineConfig.tiny(nbit=2, do_histo=do_histo,
                                      chain_impl=chain_impl,
                                      twin_chain_impl=twin_impl))
-        twin, tcfg = tdsp.twin_program(cfg), tdsp.twin_config(cfg)
+        _, twin, tcfg = tdsp.second_program(cfg, -1)
         assert (twin is tdsp.twin_second) == (twin_impl == "auto")
         for name, prog, c in (
                 ("process_second", tdsp.process_second, cfg),
@@ -133,7 +133,7 @@ def test_do_histo_resolves_the_twin_as_jax():
     assert ("xla", "megakernel2") in seen
     cfg = _t(PipelineConfig(do_histo=True))
     assert tdsp.chain_kernel_takes(cfg)
-    assert tdsp.twin_program(cfg) is tdsp.twin_second
+    assert tdsp.second_program(cfg, -1)[1] is tdsp.twin_second
 
 
 def test_histogram_product_matches_jax(tmp_path):
@@ -272,10 +272,10 @@ def test_config_matrix_matches_jax(name, kw):
 
     def port_second(cfg, raw, st, arm):
         st = tdsp.init_state(cfg, "cpu") if st is None else st
-        if cfg.inject_frb and arm:
-            return tdsp.process_second(cfg, torch.from_numpy(raw), st, arm)
-        return tdsp.twin_program(cfg)(tdsp.twin_config(cfg),
-                                      torch.from_numpy(raw), st, arm)
+        tdsp.twin_config(cfg)       # refused as the pipeline refuses it
+        _, prog, pcfg = tdsp.second_program(
+            cfg, 0 if arm else st.segs_since_inject)
+        return prog(pcfg, torch.from_numpy(raw), st, arm)
 
     want = _run(lambda: PipelineConfig.tiny(**{**base, **kw}), jax_second,
                 secs)

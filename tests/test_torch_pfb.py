@@ -213,7 +213,8 @@ def test_pipeline_pfb_recovers_the_jax_candidates(tmp_path):
             pipe = JPipe(1, cfg, scfg, **kw)
         else:
             pipe = TPipe(1, _t(cfg), _t(scfg), device="cpu", **kw)
-            assert pipe._twin is tdsp.process_second
+            assert tdsp.second_program(pipe.cfg, -1)[1] is \
+                tdsp.process_second
         with seeded():
             results.append(pipe.run_observation(
                 ((1.6e9 + s, buf) for s, buf in enumerate(secs)),

@@ -220,13 +220,12 @@ def test_fil_rows_equal_the_programs_outputs(tmp_path):
     assert all(len(pipe.host_seconds[k]) == 4 for k in HOST_PARTS)
     st = tdsp.seed_bandpass(cfg, torch.from_numpy(secs[0]),
                             tdsp.init_state(cfg, "cpu"))
-    twin, twin_cfg = tdsp.twin_program(cfg), tdsp.twin_config(cfg)
     kur, plain = [], []
     for s, buf in enumerate(secs):
         arm = s % tC.INJECT_PERIOD_S == 0
-        raw = torch.from_numpy(buf)
-        out, st = (tdsp.process_second(cfg, raw, st, arm) if track[s]
-                   else twin(twin_cfg, raw, st, arm))
+        _, prog, pcfg = tdsp.second_program(
+            cfg, 0 if arm else st.segs_since_inject)
+        out, st = prog(pcfg, torch.from_numpy(buf), st, arm)
         kur.append(out.packed_kur.numpy())
         plain.append(out.packed.numpy())
     for path, want in ((prod.fil_path, kur),

@@ -103,7 +103,7 @@ def _port_verdict(cfg):
         impl = tdsp.resolve_twin_impl(cfg)
     except ValueError:
         return "raise", None
-    return impl, tdsp.twin_program(cfg)
+    return impl, tdsp.second_program(cfg, -1)[1]
 
 
 def test_resolution_matches_jax_over_config_grid():

@@ -126,7 +126,12 @@ class _Cuda:
 
 def test_process_second_routes_by_what_it_sees():
     cfg = PipelineConfig(channelizer="pfb", inject_frb=True)
-    takes = tdsp.wola_kernel_takes
+
+    def takes(c, v, since):
+        # process_second's route: the kernel in a twin second alone
+        return (tdsp.second_program(c, since)[0] == "twin"
+                and tdsp.wola_kernel_takes(c, v))
+
     assert takes(cfg, _Cuda(), -1)                   # a twin second
     assert takes(dataclasses.replace(cfg, inject_frb=False), _Cuda(), 5)
     assert not takes(cfg, _Cuda(), 0)                # the arming second

@@ -255,9 +255,9 @@ def run(device="cuda", cfg: PipelineConfig = None,
     # un-armed second to the twin's chain kernel where that is the twin)
     dsp_rt, out_a = _dsp_loop(dataclasses.replace(cfg, twin_chain_impl="xla"),
                               dsp.process_second, staged, dev)
-    twin_impl = dsp.resolve_twin_impl(cfg)
-    dsp_rt_gated, out_t = _dsp_loop(dsp.twin_config(cfg),
-                                    dsp.twin_program(cfg), staged, dev)
+    _, twin, twin_cfg = dsp.second_program(cfg, -1)
+    twin_impl = twin_cfg.chain_impl
+    dsp_rt_gated, out_t = _dsp_loop(twin_cfg, twin, staged, dev)
     # both loops ran the same un-armed seconds: the twin must give the
     # armed program's levels (bit for bit where it is the same program;
     # else the chain bar, the JAX package's for its chain variants)

@@ -22,31 +22,13 @@ ema_impl='pallas', rfi_impl='pallas' program: the front half (convert, the
 RFI front kernel ops/rfi_pallas.rfi_front, channelize, inject, detect)
 over the whole second, then one launch per stream of the one-pass EMA
 kernels (ops/pallas_kernels) with one tile per segment, then the
-scrunches and the pack.  It serves the seconds the injected track
-reaches after each minute's arm (`second_injects`: the arming second at
-production).  Every other second runs the injection-free twin, resolved
-once per configuration from chain_impl and twin_chain_impl as the JAX
-package resolves them (`resolve_twin_impl`, `twin_config`,
-`twin_program`): 'xla' is `process_second` with injection off, and the
-megakernel values are `twin_second` on the fused chain kernels of
-ops/megakernel ('megakernel2' chain_second_v2; 'megakernel',
-'megakernel3', 'megakernel3f' chain_second with pretranspose 'xla',
-'pallas', 'pallas_bf16'; 'megakernel4' chain_second_v4).
-`process_second_plain` is the same function segment by segment on torch
-ops only, the oracle of all of them; `reference_chain_numpy` is the JAX
-package's numpy oracle of the unweighted chain, copied.
-
-On a card, process_second runs its torch program only on a second the
-injected track reaches (`second_injects`: the arming second at
-production; an armed second past the track's last spectrum multiplies
-by 1 throughout).  Any other second goes to the configuration's fused
-launch: the twin's chain kernel where the twin resolves to one
-(`twin_kernel_takes`: twin_second on twin_config, the station twin's
-launch and bits), and with channelizer='pfb' each stream's WOLA, DFT and
-detect in one launch (ops/megakernel.wola_dft_detect_power;
-`wola_kernel_takes`).  So the sharded array step, which runs every
-antenna-second through process_second, runs the armed program on the
-arming second of each call alone.  CPU tensors keep the torch program.
+scrunches and the pack.  `twin_second` is the injection-free program on
+the fused chain kernels of ops/megakernel.  Which program serves a
+second is decided by `second_program` alone, whose docstring is the one
+account of the routing.  `process_second_plain` is the same function
+segment by segment on torch ops only, the oracle of all of them;
+`reference_chain_numpy` is the JAX package's numpy oracle of the
+unweighted chain, copied.
 
 An observation starts from `seed_bandpass`, which has no JAX
 counterpart: the zero bandpasses of a fresh state are seeded from the
@@ -63,8 +45,8 @@ program (ema_impl, rfi_impl, front_layout, batch_streams,
 dft_exact_input, dft_stage2) are ignored: every ema_impl and rfi_impl
 gives the sequential EMA's results.  The DFT is f32, except in the v2
 chain kernel, which runs the TPU kernels' split-plane bf16 DFT on the
-tensor cores whatever dft_precision says, and in process_second's pfb
-seconds on a card that inject nothing, whose fused WOLA kernel runs it
+tensor cores whatever dft_precision says, and in process_second's twin
+seconds on the pfb channelizer on a card, whose fused WOLA kernel runs it
 at bf16x3 where dft_precision is 'high' (as the JAX package's pfb path
 computes at dft_precision); both are held to the f32 plain version at
 the chain bar.
@@ -262,10 +244,9 @@ def second_injects(cfg: PipelineConfig, since: int) -> bool:
     """Whether the second whose first segment lies `since` segments after
     the arm (< 0: not armed) has a spectrum the injection multiplies by
     something other than 1: some channel's track meets the second's
-    spectra [since, since + seg_per_sec) * ffts_per_seg.  Every gate
-    reads it: StationPipeline's armed seconds and process_second's fused
-    launches (twin_kernel_takes, wola_kernel_takes); a second where it is
-    False is an injection-free second."""
+    spectra [since, since + seg_per_sec) * ffts_per_seg.  A second where
+    it is False is an injection-free second; second_program routes by
+    it."""
     if not (cfg.inject_frb and since >= 0) or cfg.inject_amp == 1.0:
         return False
     lo, hi = _track_spectra(cfg)
@@ -374,37 +355,54 @@ def twin_config(cfg: PipelineConfig) -> PipelineConfig:
                                chain_impl=resolve_twin_impl(cfg))
 
 
-def twin_program(cfg: PipelineConfig):
-    """The program of the seconds the injected track does not reach, to be
-    called with twin_config(cfg): `twin_second` for a megakernel
-    chain_impl, else `process_second`."""
-    if resolve_twin_impl(cfg) in MEGAKERNELS:
-        return twin_second
-    return process_second
-
-
 @functools.lru_cache(maxsize=64)
-def _fused_twin(cfg: PipelineConfig) -> PipelineConfig | None:
-    """twin_config(cfg) where the twin is a fused chain kernel (a
-    megakernel chain_impl); None where it is process_second ('xla') or
-    resolve_twin_impl refuses the configuration."""
+def _twin_of(cfg: PipelineConfig) -> PipelineConfig | None:
+    """twin_config(cfg), or None where resolve_twin_impl refuses it."""
     try:
-        twin = twin_config(cfg)
+        return twin_config(cfg)
     except ValueError:
         return None
-    return twin if twin.chain_impl in MEGAKERNELS else None
 
 
-def twin_kernel_takes(cfg: PipelineConfig, v: torch.Tensor,
-                      since: int) -> bool:
-    """Whether process_second hands the whole second to the fused chain
-    kernel of the configuration's twin (twin_second on twin_config(cfg),
-    the launch the station's twin gives an un-armed second): voltages on a
-    CUDA device, a second that injects nothing (second_injects) and a twin
-    that resolves to a megakernel chain_impl.  Where resolve_twin_impl
-    gives 'xla' or raises, process_second keeps its own path."""
-    return (v.device.type == "cuda" and not second_injects(cfg, since)
-            and _fused_twin(cfg) is not None)
+def second_program(cfg: PipelineConfig, since: int) -> tuple:
+    """(kind, program, program_cfg) of the second whose first segment
+    lies `since` segments after the arm (< 0: not armed), run as
+    program(program_cfg, raw_second, state, arm_inject): the one account
+    of the routing, asked by every caller.
+
+    - ("armed", process_second, cfg) where the injected track reaches the
+      second (second_injects: the arming second at production; the JAX
+      pipeline's wider inject_window_seconds multiplies the seconds past
+      the track by all-ones).
+    - Otherwise the injection-free twin, resolved per configuration as
+      the JAX package resolves it (resolve_twin_impl, twin_config):
+      ("twin", twin_second, twin_config(cfg)) for a megakernel
+      chain_impl, else ("twin", process_second, twin_config(cfg)); and
+      ("twin", process_second, cfg) where the resolution refuses the
+      configuration (StationPipeline refuses it at construction; this
+      never raises).
+
+    On a CUDA tensor process_second asks it too: a second it gives to
+    twin_second goes to the chain kernel (so the sharded array step runs
+    the armed program on the arming second alone), and a pfb twin second
+    takes the fused WOLA kernel (wola_kernel_takes); CPU tensors keep the
+    torch program.  kind names the station's "vfast.{kind}_second" range
+    and feed_seconds key.  The programs are looked up on the module at
+    each call."""
+    if second_injects(cfg, since):
+        return "armed", process_second, cfg
+    twin = _twin_of(cfg)
+    if twin is None:
+        return "twin", process_second, cfg
+    if twin.chain_impl in MEGAKERNELS:
+        return "twin", twin_second, twin
+    return "twin", process_second, twin
+
+
+def _on_card(v: torch.Tensor) -> bool:
+    """The device condition of process_second's fused launches: CPU
+    tensors keep the torch program."""
+    return v.device.type == "cuda"
 
 
 def _rfi_stage(cfg: PipelineConfig, x: torch.Tensor):
@@ -449,19 +447,16 @@ def _power(cfg: PipelineConfig, v: torch.Tensor, since: int,
     return norm_ops.detect(spec)
 
 
-def wola_kernel_takes(cfg: PipelineConfig, v: torch.Tensor,
-                      since: int) -> bool:
-    """Whether process_second takes a stream's power from the fused WOLA
-    kernel (ops/megakernel.wola_dft_detect_power) rather than `_power`:
-    the pfb channelizer at dft_precision 'high' (the kernel's bf16x3;
-    'highest' keeps the f32 DFT), voltages on a CUDA device, a second
-    that injects nothing (second_injects; the injection sits between the
-    DFT and detect) and a geometry the kernel takes
-    (megakernel.wola_fits)."""
+def wola_kernel_takes(cfg: PipelineConfig, v: torch.Tensor) -> bool:
+    """Whether process_second takes a twin second's stream power from the
+    fused WOLA kernel (ops/megakernel.wola_dft_detect_power) rather than
+    `_power`: the pfb channelizer at dft_precision 'high' (the kernel's
+    bf16x3; 'highest' keeps the f32 DFT), voltages on a CUDA device and a
+    geometry the kernel takes (megakernel.wola_fits).  An armed second
+    never does: the injection sits between the DFT and detect."""
     from vlite_fast_tpu_torch.ops import megakernel as mk
     return (cfg.channelizer == "pfb" and cfg.dft_precision == "high"
-            and v.device.type == "cuda" and not second_injects(cfg, since)
-            and mk.wola_fits(cfg.nfft, cfg.pfb_ntap))
+            and _on_card(v) and mk.wola_fits(cfg.nfft, cfg.pfb_ntap))
 
 
 def _finish_stream(cfg: PipelineConfig, out: torch.Tensor,
@@ -562,14 +557,15 @@ def process_second(cfg: PipelineConfig, raw_second: torch.Tensor,
     channelizer='pfb' one WOLA runs over [carried tail, whole second]
     per stream (the segments are contiguous, so its spectra are the
     segment-by-segment ones); the masked tail is rfi_front's, and the
-    raw block weights are carried before the WOLA bookkeeping.  Where
-    wola_kernel_takes, each stream's WOLA, DFT and detect are one launch
-    of the fused kernel (stream 0 reading the raw bytes), at bf16x3; with
-    both streams, stream 1's computes only the frames whose taps reach a
-    block the front masked (megakernel.wola_masked_frames) and keeps
-    stream 0's rows elsewhere, which are the same bits.  Where
-    twin_kernel_takes, the whole second is the twin's chain kernel
-    (twin_second on twin_config(cfg)), the state advancing alike.
+    raw block weights are carried before the WOLA bookkeeping.  Its head
+    asks second_program: on a CUDA tensor a second it gives to
+    twin_second is the twin's chain kernel whole, the state advancing
+    alike; in a twin second where wola_kernel_takes, each stream's WOLA,
+    DFT and detect are one launch of the fused kernel (stream 0 reading
+    the raw bytes), at bf16x3; with both streams, stream 1's computes
+    only the frames whose taps reach a block the front masked
+    (megakernel.wola_masked_frames) and keeps stream 0's rows elsewhere,
+    which are the same bits.
 
     Device stages of a bound span record (utils/spans; none without
     one): "front" (convert, the RFI front, the WOLA carry), then for each
@@ -582,13 +578,14 @@ def process_second(cfg: PipelineConfig, raw_second: torch.Tensor,
     torch.backends.cuda.matmul.allow_tf32 = False   # the DFT stays f32
     dev = raw_second.device
     since = 0 if arm_inject else state.segs_since_inject
-    if twin_kernel_takes(cfg, raw_second, since):
+    kind, program, pcfg = second_program(cfg, since)
+    if program is twin_second and _on_card(raw_second):
         spans.stage("dft")
-        out = twin_second(_fused_twin(cfg), raw_second, state, arm_inject)
+        out = program(pcfg, raw_second, state, arm_inject)
         spans.stage(None)
         spans.count("fused_seconds")
         return out
-    fused = wola_kernel_takes(cfg, raw_second, since)
+    fused = kind == "twin" and wola_kernel_takes(cfg, raw_second)
     if fused:
         spans.count("fused_seconds")
 

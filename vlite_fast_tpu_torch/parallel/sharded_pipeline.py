@@ -12,12 +12,9 @@ scripts/start_process:21) with collectives:
   * DSP — antennas shard over all ranks (the mesh flattened): each
     antenna's seconds stream one after another through
     models/baseband_dsp.process_second, so the EMA bandpass carry is the
-    sequential one by construction (ref pb_kernels.cu:406-411).  On a
-    card the seconds the injected track reaches (the arming second at
-    production) run the armed program (rfi_front, the f32 channelizer,
-    the two EMA kernels); every other second is handed to the fused
-    launch of the configuration's twin (the v2 chain kernel at
-    production; baseband_dsp.second_injects, twin_kernel_takes).  An
+    sequential one by construction (ref pb_kernels.cu:406-411); which
+    program serves each second is baseband_dsp.second_program's answer
+    (on a card, the armed program on the arming second alone).  An
     observation's first call seeds each antenna's zero bandpass entries
     from its first second (models/baseband_dsp.seed_bandpass), as a
     station does.  The carried (bp, bp_kur) state enters and leaves the

@@ -16,17 +16,11 @@ its bandpasses are seeded from the EMA's own length of spectra (0.25 s at
 production) before the first program runs, where the JAX pipeline seeds
 each from the first segment's tile.
 
-Host gating of the FRB injection: a second the injected track reaches
-(baseband_dsp.second_injects, from the state's segments since the
-minute's arm: the arming second at production) runs the armed program
-(baseband_dsp.process_second with injection); every other second runs
-the injection-free twin, resolved once at construction from chain_impl
-and twin_chain_impl as the JAX pipeline resolves them
-(baseband_dsp.twin_config / twin_program: a fused chain kernel through
-twin_second, or process_second with injection off).  The JAX pipeline
-gates by the wider inject_window_seconds, whose seconds past the track
-its armed program multiplies by all-ones.  A configuration the
-resolution refuses raises ValueError here, not at its first second.
+Each second runs the program baseband_dsp.second_program gives for the
+state's segments since the minute's arm (the armed program or the
+injection-free twin; its docstring is the one account of the routing).
+A configuration the twin's resolution refuses raises ValueError here,
+not at its first second.
 
 Nothing in the per-second loop waits for the device except the drain of
 the previous second: at dispatch each second's packed rows (and the plain
@@ -249,9 +243,7 @@ class StationPipeline:
         self._histo_accum: Optional[torch.Tensor] = None
         self.profile_path: Optional[str] = None   # the last trace written
         self.state = dsp.init_state(cfg, self.device)
-        # the injection-free twin runs every second the track misses
-        self._cfg_noinject = dsp.twin_config(cfg)
-        self._twin = dsp.twin_program(cfg)
+        dsp.twin_config(cfg)        # raises on a configuration it refuses
         self._fb = GulpStream()
         self._fb_dev = DeviceGulpStream()
         self._searched_to = 0
@@ -366,12 +358,10 @@ class StationPipeline:
                            device=self.device)
         dsp.seed_bandpass(cfg, zero, dsp.init_state(cfg, self.device))
         if cfg.inject_frb:
-            # armed, as the armed seconds are: on the pfb channelizer an
-            # un-armed second takes another path (wola_kernel_takes)
-            dsp.process_second(cfg, zero, dsp.init_state(cfg, self.device),
-                               True)
-        out, _ = self._twin(self._cfg_noinject, zero,
-                            dsp.init_state(cfg, self.device), False)
+            _, program, pcfg = dsp.second_program(cfg, 0)
+            program(pcfg, zero, dsp.init_state(cfg, self.device), True)
+        _, program, pcfg = dsp.second_program(cfg, -1)
+        out, _ = program(pcfg, zero, dsp.init_state(cfg, self.device), False)
         row = (out.packed_kur if cfg.rfi_mode else out.packed).shape[1]
         gulp = self.scfg.gulp_samps
         self.search.search_gulp_device(
@@ -508,13 +498,9 @@ class StationPipeline:
         with rec.span("staging"):
             raw = self._to_device(buf)
         arm = bool(cfg.inject_frb and self._nsec % C.INJECT_PERIOD_S == 0)
-        # host-side injection gating: where the track does not reach this
-        # second the injection would multiply it by all-ones, so the
-        # injection-free twin runs
-        armed = dsp.second_injects(
+        kind, program, pcfg = dsp.second_program(
             cfg, 0 if arm else self.state.segs_since_inject)
-        kind = "armed" if armed else "twin"
-        rec.counters["armed"] = int(armed)
+        rec.counters["armed"] = int(kind == "armed")
         self._stall_to(time.perf_counter(), dispatch=True)
         with rec.span("program"), \
                 torch.profiler.record_function(f"vfast.{kind}_second"):
@@ -522,12 +508,7 @@ class StationPipeline:
                 # the observation's first bandpass (dsp.seed_bandpass)
                 self.state = dsp.seed_bandpass(cfg, raw, self.state)
             with spans.bound(rec):
-                if armed:
-                    out, self.state = dsp.process_second(cfg, raw,
-                                                         self.state, arm)
-                else:
-                    out, self.state = self._twin(self._cfg_noinject, raw,
-                                                 self.state, arm)
+                out, self.state = program(pcfg, raw, self.state, arm)
         if cfg.do_histo:
             # summed on the device; read at the observation's end
             h = out.histo.to(torch.int64)

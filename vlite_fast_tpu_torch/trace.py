@@ -10,9 +10,9 @@ process with the kernels built and loaded, the first call of the armed
 second and of the gulp ("cold": every first-use cost of the process falls
 there; the host's operations by their own CPU time are listed too), then
 one window each after a warm-up call:
-  twin   one injection-free second through the twin program that TWIN
-         resolves to (baseband_dsp.twin_program; 'auto', the default,
-         is the v2 chain kernel);
+  twin   one injection-free second through the program that
+         baseband_dsp.second_program gives an un-armed second ('auto',
+         the default TWIN, is the v2 chain kernel);
   armed  one armed second through process_second (injection on): the
          RFI front kernel, the torch.matmul channelize and injection,
          both EMA kernels, the scrunches and the pack;
@@ -92,7 +92,7 @@ def main() -> None:
     raw = torch.from_numpy(np.clip(
         rng.standard_normal((cfg.npol_in, cfg.sample_rate)) / 0.05914
         + 128.5, 0, 255).astype(np.uint8)).to(dev)
-    twin, twin_cfg = dsp.twin_program(cfg), dsp.twin_config(cfg)
+    _, twin, twin_cfg = dsp.second_program(cfg, -1)
     print(f"twin_chain_impl {args.twin!r}: {twin.__name__} with chain_impl "
           f"{twin_cfg.chain_impl!r}", flush=True)
     _build.load_all()
