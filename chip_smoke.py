@@ -641,6 +641,8 @@ FRB_DM_TOL = 0.2
 FRB_SNR = (28.0, 32.0)
 CHAIN_KERNELS = ("chain_second_v2", "pallas_pretranspose", "chain_second",
                  "chain_second_v4")
+# each gulp's search: the boxcar pass and the top-k pass, once each
+SEARCH_KERNELS = ("boxcar_snr_stats", "topk_banded_select")
 # the kernels each twin second launches once, by twin_chain_impl
 TWIN_KERNELS = {"auto": ("chain_second_v2",),
                 "megakernel": ("chain_second",),
@@ -837,6 +839,9 @@ def phase_main_path(dev, twin: str = "auto", tag: str = "[4]",
           and launches["dedisperse_pallas_packed"] == gulps,
           f"dedispersion launches {launches} vs {gulps} gulps (each through "
           f"the packed entry)")
+    check(all(launches[k] == gulps for k in SEARCH_KERNELS),
+          f"boxcar and top-k launches {launches} vs {gulps} gulps (each "
+          f"pass once a gulp)")
     twin_med = 1e3 * float(np.median(twin_s))
     # the armed program alone on a warm card (the track ends inside the
     # arming second: it is the observation's only armed second)
@@ -890,19 +895,26 @@ def phase_main_path(dev, twin: str = "auto", tag: str = "[4]",
         f"on the track: rfi_front and both EMA kernels once, second 0 "
         f"rfi_front once more for the seed; each other second: "
         f"{' and '.join(twin_kernels)} once; each gulp: the dedispersion "
-        f"kernel's packed entry once){fil_note}")
+        f"kernel's packed entry, the boxcar pass and the top-k pass "
+        f"once){fil_note}")
     for c in sorted(prod.candidates, key=lambda c: -c.snr)[:5]:
         log(f"{tag}   candidate DM {c.dm:.2f} S/N {c.snr:.2f} at "
             f"{c.peak_time:.3f} s, width 2^{c.tfilt}, {c.ngiant} crossings")
     return launches, n_sec / wall
 
 
-def phase_gulp_passes(dev) -> None:
+def phase_gulp_passes(dev) -> dict:
     """One production gulp search from packed rows on the device (seeded
     2-bit rows): its device time by pass, each pass timed alone with CUDA
-    events on the gulp's own intermediates, and the whole search's wall."""
+    events on the gulp's own intermediates, and the whole search's wall.
+    The boxcar and top-k launches (ops/boxcar_topk) against the torch
+    passes they replace on the same plane (boxcar_snr's cube, then
+    pack_topk_banded, and torch.topk on the banded cube alone as the
+    library's yardstick), their bound, and the peak device memory of the
+    search with and without the cube.  Returns the launches' row."""
     from vlite_fast_tpu_torch import PipelineConfig, SearchConfig
     from vlite_fast_tpu_torch.models import search
+    from vlite_fast_tpu_torch.ops import boxcar_topk as bt
     from vlite_fast_tpu_torch.ops import dedisperse as dd
     from vlite_fast_tpu_torch.ops import dedisperse_pallas as ddp
     cfg, scfg = PipelineConfig(), SearchConfig()
@@ -915,28 +927,85 @@ def phase_gulp_passes(dev) -> None:
         0, 256, (full, cfg.nchanout // 4), dtype=np.uint8)).to(dev)
     nchan, k = cfg.nchanout, scfg.topk or min(16 * scfg.max_candidates,
                                                  20000)
+    thresh, nw = float(scfg.snr_thresh), len(eng.widths)
     gulp = lambda: search._device_gulp(
         packed, plan, widths=eng.widths, k=k, nbit=cfg.nbit, nchan=nchan,
-        nbands=eng.nbands, thresh=float(scfg.snr_thresh))
-    torch.cuda.reset_peak_memory_stats(dev)
+        nbands=eng.nbands, thresh=thresh)
+    plain_gulp = lambda: search.pack_topk_banded(dd.boxcar_snr(
+        ddp.dedisperse_pallas_packed(packed, cfg.nbit, nchan, plan,
+                                     ntime_out), plan.nchan_eff,
+        eng.widths), k, eng.nbands, thresh)
+    peak = {}
+    for name, fn in (("launches", gulp), ("torch passes", plain_gulp)):
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        fn()
+        torch.cuda.synchronize(dev)
+        peak[name] = (torch.cuda.max_memory_allocated(dev) - base) / 2 ** 30
     total = cuda_ms(gulp, 3)
-    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
     _, wall = timed_wall(lambda: eng.search_gulp_device(packed, cfg.nbit))
     dmt = ddp.dedisperse_pallas_packed(packed, cfg.nbit, nchan, plan,
                                        ntime_out)
+    ndm = dmt.shape[0]
+    kb = max(1, min(k // eng.nbands, nw * (ndm // eng.nbands) * ntime_out))
+    launch = bt.Launch(dmt, plan.nchan_eff, eng.widths, eng.nbands, kb,
+                       thresh, "measured", 0)
+    boxcar_ms = cuda_ms(launch.boxcar, 5)
+    both_ms = cuda_ms(lambda: (launch.boxcar(), launch.topk()), 5)
+    got = launch.out.clone()
     snr = dd.boxcar_snr(dmt, plan.nchan_eff, eng.widths)
+    want = search.pack_topk_banded(snr, k, eng.nbands, thresh)
+    # crossings within 1e-5 of the threshold may fall either way
+    near = int(((snr - thresh).abs() <= 1e-5 * thresh).sum())
+    banded = snr.reshape(nw, eng.nbands, -1, ntime_out).transpose(0, 1) \
+        .reshape(eng.nbands, -1)
     by = {"dedispersion": cuda_ms(lambda: ddp.dedisperse_pallas_packed(
               packed, cfg.nbit, nchan, plan, ntime_out), 3),
-          "boxcar S/N": cuda_ms(lambda: dd.boxcar_snr(
+          "boxcar S/N (torch)": cuda_ms(lambda: dd.boxcar_snr(
               dmt, plan.nchan_eff, eng.widths), 3),
-          "banded top-k": cuda_ms(lambda: search.pack_topk_banded(
-              snr, k, eng.nbands, float(scfg.snr_thresh)), 3)}
-    del dmt, snr
+          "banded top-k (torch)": cuda_ms(lambda: search.pack_topk_banded(
+              snr, k, eng.nbands, thresh), 3)}
+    library_ms = cuda_ms(lambda: torch.topk(banded, kb, dim=1), 3)
+    del snr, banded
+    g, w = got.cpu().numpy(), want.cpu().numpy()
+    shape = (nw, ndm, ntime_out)
+    dg = search.decode_crossings(g, *shape, eng.nbands, thresh)
+    dw = search.decode_crossings(w, *shape, eng.nbands, thresh)
+    hg = {tuple(h): v for h, v in zip(dg[1].tolist(), dg[0].tolist())}
+    hw = {tuple(h): v for h, v in zip(dw[1].tolist(), dw[0].tolist())}
+    check(abs(dg[2] - dw[2]) <= near and dg[3] == dw[3] == 0
+          and all(abs(hg[h] - hw[h]) <= 1e-5 * hw[h] for h in hg.keys()
+                  & hw.keys())
+          and all(abs(hg.get(h, hw.get(h)) - thresh) <= 1e-5 * thresh
+                  for h in hg.keys() ^ hw.keys()),
+          f"[4] the gulp's launches' crossings {dg[2]} (saturated "
+          f"{dg[3]}) vs the torch passes' {dw[2]} ({dw[3]}; {near} within "
+          f"1e-5 of the threshold)")
+    # one read of the DM-time plane, the crossings out; per DM-time
+    # element the mean and the running sum, per width a difference, a
+    # scale and a compare (portbench/work/counts.py's count)
+    b = perf.bound(4 * ndm * ntime_out + g.nbytes,
+                   ndm * ntime_out * (2 + 3 * nw))
     log(f"[4] one production gulp ({full} packed rows): device "
         f"{total:.2f} ms (CUDA events, 3 reps): "
         + ", ".join(f"{n} {v:.2f} ms" for n, v in by.items())
         + f" (each alone); search_gulp_device wall {wall:.1f} ms; peak "
-        f"device memory {peak:.2f} GiB")
+        f"device memory of a gulp's search above what it was given: "
+        + ", ".join(f"{n} {v:.2f} GiB" for n, v in peak.items()))
+    log(f"[4] boxcar + top-k launches ({ndm} x {ntime_out}, {nw} widths, "
+        f"{eng.nbands} bands of {kb}): pass 1 {boxcar_ms:.3f} ms, pass 2 "
+        f"{both_ms - boxcar_ms:.3f} ms, both {both_ms:.3f} ms (CUDA events, "
+        f"5 reps; {dg[2]} crossings, equal to the torch passes'); bound "
+        f"{b['bound_ms']:.3f} ms ({b['bound_by']}); torch passes "
+        f"{by['boxcar S/N (torch)'] + by['banded top-k (torch)']:.2f} ms; "
+        f"torch.topk on the banded cube alone {library_ms:.2f} ms")
+    return {"name": "topk_banded_select", "with": "boxcar_snr_stats",
+            "route": "cuda", "kernel_ms": both_ms,
+            "pass1_ms": boxcar_ms, **b, "library_ms": library_ms,
+            "plain_ms": by["boxcar S/N (torch)"]
+            + by["banded top-k (torch)"]}
 
 
 def phase_twin_agreement(dev, nseeds: int = 10) -> None:
@@ -1574,7 +1643,8 @@ def phase_array(dev, n_sec: int = 46) -> dict:
               and all(launches[k] == armed + nant * (k == "rfi_front")
                       for k in ARMED_KERNELS)
               and launches["dedisperse_pallas_packed"] == gulps >= nant
-              and f32 == ap.coadd.gulps >= 1,
+              and f32 == ap.coadd.gulps >= 1
+              and all(launches[k] == gulps + f32 for k in SEARCH_KERNELS),
               f"[15] launches {launches} vs {twin} twin and {armed} armed "
               f"station-seconds, {nant} bandpass seeds, {gulps} station "
               f"gulps, {ap.coadd.gulps} coadd gulps")
@@ -2714,7 +2784,8 @@ def phase_mesh_step(dev, mesh) -> dict:
                 "normalize_ema_weighted_pallas": track,
                 "chain_second_v2": ant_secs - track,
                 "dedisperse_pallas": info.nant + 1,
-                "dedisperse_pallas_packed": 0}
+                "dedisperse_pallas_packed": 0,
+                **dict.fromkeys(SEARCH_KERNELS, info.nant + 1)}
         for name, n in want.items():
             check(got[name] == n, f"[18a] call {k}: {name} launched "
                   f"{got[name]} times, not {n}")
@@ -3207,7 +3278,7 @@ def main() -> None:
     launches, _ = phase_main_path(dev, twin_device_ms=k_chain["ms"],
                                   write_fil=True)
     torch.cuda.empty_cache()
-    phase_gulp_passes(dev)
+    k_bt = phase_gulp_passes(dev)
     phase_twin_agreement(dev)
     torch.cuda.empty_cache()
     k_rfi = phase_rfi_front(dev, raws[0])
@@ -3228,7 +3299,7 @@ def main() -> None:
         torch.cuda.empty_cache()
     log("[10] real-time factors: " + ", ".join(
         f"{t} {f:.3f}" for t, f in rtf.items()))
-    for k in (k_chain, k_dedisp, k_rfi, *k_ema, k_pre, *k_ct):
+    for k in (k_chain, k_dedisp, k_rfi, *k_ema, k_pre, *k_ct, k_bt):
         k["launches"] = launches[k["name"]]
     # the staged chain and the roll+select engine count on their own paths
     staged = [phase_stage_a(dev)]
@@ -3241,35 +3312,36 @@ def main() -> None:
     torch.cuda.empty_cache()
     # the array path runs the main path's kernels: its launches add to theirs
     got = phase_array(dev)
-    for k in (k_chain, k_dedisp, k_rfi, *k_ema):
+    for k in (k_chain, k_dedisp, k_rfi, *k_ema, k_bt):
         k["launches"] += got[k["name"]]
     k_dedisp["launches_f32_entry"] = got["dedisperse_pallas"] - \
         got["dedisperse_pallas_packed"]
     torch.cuda.empty_cache()
     # the entry points' processes run the main path's kernels too
     got = phase_entry_points(dev)
-    for k in (k_chain, k_dedisp, k_rfi, *k_ema):
+    for k in (k_chain, k_dedisp, k_rfi, *k_ema, k_bt):
         k["launches"] += got.get(k["name"], 0)
     torch.cuda.empty_cache()
     # so do the pfb observation and the config matrix
     got = phase_options(dev, raws[0])
-    for k in (k_chain, k_dedisp, k_rfi, *k_ema):
+    for k in (k_chain, k_dedisp, k_rfi, *k_ema, k_bt):
         k["launches"] += got.get(k["name"], 0)
     torch.cuda.empty_cache()
     # and the sharded array step, whose search takes the f32 entry
     got = phase_mesh(dev)
-    for k in (k_dedisp, k_rfi, *k_ema):
+    for k in (k_dedisp, k_rfi, *k_ema, k_bt):
         k["launches"] += got.get(k["name"], 0)
     k_dedisp["launches_f32_entry"] += got["dedisperse_pallas"] - \
         got["dedisperse_pallas_packed"]
     torch.cuda.empty_cache()
     # and the headline bench's integrated loops, in a process of their own
     got = phase_bench()
-    for k in (k_chain, k_dedisp, k_rfi, *k_ema):
+    for k in (k_chain, k_dedisp, k_rfi, *k_ema, k_bt):
         k["launches"] += got[k["name"]]
     k_dedisp["launches_f32_entry"] += got["dedisperse_pallas"] - \
         got["dedisperse_pallas_packed"]
-    kernels = [k_chain, k_dedisp, k_rfi, *k_ema, k_pre, *k_ct, *staged]
+    kernels = [k_chain, k_dedisp, k_rfi, *k_ema, k_pre, *k_ct, *staged,
+               k_bt]
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} never launched on its path")
     jax_mods = sorted(m for m in sys.modules

@@ -57,6 +57,7 @@ from vlite_fast_tpu_torch.benchmarks import transpose_prims as ttp
 from vlite_fast_tpu_torch.config import PipelineConfig, SearchConfig
 from vlite_fast_tpu_torch.models import baseband_dsp as tdsp
 from vlite_fast_tpu_torch.models import search as tsearch
+from vlite_fast_tpu_torch.ops import boxcar_topk as tbt
 from vlite_fast_tpu_torch.ops import dedisperse as tdd
 from vlite_fast_tpu_torch.ops import dedisperse_pallas as tddp
 from vlite_fast_tpu_torch.ops import megakernel as tmk
@@ -571,6 +572,13 @@ def test_launch_counters_count_kernel_launches(cuda):
     tpk.normalize_ema_weighted_pallas(p, w, bp, 0.02)
     tdsp.norm_ops.normalize_ema(p, bp, 0.02)
     assert tpk.LAUNCHES == {k: v + 1 for k, v in before.items()}
+    # the gulp's boxcar and top-k passes: one launch each a call on a
+    # CUDA tensor, none on a CPU one
+    dmt = torch.rand((64, 300), generator=torch.Generator().manual_seed(2))
+    before = dict(tbt.LAUNCHES)
+    tsearch.boxcar_topk(dmt.to(cuda), 64.0, (1, 2, 4), 64, 8, 1.0)
+    tsearch.boxcar_topk(dmt, 64.0, (1, 2, 4), 64, 8, 1.0)
+    assert tbt.LAUNCHES == {k: v + 1 for k, v in before.items()}
 
 
 # sha-256 of the fine TS (f32 bytes) that the first design of
@@ -1435,7 +1443,8 @@ def test_array_step_nccl_matches_cpu(cuda, nbit):
     launching chain_second_v2 once; rfi_front once an antenna more (the
     call is an observation's first: baseband_dsp.seed_bandpass seeds each
     antenna's bandpass from the front's weights), and the dedispersion's
-    f32 entry once a beam and once for the coadd."""
+    f32 entry, the boxcar pass and the top-k pass once a beam and once
+    for the coadd."""
     got, st_g, info, counts, (beams_g, co_g, _) = _array_step_run("cuda",
                                                                   nbit)
     want, st_w, _, counts_cpu, (beams_w, co_w, _) = _array_step_run("cpu",
@@ -1459,6 +1468,8 @@ def test_array_step_nccl_matches_cpu(cuda, nbit):
     assert counts["normalize_ema_weighted_pallas"] == ant_secs - fused
     assert counts["dedisperse_pallas"] == info.nant + 1
     assert counts["dedisperse_pallas_packed"] == 0
+    assert counts["boxcar_snr_stats"] == info.nant + 1
+    assert counts["topk_banded_select"] == info.nant + 1
     assert not any(counts_cpu.values())
 
 

@@ -43,8 +43,8 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / \
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 HOST_FLAGS = ["-O2", "-fPIC", "-shared", "-std=c++17"]
 # every CUDA library of the port, by csrc/<name>.cu
-LIBRARIES = ("chain", "dedisperse", "ema", "pretranspose", "rfi_front",
-             "stage_ab", "tile_bench", "wola_tc")
+LIBRARIES = ("boxcar_topk", "chain", "dedisperse", "ema", "pretranspose",
+             "rfi_front", "stage_ab", "tile_bench", "wola_tc")
 # the host libraries, by csrc/<name>.cpp
 HOST_LIBRARIES = ("ringbuffer", "netcap")
 

@@ -29,6 +29,7 @@ import torch
 
 from vlite_fast_tpu_torch import devices
 from vlite_fast_tpu_torch.config import SearchConfig
+from vlite_fast_tpu_torch.ops import boxcar_topk as bt
 from vlite_fast_tpu_torch.ops import dedisperse as dd
 from vlite_fast_tpu_torch.ops import dedisperse_pallas as ddp
 from vlite_fast_tpu_torch.ops import quantize as q_ops
@@ -92,6 +93,54 @@ def pack_topk_banded(snr: torch.Tensor, k: int, nbands: int,
     return torch.stack([row0, row1])
 
 
+def boxcar_topk(dmt: torch.Tensor, nchan_eff: float, widths: tuple, k: int,
+                nbands: int, thresh: float, noise: str = "measured",
+                skip: int = 0) -> torch.Tensor:
+    """pack_topk_banded(boxcar_snr(dmt, ...), k, nbands, thresh) of a
+    (ndm, ntime) DM-time plane, whose S/N frame starts `skip` outputs
+    before dmt's first (those outputs S/N 0, the time index in the whole
+    frame; only dmt's outputs give each DM's mean and noise).  Device
+    stages of the bound record (spans.stage): "boxcar", "topk"; the last
+    runs on to the caller's next mark.
+
+    A CPU tensor takes the torch passes (the whole S/N cube, then
+    torch.topk); a CUDA tensor the two launches of ops/boxcar_topk (no
+    cube: the same crossings in float32, rounding aside; ties at a band's
+    cutoff taken in no fixed order) or an error."""
+    ndm, nt = dmt.shape
+    nw = len(widths)
+    nbands = effective_nbands(ndm, nbands)
+    ntf = skip + nt
+    kb = max(1, min(k // nbands, nw * (ndm // nbands) * ntf))
+    spans.stage("boxcar")
+    if dmt.device.type == "cpu":
+        snr = dd.boxcar_snr(dmt, nchan_eff, widths, noise=noise) \
+            if nt else None
+        if skip or snr is None:
+            full = torch.zeros((nw, ndm, ntf), dtype=torch.float32)
+            if snr is not None:
+                full[:, :, skip:] = snr
+            snr = full
+        spans.stage("topk")
+        return pack_topk_banded(snr, k, nbands, thresh)
+    if dmt.device.type != "cuda":
+        raise ValueError(f"boxcar_topk: unsupported device {dmt.device}")
+    if dmt.dtype != torch.float32 or dmt.dim() != 2:
+        raise ValueError("boxcar_topk: dmt must be (ndm, ntime) float32")
+    if not nt:          # nothing to search: no crossing, every slot empty
+        spans.stage("topk")
+        out = torch.zeros((2, nbands * kb + 1), dtype=torch.int32,
+                          device=dmt.device)
+        out[0, :-1] = bt.NEG_INF_BITS
+        return out
+    launch = bt.Launch(dmt.contiguous(), nchan_eff, widths, nbands, kb,
+                       float(thresh), noise, skip)
+    launch.boxcar()
+    spans.stage("topk")
+    launch.topk()
+    return launch.out
+
+
 def decode_crossings(packed: np.ndarray, nw: int, ndm: int, ntime: int,
                      nbands: int, snr_thresh: float):
     """Host-side inverse of pack_topk_banded: (vals, hits (n, 3)
@@ -139,16 +188,13 @@ def _device_gulp(fb: torch.Tensor, plan: dd.DedispPlan, *,
                  widths: tuple, k: int, nbit: int, nchan: int, nbands: int,
                  thresh: float, engine: str = "auto") -> torch.Tensor:
     """One gulp on fb's device: dedisperse (see `dedisperse`) -> boxcar
-    S/N -> banded top-k crossings, each a device stage of the bound
-    record (spans.stage; nothing is recorded without one)."""
+    S/N -> banded top-k crossings (`boxcar_topk`), each a device stage of
+    the bound record (spans.stage; nothing is recorded without one)."""
     ntime_out = fb.shape[0] - plan.max_delay
     spans.stage("dedisperse")
     dmt = dedisperse(fb, plan, ntime_out, engine=engine, nbit=nbit,
                      nchan=nchan)
-    spans.stage("boxcar")
-    snr = dd.boxcar_snr(dmt, plan.nchan_eff, widths)
-    spans.stage("topk")
-    out = pack_topk_banded(snr, k, nbands, thresh)
+    out = boxcar_topk(dmt, plan.nchan_eff, widths, k, nbands, thresh)
     spans.stage(None)
     return out
 

@@ -131,36 +131,26 @@ def search_topk(span: torch.Tensor, plan: dd.DedispPlan,
                 info: "ArraySearchInfo", scfg: SearchConfig, ntime_out: int,
                 k: int, skip: int = 0) -> torch.Tensor:
     """span: (ntime_out + halo, nchan) f32 -> (2, nbands*kb + 1) packed
-    crossings, per-DM-band quota'd (search.pack_topk_banded: the same
-    RFI-storm guard the single-beam path uses).
+    crossings, per-DM-band quota'd (search.boxcar_topk, the
+    pack_topk_banded layout: the same RFI-storm guard the single-beam
+    path uses).
 
     The first `skip` outputs lie before the stream's first sample: only
     span[skip:] is searched, so each DM's mean and noise come from the
     outputs from sample 0 on, and the skipped ones are S/N 0 (below any
-    threshold; the cube keeps its shape and its time index).
+    threshold; the time index stays the whole window's).
 
     Device stages of the bound record (spans.stage): "dedisperse",
     "boxcar", "topk"; the last runs on to the caller's next mark."""
     engine = search_mod.resolve_engine(scfg.engine, span.device)
     spans.stage("dedisperse")
-    if not skip:
-        dmt = search_mod.dedisperse(span, plan, ntime_out, engine=engine)
-        spans.stage("boxcar")
-        snr = dd.boxcar_snr(dmt, plan.nchan_eff, info.widths)
-        del dmt
-    else:
-        snr = torch.zeros((len(info.widths), len(plan.dms), ntime_out),
-                          dtype=torch.float32, device=span.device)
-        if skip < ntime_out:
-            dmt = search_mod.dedisperse(span[skip:], plan, ntime_out - skip,
-                                        engine=engine)
-            spans.stage("boxcar")
-            snr[:, :, skip:] = dd.boxcar_snr(dmt, plan.nchan_eff,
-                                             info.widths)
-            del dmt
-    spans.stage("topk")
-    return search_mod.pack_topk_banded(snr, k, info.nbands,
-                                       float(scfg.snr_thresh))
+    nt = max(0, ntime_out - skip)
+    dmt = search_mod.dedisperse(span[skip:], plan, nt, engine=engine) \
+        if nt else torch.zeros((len(plan.dms), 0), dtype=torch.float32,
+                               device=span.device)
+    return search_mod.boxcar_topk(dmt, plan.nchan_eff, info.widths, k,
+                                  info.nbands, float(scfg.snr_thresh),
+                                  skip=ntime_out - nt)
 
 
 def build_array_step(acfg: ArrayConfig, mesh, nsec_per_call: int = 1,
