@@ -1497,8 +1497,9 @@ def shm_and_memory() -> tuple:
 def phase_array(dev, n_sec: int = 46) -> dict:
     """The array path: ArrayPipeline.run_streaming over N stations of host
     seconds (numpy, three staged seconds per station from seeds of its
-    own, cycled), every station with its 40-s ring, its .fil and its
-    block tap into the coadd search, at PipelineConfig(inject_frb=True)
+    own, cycled), every station with its 40-s ring (pre-faulted, written
+    on its own thread), its .fil and its device tap into the coadd's sum
+    on the card and its search, at PipelineConfig(inject_frb=True)
     and SearchConfig(); N = 4 where /dev/shm and memory hold four rings
     with a quarter to spare, else 2.  Long enough for the rings to wrap,
     with the first trigger before they do, and no trigger from the last
@@ -1658,7 +1659,9 @@ def phase_array(dev, n_sec: int = 46) -> dict:
         ap.close()
         shutil.rmtree(out_dir, ignore_errors=True)
     rtf = n_sec / wall
-    co_ms = {k: 1e3 * v / n_sec for k, v in ap.coadd.host_seconds.items()}
+    # the coadd's spans (utils/spans "coadd" records), a data-second
+    co_ms = {k: 1e3 * sum(r.parts([k])[k] for r in ap.coadd.records)
+             / n_sec for k in ("sum", "search")}
     log(f"[15] array path: {nant} stations x {n_sec} s "
         f"(ArrayPipeline.run_streaming, rings of {RING_SECONDS} s, .fil, "
         f"coadd search; {readings}) in {wall:.1f} s wall (prewarm "
@@ -1669,7 +1672,8 @@ def phase_array(dev, n_sec: int = 46) -> dict:
         f"second), {1e3 * walls['after']:.1f} ms after "
         f"({nant / walls['after']:.3f}), then a tail of "
         f"{walls['tail']:.1f} s (last drains, flush gulps, last dumps); "
-        f"coadd host ms a data-second: sum {co_ms['sum']:.2f}, search "
+        f"coadd host ms a data-second (its spans): sum {co_ms['sum']:.2f}, "
+        f"search "
         f"{co_ms['search']:.2f}; host ms per station-second before the "
         f"rings wrap "
         + ", ".join(f"{k} {v:.2f}" for k, v in host["before"].items())

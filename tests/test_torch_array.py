@@ -252,7 +252,7 @@ def test_coadd_tap_stream_bit_equal_to_jax():
         cs.tap(1, 136, blk(8))          # retired: dropped
     j, t = searchers
     assert t._co.total == j._co.total > 0
-    got = t._co.window(t._co.start, t._co.total)
+    got = t._co.window(t._co.start, t._co.total).numpy()
     want = j._co.window(j._co.start, j._co.total)
     assert got.dtype == want.dtype == np.float16
     assert got.tobytes() == want.tobytes()

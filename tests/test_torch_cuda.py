@@ -1539,3 +1539,41 @@ def test_stage_events_sum_to_the_spans(cuda):
     assert set(rec.stages) == {"dedisperse", "boxcar", "topk"}
     assert abs(sum(rec.stages.values()) - device) <= 0.1 * device, (
         rec.stages, device)
+
+
+def test_coadd_on_the_card_is_the_hosts_float16(cuda):
+    """CoaddSearcher on the card, fed 8 stations' packed 2-bit rows where
+    they are (the stations' device taps), at the production geometry
+    (PipelineConfig(): 4096 channels, 1280 rows a data-second, two
+    data-seconds and a ragged third): its float16 stream is bit-equal to
+    the numpy sum the coadd made on the host (each beam's
+    filterbank_from_packed stacked and summed, scaled by 1/sqrt(8) in
+    float32, cast to float16)."""
+    from vlite_fast_tpu_torch.config import PipelineConfig, SearchConfig
+    from vlite_fast_tpu_torch.models import search as tsearch
+    from vlite_fast_tpu_torch.runtime.pipeline import CoaddSearcher
+    cfg = PipelineConfig()
+    scfg = SearchConfig(gulp_samps=1 << 20)         # never searches
+    rows = cfg.seg_per_sec * cfg.out_samps_per_seg
+    nbytes = cfg.nchanout * cfg.nbit // 8
+    gen = torch.Generator(device=cuda).manual_seed(26)
+    stations = list(range(1, 9))
+    blocks = {sid: [torch.randint(0, 256, (n, nbytes), dtype=torch.uint8,
+                                  generator=gen, device=cuda)
+                    for n in (rows, rows, rows // 2)] for sid in stations}
+    cs = CoaddSearcher(stations, cfg, scfg, device=cuda)
+    for k in range(3):
+        for sid in stations:
+            off = sum(int(b.shape[0]) for b in blocks[sid][:k])
+            cs.tap(sid, off, blocks[sid][k])
+    got = cs._co.window(cs._co.start, cs._co.total)
+    assert got.device.type == "cuda" and got.dtype == torch.float16
+    assert got.shape == (2 * rows + rows // 2, cfg.nchanout)
+    fbs = np.stack([tsearch.filterbank_from_packed(
+        torch.cat(blocks[sid]).cpu().numpy(), cfg.nbit, cfg.nchanout)
+        for sid in stations])
+    want = (fbs.sum(axis=0) * np.float32(1.0 / np.sqrt(len(fbs)))
+            ).astype(np.float16)
+    assert got.cpu().numpy().tobytes() == want.tobytes()
+    assert [r.layer for r in cs.records] == ["coadd"] * 3
+    assert all(r.first("sum") and r.first("search") for r in cs.records)

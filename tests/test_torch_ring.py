@@ -1,6 +1,6 @@
 """The port's baseband ring (runtime/ring.py over its copy of the C++ ring,
 built by _build.py with g++) and its triggered dumper, against the JAX
-package's, on the CPU.
+package's, on the CPU; a created ring is pre-faulted.
 
 The ring cases of tests/test_runtime.py run on the port's ring; a ring
 created by one package is read by the other's RingBuffer (the segment
@@ -122,6 +122,81 @@ def test_ring_unlinked_when_collected():
     del rb
     gc.collect()
     assert not os.path.exists(f"/dev/shm{name}")
+
+
+def _resident_kib() -> int:
+    """This process's resident memory (VmRSS, shared pages included),
+    KiB."""
+    with open("/proc/self/status") as fp:
+        return next(int(ln.split()[1]) for ln in fp
+                    if ln.startswith("VmRSS:"))
+
+
+def test_created_ring_is_prefaulted():
+    """A created ring's slots are resident in this process before its
+    first write (their pages touched through its own mapping); a write
+    and a peek then see the written bytes."""
+    bufsz, nbufs = 1 << 22, 8
+    before = _resident_kib()
+    with RingBuffer(_name("prefault"), bufsz=bufsz, nbufs=nbufs,
+                    create=True) as rb:
+        assert _resident_kib() - before >= bufsz * nbufs // 1024
+        assert rb.resident() == (0, 0)
+        data = np.full(bufsz, 7, np.uint8)
+        assert rb.write(data, 1.0) == 0
+        got, ts = rb.peek(0)
+        assert ts == 1.0 and np.array_equal(got, data)
+    # its pages leave with it (the test's own arrays stay)
+    assert _resident_kib() - before < bufsz * nbufs // 1024
+
+
+def test_a_signal_during_the_prefault_leaves_no_ring():
+    """A process whose SIGTERM handler exits while its ring is being
+    pre-faulted exits with the handler's code, and its ring's segment is
+    gone: the release waits for the pre-fault's threads before it unmaps
+    the pages they write."""
+    import signal
+    import subprocess
+    import sys
+    import time
+    name = _name("term")
+    child = (
+        "import signal, sys\n"
+        "from vlite_fast_tpu_torch.runtime.ring import RingBuffer, get_lib\n"
+        "get_lib()\n"
+        "signal.signal(signal.SIGTERM, lambda *_: sys.exit(143))\n"
+        "print('creating', flush=True)\n"
+        f"rb = RingBuffer({name!r}, bufsz=64 << 20, nbufs=8, create=True)\n"
+        "import time; time.sleep(60)\n")
+    p = subprocess.Popen([sys.executable, "-c", child],
+                         stdout=subprocess.PIPE, text=True,
+                         cwd=os.path.dirname(os.path.dirname(__file__)))
+    try:
+        assert p.stdout.readline().strip() == "creating"
+        time.sleep(0.05)
+        p.send_signal(signal.SIGTERM)
+        assert p.wait(timeout=60) == 143
+    finally:
+        p.kill()
+        p.stdout.close()
+    assert not os.path.exists("/dev/shm" + name)
+
+
+def test_slot_view_reads_a_slot_in_place():
+    """slot_view gives a resident slot's bytes as a read-only view into
+    the segment and its timestamp (a later write into the slot shows
+    through it); None for a slot the ring no longer holds."""
+    with RingBuffer(_name("view"), bufsz=64, nbufs=2, create=True) as rb:
+        for k in range(3):
+            rb.write(np.full(64, k, np.uint8), 10.0 + k, overwrite=True)
+        assert rb.resident() == (1, 3)
+        assert rb.slot_view(0) is None and rb.slot_view(3) is None
+        view, ts = rb.slot_view(2)
+        assert ts == 12.0 and not view.flags.writeable
+        np.testing.assert_array_equal(view, np.full(64, 2, np.uint8))
+        for k in (3, 4):        # seq 4 takes seq 2's slot
+            rb.write(np.full(64, k, np.uint8), 10.0 + k, overwrite=True)
+        assert view[0] == 4 and rb.slot_view(2) is None
 
 
 def test_ring_library_built_by_gxx():

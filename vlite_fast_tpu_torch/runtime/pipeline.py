@@ -3,13 +3,15 @@
 Port of vlite_fast_tpu/runtime/pipeline.py (GulpStream, DeviceGulpStream,
 ObservationProducts, StationPipeline, CoaddSearcher, ArrayPipeline):
 
-  seconds -> baseband ring (C++ shm, for triggered dumps)
+  seconds -> baseband ring (C++ shm, pre-faulted, written on a thread
+             of its own, for triggered dumps)
           -> DSP chain (models/baseband_dsp) -> .fil file, block taps
-          -> packed filterbank kept on the device -> gulp search
-          (models/search) -> candidates
+          -> packed filterbank kept on the device -> device taps, gulp
+          search (models/search) -> candidates
 
 and an ArrayPipeline fans N stations on one device into the coadd
-search, the coincidencer and the triggered dumper.
+search (summed on the device from the stations' device taps), the
+coincidencer and the triggered dumper (on the rings' threads).
 
 An observation's first second starts from baseband_dsp.seed_bandpass:
 its bandpasses are seeded from the EMA's own length of spectra (0.25 s at
@@ -57,10 +59,13 @@ from __future__ import annotations
 
 import collections
 import os
+import secrets
 import tempfile
+import threading
 import time
+from concurrent.futures import Future, ThreadPoolExecutor
 from dataclasses import dataclass
-from typing import Dict, Iterable, List, Optional
+from typing import Callable, Dict, Iterable, List, Optional
 
 import numpy as np
 import torch
@@ -82,16 +87,18 @@ from vlite_fast_tpu_torch.runtime.ring import FLAG_OBS_START, RingBuffer
 from vlite_fast_tpu_torch.utils import sigproc
 from vlite_fast_tpu_torch.utils.log import Metrics, RTMonitor, make_logger
 
-# the port's baseband rings are /vfast_torch_bb_<station>_<pid>: never a
-# name the JAX package's rings (/vfast_bb_<station>) take, since creating
-# a ring unlinks any segment of its name, and never the name of a ring of
-# another process
+# the port's baseband rings are /vfast_torch_bb_<station>_<pid>_<random>:
+# never a name the JAX package's rings (/vfast_bb_<station>) take, since
+# creating a ring unlinks any segment of its name, and never the name of a
+# ring of another process, even one of another pid namespace that shares
+# /dev/shm
 RING_PREFIX = "/vfast_torch_bb"
 
 
 class GulpStream:
-    """Bounded host block accumulator: consecutive (nsamp, ...) blocks
-    with absolute sample offsets, pruned as gulps complete."""
+    """Bounded block accumulator: consecutive (nsamp, ...) blocks (host
+    arrays, or tensors of one device) with absolute sample offsets,
+    pruned as gulps complete."""
 
     def __init__(self):
         self.blocks: List[np.ndarray] = []
@@ -114,7 +121,11 @@ class GulpStream:
             off += blk.shape[0]
             if off >= stop:
                 break
-        return np.concatenate(parts, axis=0) if len(parts) != 1 else parts[0]
+        if len(parts) == 1:
+            return parts[0]
+        if isinstance(parts[0], torch.Tensor):
+            return torch.cat(parts, dim=0)
+        return np.concatenate(parts, axis=0)
 
     def prune(self, keep_from: int) -> None:
         while self.blocks and (
@@ -211,7 +222,15 @@ class StationPipeline:
     or a dump always misses the event (40 s of production baseband is
     10.24 GB of /dev/shm).  A pipeline with a ring takes each second as
     host bytes (a numpy array or a CPU tensor), which the ring holds;
-    without one a second may also be a tensor already on the device."""
+    without one a second may also be a tensor already on the device.
+
+    The ring has a thread of its own, the reference's writer beside its
+    pipeline: feed_second hands each second's bytes to it and goes on,
+    and whatever reads the ring (a dump) runs on that thread too, after
+    the writes queued before it (`on_ring`), so that it sees every second
+    fed before it and no later write overwrites a slot under it.  The
+    caller must not change a second's bytes once fed (the thread holds
+    them until written); end_observation and close wait for the thread."""
 
     def __init__(self, station_id: int, cfg: PipelineConfig,
                  scfg: SearchConfig, out_dir: Optional[str] = None,
@@ -228,11 +247,16 @@ class StationPipeline:
         self.log = make_logger(f"station{station_id:02d}")
         self.metrics = Metrics()
         self.ring: Optional[RingBuffer] = None
+        self._ring_thread: Optional[ThreadPoolExecutor] = None
+        self._ring_jobs: collections.deque = collections.deque()
         if keep_ring:
             self.ring = RingBuffer(
-                f"{RING_PREFIX}_{station_id:02d}_{os.getpid()}",
+                f"{RING_PREFIX}_{station_id:02d}_{os.getpid()}_"
+                f"{secrets.token_hex(4)}",
                 bufsz=cfg.npol_in * cfg.sample_rate, nbufs=ring_seconds,
                 create=True)
+            self._ring_thread = ThreadPoolExecutor(
+                1, thread_name_prefix=f"vfast_ring{station_id:02d}")
         self.search = search_mod.SinglePulseSearch(
             scfg, cfg.tsamp, cfg.freqs_mhz(),
             nsub=min(128, cfg.nchanout), nbatch=min(scfg.ndm, 128),
@@ -265,8 +289,11 @@ class StationPipeline:
         # searches the drain started
         self.host_seconds = {k: [] for k in HOST_PARTS}
         # taps: callables (station_id, abs_offset, packed_block) called on
-        # every drained block (the coadd-ring writer role)
+        # every drained block, as host bytes (block_taps) or as the
+        # program's rows where they are, on the device (device_taps: the
+        # coadd-ring writer role)
         self.block_taps: List = []
+        self.device_taps: List = []
 
     def _fil_header(self, od: ObservationDocument,
                     tstart_unix: float) -> sigproc.FilterbankHeader:
@@ -489,12 +516,10 @@ class StationPipeline:
                         self._fil_path.replace(".fil", "_plain.fil"),
                         self._fil_header(self._od, self._t0_unix))
         if self.ring is not None:
-            with rec.span("ring"):
-                host = buf.numpy() if isinstance(buf, torch.Tensor) \
-                    else np.asarray(buf)
-                self.ring.write(host.reshape(-1), timestamp=float(sec),
-                                flags=FLAG_OBS_START if self._nsec == 0
-                                else 0, overwrite=True)
+            host = buf.numpy() if isinstance(buf, torch.Tensor) \
+                else np.asarray(buf)
+            self.on_ring(self._ring_write, host.reshape(-1), float(sec),
+                         FLAG_OBS_START if self._nsec == 0 else 0, rec)
         with rec.span("staging"):
             raw = self._to_device(buf)
         arm = bool(cfg.inject_frb and self._nsec % C.INJECT_PERIOD_S == 0)
@@ -546,7 +571,8 @@ class StationPipeline:
         self._unread.append(rec)
         self._read_times()
         for k, v in rec.parts(HOST_PARTS).items():
-            self.host_seconds[k].append(v)
+            if k != "ring" or self.ring is None:   # else its thread's
+                self.host_seconds[k].append(v)
         t = time.perf_counter()
         rec.add("second", rec.start, t, parent=None)
         self._stall_to(t, dispatch=False)
@@ -555,6 +581,7 @@ class StationPipeline:
     def end_observation(self) -> ObservationProducts:
         # the last drain and the flush gulp: spans of no fed second
         self._begin_call(spans.Record("end", self._nsec))
+        self.sync_ring()
         if self._pending is not None:
             self._drain(*self._pending)
             self._pending = None
@@ -623,7 +650,11 @@ class StationPipeline:
                         self._fb.append(packed)
                     for tap in self.block_taps:
                         tap(self.station_id, self._taps_offset, packed)
-                    self._taps_offset += packed.shape[0]
+        if self.device_taps:
+            with rec.span("drain"):
+                for tap in self.device_taps:
+                    tap(self.station_id, self._taps_offset, packed_dev)
+        self._taps_offset += int(packed_dev.shape[0])
         if self._search_live:
             with rec.span("search"):
                 self._cands.extend(self._search_ready())
@@ -704,10 +735,72 @@ class StationPipeline:
         return self.search.search_gulp_packed(
             packed, self.cfg.nbit, t_offset=self._searched_to)
 
+    def on_ring(self, fn: Callable, *args) -> Future:
+        """fn(*args) on the ring's thread, once the writes of the seconds
+        fed so far are done; its Future.  A ring more than its depth of
+        writes behind makes the caller wait for the oldest."""
+        while self._ring_jobs and (self._ring_jobs[0].done()
+                                   or len(self._ring_jobs) >= self.ring.nbufs):
+            self._ring_jobs.popleft().result()     # raises a job's error
+        job = self._ring_thread.submit(fn, *args)
+        self._ring_jobs.append(job)
+        return job
+
+    def sync_ring(self) -> None:
+        """Wait for every job queued on the ring's thread."""
+        while self._ring_jobs:
+            self._ring_jobs.popleft().result()
+
+    def _ring_write(self, data: np.ndarray, sec: float, flags: int,
+                    rec: spans.Record) -> None:
+        """The ring's thread: one second into the ring, its span "ring"
+        (outside its feed_second call's) in the second's record."""
+        t = time.perf_counter()
+        self.ring.write(data, timestamp=sec, flags=flags, overwrite=True)
+        t1 = time.perf_counter()
+        rec.add("ring", t, t1, parent=None)
+        self.host_seconds["ring"].append(t1 - t)
+
     def close(self) -> None:
-        """Unlink the ring's shared memory."""
+        """Wait for the ring's thread; unlink the ring's shared memory."""
         if self.ring is not None:
-            self.ring.close(unlink=True)
+            try:
+                self.sync_ring()
+            finally:
+                self._ring_thread.shutdown()
+                self.ring.close(unlink=True)
+
+
+class _InPlace(np.ndarray):
+    """A ring slot's bytes in place (RingBuffer.slot_view).  tobytes gives
+    them as a memoryview, which a file's write takes as it is: the
+    dumper writes a slot with no copy of it.  A copy of a second of
+    production baseband (256 MB into fresh pages) holds the interpreter's
+    lock for up to ~0.9 s on an H100's host, and so stalls the station
+    loop."""
+
+    def tobytes(self, order="C"):
+        return memoryview(self)
+
+
+class _DumpReader:
+    """A station's ring as its TriggeredDumper reads it on the ring's
+    thread (StationPipeline.on_ring), where no write runs meanwhile: the
+    resident slots and their timestamps as the ring gives them, each
+    slot's bytes in place."""
+
+    def __init__(self, ring: RingBuffer):
+        self._ring = ring
+
+    def resident(self):
+        return self._ring.resident()
+
+    def slot_timestamp(self, seq: int) -> float:
+        return self._ring.slot_timestamp(seq)
+
+    def peek(self, seq: int):
+        got = self._ring.slot_view(seq)
+        return None if got is None else (got[0].view(_InPlace), got[1])
 
 
 COADD_BEAM = -1   # pseudo-beam id of the coadded stream
@@ -718,13 +811,20 @@ class CoaddSearcher:
 
     The reference's sqrt(N) sensitivity path (agdadacoadd reduces every
     antenna's coadd ring and agtriggerhook searches the sum): the
-    stations' block taps feed packed blocks; once every station has
-    delivered a sample range, the dequantized sum, scaled by 1/sqrt(N)
-    and stored as float16, enters a gulp search identical to the
-    per-beam one, on `device` through the dedispersion kernel's f32
-    entry.  Candidates carry beam COADD_BEAM.  The host sum is the JAX
-    package's numpy, so the float16 stream is bit-equal to its own.
-    """
+    stations' taps feed packed blocks, as the program's rows on the
+    device (StationPipeline.device_taps) or as host bytes; once every
+    station has delivered a sample range, the dequantized sum, scaled by
+    1/sqrt(N) and stored as float16, is made on `device` and enters a
+    gulp search identical to the per-beam one, through the dedispersion
+    kernel's f32 entry.  Candidates carry beam COADD_BEAM.  The sum adds
+    the antennas in turn in float32, as the JAX package's numpy sums a
+    stack over its first axis, so the float16 stream is bit-equal to its
+    own.
+
+    Each sample range summed is a record of utils/spans (layer "coadd",
+    id the range's index since the last reset, in `records`): its spans
+    "sum" (the dequantize, sum, scale and cast, dispatched) and "search"
+    (the gulp searches the range completed)."""
 
     def __init__(self, station_ids: List[int], cfg: PipelineConfig,
                  scfg: SearchConfig, nsub: int = 0, nbatch: int = 0,
@@ -748,9 +848,8 @@ class CoaddSearcher:
         self._co, self._searched_to = GulpStream(), 0
         self.cands: List[dd.Candidate] = []
         self.gulps = 0          # gulps searched since the last reset
-        # the host's seconds since the last reset: dequantizing and
-        # summing the stations' blocks, and the gulp searches
-        self.host_seconds = {"sum": 0.0, "search": 0.0}
+        self.ranges = 0         # sample ranges summed since the last reset
+        self.records = collections.deque(maxlen=spans.SECOND_RECORDS)
 
     def prewarm(self) -> None:
         """Once, before the first block: one near-zero float16 gulp through
@@ -765,10 +864,10 @@ class CoaddSearcher:
         torch.cuda.synchronize(self.device)
         self._prewarmed = True
 
-    def tap(self, station_id: int, offset: int, packed: np.ndarray) -> None:
-        """StationPipeline block tap: collect, and coadd whatever sample
-        range every station has now delivered.  Blocks of retired stations
-        are dropped.
+    def tap(self, station_id: int, offset: int, packed) -> None:
+        """StationPipeline tap: collect a packed block (a tensor, or host
+        bytes), and coadd whatever sample range every station has now
+        delivered.  Blocks of retired stations are dropped.
 
         Lockstep is checked: each station's `offset` must continue where
         its last block ended.  A gap is zero-filled in filterbank space,
@@ -824,13 +923,14 @@ class CoaddSearcher:
             return ("pad", n), (("pad", rest) if rest > 0 else None)
         return b[:n], (b[n:] if b.shape[0] > n else None)
 
-    def _blk_fb(self, b) -> np.ndarray:
-        """Dequantize a packed entry; a pad is zero filterbank (zero adds
-        nothing to the sum)."""
+    def _blk_fb(self, b) -> torch.Tensor:
+        """Dequantize a packed entry on the device; a pad is zero
+        filterbank (zero adds nothing to the sum)."""
         if isinstance(b, tuple):
-            return np.zeros((b[1], self.cfg.nchanout), np.float32)
-        return search_mod.filterbank_from_packed(
-            b, self.cfg.nbit, self.cfg.nchanout)
+            return torch.zeros((b[1], self.cfg.nchanout), dtype=torch.float32,
+                               device=self.device)
+        return q_ops.dequantize(torch.as_tensor(b, device=self.device),
+                                self.cfg.nbit)[:, :self.cfg.nchanout]
 
     def _advance(self) -> None:
         while self.station_ids and all(
@@ -849,14 +949,19 @@ class CoaddSearcher:
                         self._pending[sid].insert(0, rest)
                     head.append(first)
                 blocks = head
-            t = time.perf_counter()
-            fbs = np.stack([self._blk_fb(b) for b in blocks])
-            co = fbs.sum(axis=0) * np.float32(1.0 / np.sqrt(len(fbs)))
-            # float16 halves the window's bytes, on the host and on their
-            # way to the device; values are O(10) sums of levels
-            self._co.append(co.astype(np.float16))
-            self.host_seconds["sum"] += time.perf_counter() - t
-            self.cands.extend(self._search_ready())
+            rec = spans.Record("coadd", self.ranges)
+            self.ranges += 1
+            with rec.span("sum"):
+                co = self._blk_fb(blocks[0])
+                for b in blocks[1:]:
+                    co += self._blk_fb(b)
+                co *= float(np.float32(1.0 / np.sqrt(len(blocks))))
+                # float16 halves the window's bytes; values are O(10)
+                # sums of levels
+                self._co.append(co.to(torch.float16))
+            with rec.span("search"):
+                self.cands.extend(self._search_ready())
+            self.records.append(rec)
 
     def _search_ready(self, flush: bool = False) -> List[dd.Candidate]:
         gulp = self.scfg.gulp_samps
@@ -866,11 +971,9 @@ class CoaddSearcher:
         while total - self._searched_to >= gulp + overlap or (
                 flush and total - self._searched_to > overlap + 64):
             stop = min(self._searched_to + gulp + overlap, total)
-            t = time.perf_counter()
             block = self._co.window(self._searched_to, stop)
             out.extend(self.search.search_gulp(
                 block, t_offset=self._searched_to))
-            self.host_seconds["search"] += time.perf_counter() - t
             self.gulps += 1
             self._searched_to += min(gulp, block.shape[0] - overlap)
             self._co.prune(self._searched_to)
@@ -887,28 +990,31 @@ class ArrayPipeline:
     """N stations on one device, the coadd search, the coincidencer and the
     triggered dumps (the cluster roles of messenger, trigger.py and the
     dumper on one host).  Every station's work goes to the device's one
-    stream."""
+    stream; the coadd sums the stations' rows where they are, on the
+    device (their device taps), so that a station copies its rows to the
+    host only for a .fil."""
 
     def __init__(self, acfg: ArrayConfig, out_dir: Optional[str] = None,
                  keep_rings: bool = True, search_coadd: bool = True,
-                 device="cuda"):
+                 device="cuda", ring_seconds: int = 40):
         self.acfg = acfg
         self.out_dir = out_dir or os.path.join(tempfile.gettempdir(),
                                                "vfast")
         self.stations = [
             StationPipeline(a.station_id, acfg.pipeline, acfg.search,
-                            out_dir=self.out_dir, keep_ring=keep_rings,
-                            device=device)
+                            out_dir=self.out_dir, ring_seconds=ring_seconds,
+                            keep_ring=keep_rings, device=device)
             for a in acfg.antennas]
         self.tcfg = acfg.trigger
         self.log = make_logger("array")
+        self._dump_lock = threading.Lock()
         self.coadd: Optional[CoaddSearcher] = None
         if search_coadd and len(self.stations) >= 2:
             self.coadd = CoaddSearcher(
                 [st.station_id for st in self.stations], acfg.pipeline,
                 acfg.search, device=device)
             for st in self.stations:
-                st.block_taps.append(self.coadd.tap)
+                st.device_taps.append(self.coadd.tap)
 
     def prewarm(self) -> None:
         """Each station's programs and the coadd's search, once (the
@@ -920,22 +1026,30 @@ class ArrayPipeline:
 
     def run_streaming(self, per_ant_seconds: Dict[int, Iterable],
                       od: ObservationDocument,
-                      coincide_every_s: int = 8) -> dict:
+                      coincide_every_s: int = 8,
+                      write_fil: bool = True) -> dict:
         """Interleaved serving: every data-second is dispatched for all
         stations before any of them drains (the device's queue overlaps
         the antennas), and coincidence and triggering run every
         `coincide_every_s` seconds instead of at the observation's end.
-        The result's "trigger_seconds" holds, for each trigger, the data
-        seconds fed when it was raised."""
+        Each second is taken from its station's iterable when the loop
+        comes to it, as it arrives.  A trigger's dumps run on the
+        stations' ring threads (StationPipeline.on_ring), behind the ring
+        writes of the seconds fed before it and ahead of the later ones,
+        and write each slot from the ring in place (_DumpReader), one
+        station at a time, so that the loop goes on meanwhile.  The
+        result's "trigger_seconds" holds, for each trigger, the data
+        seconds fed when it was raised; its "dumps" every dump, once
+        done."""
         iters = {st.station_id: iter(per_ant_seconds[st.station_id])
                  for st in self.stations}
         if self.coadd is not None:
             self.coadd.reset()
             self.coadd.prewarm()
         for st in self.stations:
-            st.begin_observation(od)
+            st.begin_observation(od, write_fil=write_fil)
         dumpers = {st.station_id: TriggeredDumper(
-            st.ring, os.path.join(self.out_dir, "dumps"),
+            _DumpReader(st.ring), os.path.join(self.out_dir, "dumps"),
             station_id=st.station_id, max_dump_s=self.tcfg.max_dump_s)
             for st in self.stations if st.ring is not None}
         triggers: List[trig.Trigger] = []
@@ -965,11 +1079,15 @@ class ArrayPipeline:
             self.coadd.finish()
         self._coincide_and_dump(od, triggers, dumps, dumpers, sent)
         at += [nsec] * (len(triggers) - len(at))
-        return {"products": products, "triggers": triggers, "dumps": dumps,
+        return {"products": products, "triggers": triggers,
+                "dumps": [r for r in (d.result() for d in dumps) if r],
                 "coadd_candidates": list(self.coadd.cands)
                 if self.coadd else [], "trigger_seconds": at}
 
     def _coincide_and_dump(self, od, triggers, dumps, dumpers, sent):
+        """The coincidence of every beam's candidates so far; each new
+        trigger's dumps queued on the rings' threads (`dumps`: their
+        Futures)."""
         utc0 = min((st._t0_unix or od.start_time for st in self.stations),
                    default=od.start_time)
         per_beam = {st.station_id: list(st._cands) for st in self.stations}
@@ -985,10 +1103,17 @@ class ArrayPipeline:
                 continue
             sent.add(key)
             triggers.append(t)
-            for d in dumpers.values():
-                rec = d.dump(t)
-                if rec:
-                    dumps.append(rec)
+            for st in self.stations:
+                if st.station_id in dumpers:
+                    dumps.append(st.on_ring(self._dump,
+                                            dumpers[st.station_id], t))
+
+    def _dump(self, dumper: TriggeredDumper, t: trig.Trigger):
+        """One station's dump of trigger t, on its ring's thread.  One
+        station dumps at a time: the dumps' file writes then take one of
+        the host's cores, not one a station, beside the loop."""
+        with self._dump_lock:
+            return dumper.dump(t)
 
     def run_observation(self, per_ant_seconds: Dict[int, Iterable],
                         od: ObservationDocument) -> dict:

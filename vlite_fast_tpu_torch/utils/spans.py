@@ -3,9 +3,10 @@ goes, inside StationPipeline, and an array step call's, inside
 parallel/sharded_pipeline.
 
 A Record is one data-second (layer "second", id its index in the
-observation), one gulp (layer "gulp", id its index in the observation)
-or one call of the sharded array step (layer "call", id the call's index
-in the observation).  It holds
+observation), one gulp (layer "gulp", id its index in the observation),
+one call of the sharded array step (layer "call", id the call's index
+in the observation) or one sample range of the host runtime's coadd
+(layer "coadd", runtime/pipeline.CoaddSearcher).  It holds
 
   spans     host spans (Span: name, start, end on time.perf_counter, the
             name of the span that encloses it, the record's id), in the
@@ -19,8 +20,9 @@ in the observation).  It holds
   device_s  the device's span from the first mark to the last
 
 A data-second's spans: "second" (the feed_second call), and inside it the
-host parts "ring", "staging", "program" (the program's dispatch), "copy",
-"wait", "drain" and "search".  A gulp's: "gulp" (from the start of the
+host parts "staging", "program" (the program's dispatch), "copy", "wait",
+"drain" and "search"; and "ring", the second's write into its station's
+ring, on the ring's thread, outside the call.  A gulp's: "gulp" (from the start of the
 feed_second call that handed over its last row to its candidates), and
 inside it "lag" (to its dispatch), "dispatch", "wait" (the crossings'
 fetch: the card's queue ahead and the gulp's own device time), "decode",
@@ -29,6 +31,10 @@ program's host work after the fetch (the card's queue is then empty):
 from the fetch's return to the end of the call, and from the start of
 each later call to the next dispatch of a program or a gulp onto the
 card, leaving out the caller's time between calls.
+
+A coadd range's: "sum" (the dequantize, sum, scale and cast of every
+station's rows, dispatched) and "search" (the gulp searches the range
+completed).
 
 A call's: "call" (the caller's, around the step, the gather and the
 extraction), and inside it "dispatch" (the step's host time), "gather"
